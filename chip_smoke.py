@@ -6,21 +6,33 @@
 Phases, each fatal on failure (the script then exits non-zero and prints no
 result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
-     and the build of every CUDA kernel from `vsc22_tpu_torch/csrc/`;
-  2. K1 and K2 against their plain PyTorch versions on the card, at a full
-     128-frame chunk of each model (ViT-B/32, CLIP ViT-L/14), in float32
-     (TF32 off) and bfloat16: max error and the share of elements that
-     differ, against the stated bounds; median kernel and plain times;
-  3. the slice end to end: first on a small input, the port on the card
-     against the port's plain path on the CPU (same weights, float32);
-     then at full width -- ViT-B/32@384 descriptor, CLIP ViT-L/14 + VSM
-     base VED gate (bf16, random weights from a seeded torch.Generator),
-     FSD, PCA(512), query score-norm -- over 24 synthetic 32-frame 360x640
-     videos, checking finite 512-d rows, that both models ran full
-     128-frame chunks, and that every kernel's launch count grew by what
-     the models' depths require; then K3 against its plain version on the
-     operands score-norm gave it in the warm-up pass;
-  4. a JSON line of per-kernel numbers, then the device line.
+     and the build of every CUDA kernel from `vsc22_tpu_torch/csrc/`, one
+     nvcc per source, all started together;
+  2. each kernel against its plain PyTorch version on the card, in float32
+     (TF32 off) and bfloat16: K1 and K2 at a full 128-frame chunk of each
+     model (ViT-B/32, CLIP ViT-L/14); B1 at all four SwinV2-Base stage
+     shapes of a 128-frame chunk, shifted and unshifted where the stage has
+     both; B6 and B7 at the stage 1 and stage 4 shapes. Max error and the
+     share of elements that differ, against the stated bounds; median
+     kernel, plain and (where one PyTorch call computes the function)
+     library times, and the least time the card could take (the bound);
+  3. the slice end to end: first on a small input (tiny ViT + three tiny
+     SwinV2 members on the module path, i.e. B6 and B7), the port on the
+     card against the port's plain path on the CPU (same weights, float32);
+     then at full width -- ViT-B/32@384 + three SwinV2-Base@256 descriptor
+     members, CLIP ViT-L/14 + VSM base VED gate (bf16, random weights from
+     a seeded torch.Generator), FSD, PCA(2048 -> 512), query score-norm --
+     over 24 synthetic 32-frame 360x640 videos, checking finite 512-d rows,
+     that the models ran full 128-frame chunks, and that every kernel's
+     launch count grew by what the models' depths require; the pass's stage
+     split and, in one more pass under torch.profiler, its device time by
+     kernel; then K3 against its plain version on the operands score-norm
+     gave it in the warm-up pass;
+  4. the SwinV2 path cross-check: one SwinV2-Base member in float32 on 16
+     frames, with the default block dispatch (B1, and B6 + B7 in stage 4)
+     and with `fused_block=False` (B6 + B7 everywhere): the L2-normalised
+     descriptors agree to 1e-3;
+  5. a JSON line of per-kernel numbers, then the device line.
 
 Needs CUDA (it refuses to run without) and no network; builds in
 `vsc22_tpu_torch/_build/`. It imports nothing of JAX or of the JAX package.
@@ -33,9 +45,11 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def synth_videos(n_videos: int, frames: int, h: int, w: int, seed: int = 0):
@@ -104,6 +118,55 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
+# --- the least time the card could take ------------------------------------
+
+# One NVIDIA H100 SXM at its full 700 W (published datasheet peaks):
+# bf16 dense tensor-core rate, float32 rate outside the tensor cores
+# (the port's f32 GEMMs run with TF32 off), HBM bandwidth.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(flops: float, nbytes: float, dtype) -> dict:
+    """bound_ms = max(operations / peak rate of their type, bytes / HBM rate):
+    each input read once, each output written once."""
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def work_attn_proj(b, l, c, h, isz):
+    """K1: QK^T and PV per head, the projection; x, qkv, W, b in, out."""
+    flops = 4 * b * h * l * l * (c // h) + 2 * b * l * c * c
+    return flops, (5 * b * l * c + c * c) * isz + 4 * c
+
+
+def work_mlp(m, c, hidden, isz, ln=True):
+    """K2 / B7: two products; x, W1, W2 in, out (biases, LN params f32)."""
+    return 4 * m * c * hidden, (2 * m * c + 2 * c * hidden) * isz + 4 * (hidden + c * (3 if ln else 1))
+
+
+def work_window_attn(w, h, n, hd, nw, isz):
+    """B6: q k^T and P v per (window, head); q, k, v in, out; rpb, mask."""
+    return 4 * w * h * n * n * hd, 4 * w * h * n * hd * isz + 4 * (h * n * n + nw * n * n + h)
+
+
+def work_swin_block(w, n, c, h, f, nw, isz):
+    """B1: QKV, proj, fc1, fc2 and the attention core; x in, out; weights;
+    the f32 vectors, rpb and (shifted blocks) the mask."""
+    m = w * n
+    weights = 4 * c * c + 2 * c * f
+    flops = 2 * m * weights + 4 * w * h * n * n * (c // h)
+    mask = nw * n * n if nw > 1 else 0
+    return flops, (2 * m * c + weights) * isz + 4 * (9 * c + f + h * n * n + h + mask)
+
+
+def work_row_max(nq, nr, d):
+    """K3: f32 products of f16-rounded rows; queries, refs in, row max out."""
+    return 2 * nq * nr * d, 4 * (nq * d + nr * d + nq)
+
+
 # --- phase 2: kernels against their plain versions ------------------------
 
 # float32: elementwise |kernel - plain| <= atol + rtol |plain|. Both sides
@@ -120,6 +183,14 @@ ROW_MAX_TOL = (1e-5, 0.0)  # f16 operands, exact f32 products, f32 sums
 # probabilities, hidden) changes 30-50% of them.
 BF16_ATOL = 2.0**-7
 BF16_MAX_SHARE = 0.02
+# B1 (the whole SwinV2 block, `block=True`) rounds seven times inside, the
+# residual stream x1 among them, and out = x1 + LN2(...): one x1 that rounds
+# the other way moves the output by one ulp of |x1|, the scale of the
+# block's largest activations. So its atol is one bf16 ulp at max |plain|.
+# Its share limit stays 2%: on the card, summation order alone changes
+# 0.1-0.4% of B1's outputs at the four SwinV2-Base stage shapes, while each
+# single rounding left out or added changes 30-61% of them (a CPU
+# simulation at the same widths).
 
 
 def bf16_ulp(y: torch.Tensor) -> torch.Tensor:
@@ -127,39 +198,56 @@ def bf16_ulp(y: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(y.abs().clamp_min(2.0**-126))) - 7)
 
 
-def agreement(got: torch.Tensor, want: torch.Tensor, tol) -> tuple:
-    """(ok, max_abs_err, share of elements that differ, the bound in words)."""
+def agreement(got: torch.Tensor, want: torch.Tensor, tol, block: bool = False,
+              max_share: float = BF16_MAX_SHARE) -> tuple:
+    """(ok, max_abs_err, share of elements that differ, the bound in words).
+    `block` selects B1's bf16 atol; `max_share` bounds the bf16 share."""
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
     share = float((got != want).float().mean())
     if got.dtype == torch.bfloat16:
-        ok = bool((diff <= BF16_ATOL + 2 * bf16_ulp(want.float())).all())
-        ok = ok and share <= BF16_MAX_SHARE
-        words = (f"tol atol {BF16_ATOL:g} + 2 bf16 ulps, differing share {share:.4%} "
-                 f"(limit {BF16_MAX_SHARE:.0%})")
+        atol = float(bf16_ulp(want.float().abs().max())) if block else BF16_ATOL
+        limit = max_share
+        ok = bool((diff <= atol + 2 * bf16_ulp(want.float())).all())
+        ok = ok and share <= limit
+        words = (f"tol atol {atol:g} + 2 bf16 ulps, differing share {share:.4%} "
+                 f"(limit {limit:.0%})")
     else:
         ok = bool((diff <= tol[0] + tol[1] * want.float().abs()).all())
         words = f"tol atol {tol[0]:g} rtol {tol[1]:g}, differing share {share:.4%}"
     return ok, err, share, words
 
 
-def compare(name, kernel_fn, plain_fn, tol=F32_TOL, reps=10):
+def compare(name, kernel_fn, plain_fn, tol=F32_TOL, reps=10, block=False, work=None,
+            dtype=torch.float32, library_fn=None):
+    """Hold kernel_fn() against plain_fn() and time both (and library_fn(),
+    one PyTorch call computing the same function, where there is one)."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
     check(torch.isfinite(got).all().item(), f"{name}: non-finite kernel output")
-    ok, err, share, words = agreement(got, want, tol)
+    ok, err, share, words = agreement(got, want, tol, block)
+    del got, want
     ms = cuda_ms(kernel_fn, reps)
     plain_ms = cuda_ms(plain_fn, reps)
+    library_ms = cuda_ms(library_fn, reps) if library_fn is not None else None
+    res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               **bound(*work, dtype))
+    lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
     print(f"  {name}: max_abs_err {err:.3e} ({words}) {'ok' if ok else 'FAIL'}; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, bound {res['bound_ms']:.3f} ms "
+          f"({res['bound_by']})", flush=True)
     check(ok, f"{name}: kernel disagrees with its plain version (max_abs_err {err}, "
               f"differing share {share})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return res
 
 
 def randn(gen, shape, std, dtype, device):
     return (torch.randn(shape, generator=gen) * std).to(dtype).to(device)
+
+
+def dname(dt) -> str:
+    return "f32" if dt == torch.float32 else "bf16"
 
 
 def check_kernels(device) -> dict:
@@ -175,16 +263,17 @@ def check_kernels(device) -> dict:
     for tag, s in shapes.items():
         b, l, c, hidden = s["b"], s["l"], s["c"], s["hidden"]
         for dt in (torch.float32, torch.bfloat16):
-            dname = "f32" if dt == torch.float32 else "bf16"
+            isz = torch.empty((), dtype=dt).element_size()
             # A small residual and peaky softmax, so attention errors show.
             x = randn(gen, (b, l, c), 0.05, dt, device)
             qkv = randn(gen, (b, l, 3 * c), 1.5, dt, device)
             pw = randn(gen, (c, c), c**-0.5, dt, device)
             pb = randn(gen, (c,), 0.1, torch.float32, device)
-            results[("attn_proj_residual", tag, dname)] = compare(
-                f"attn_proj_residual {tag} {dname} [{b},{l},{c}] h={s['h']}",
+            results[("attn_proj_residual", tag, dname(dt))] = compare(
+                f"attn_proj_residual {tag} {dname(dt)} [{b},{l},{c}] h={s['h']}",
                 lambda: attn_proj.attn_proj_residual(x, qkv, pw, pb, s["h"]),
                 lambda: attn_proj.attn_proj_residual_reference(x, qkv, pw, pb, s["h"]),
+                work=work_attn_proj(b, l, c, s["h"], isz), dtype=dt,
             )
             rows = randn(gen, (b * l, c), 1.0, dt, device)
             ln_s = 1 + randn(gen, (c,), 0.1, torch.float32, device)
@@ -194,12 +283,111 @@ def check_kernels(device) -> dict:
             w2 = randn(gen, (c, hidden), hidden**-0.5, dt, device)
             b2 = randn(gen, (c,), 0.1, torch.float32, device)
             args = (rows, ln_s, ln_b, w1, b1, w2, b2, s["act"], s["eps"])
-            results[("ln_mlp_residual", tag, dname)] = compare(
-                f"ln_mlp_residual {tag} {dname} [{b * l},{c}] hidden={hidden} {s['act']}",
+            results[("ln_mlp_residual", tag, dname(dt))] = compare(
+                f"ln_mlp_residual {tag} {dname(dt)} [{b * l},{c}] hidden={hidden} {s['act']}",
                 lambda: mlp.ln_mlp_residual(*args),
                 lambda: mlp.ln_mlp_residual_reference(*args),
+                work=work_mlp(b * l, c, hidden, isz), dtype=dt,
             )
             del x, qkv, rows, w1, w2
+    torch.cuda.empty_cache()
+    return results
+
+
+# One 128-frame chunk of SwinV2-Base@256 per stage: (resolution, window, C, heads).
+SWIN_STAGES = {1: (64, 16, 128, 4), 2: (32, 16, 256, 8), 3: (16, 16, 512, 16),
+               4: (8, 8, 1024, 32)}
+
+
+def window_tables(gen, h, n, mask, device):
+    """rpb = 16 sigmoid(N(0, 1)) and scale = exp(N(2, 0.3^2)) (the learned
+    logit scale starts at ln 10), f32 on the card, beside the given mask."""
+    rpb = (16 * torch.sigmoid(torch.randn((h, n, n), generator=gen))).to(device)
+    scale = torch.exp(2 + 0.3 * torch.randn((h,), generator=gen)).to(device)
+    return rpb, scale, torch.as_tensor(mask).to(device)
+
+
+def sdpa_yardstick(q, k, v, rpb, scale, mask, nw):
+    """B6's function as one scaled_dot_product_attention call, on inputs
+    prepared outside the timed call: q̂ * scale[h], k̂ and the summed bias."""
+    w = q.shape[0]
+    qs = (F.normalize(q.float(), dim=-1) * scale[:, None, None]).to(q.dtype)
+    kn = F.normalize(k.float(), dim=-1).to(q.dtype)
+    idx = torch.arange(w, device=q.device) % nw
+    bias = (rpb[None] + mask[idx][:, None]).to(q.dtype)
+    return lambda: F.scaled_dot_product_attention(qs, kn, v, attn_mask=bias, scale=1.0)
+
+
+def check_swin_kernels(device) -> dict:
+    """B1 at every stage shape of a 128-frame chunk (shifted and unshifted
+    where the stage has both); B6 and B7 at the stage 1 and stage 4 shapes."""
+    from vsc22_tpu_torch.models.swinv2 import _shift_attn_mask
+    from vsc22_tpu_torch.ops import mlp, swin_block, window_attn
+
+    gen = torch.Generator().manual_seed(1)
+    results = {}
+    frames = 128
+    for stage, (res, window, c, h) in SWIN_STAGES.items():
+        n, per_item, f, hd = window * window, (res // window) ** 2, 4 * c, c // h
+        w = frames * per_item
+        for dt in (torch.float32, torch.bfloat16):
+            isz = torch.empty((), dtype=dt).element_size()
+            for shifted in ((False, True) if per_item > 1 else (False,)):
+                nw = per_item if shifted else 1
+                mask = (_shift_attn_mask(res, res, window, window // 2) if shifted
+                        else np.zeros((1, n, n), np.float32))
+                qkv_b = randn(gen, (3 * c,), 0.05, torch.float32, device)
+                qkv_b[c : 2 * c] = 0.0  # the zero k bias of the contract
+                args = (
+                    randn(gen, (w, n, c), 1.0, dt, device),
+                    randn(gen, (3 * c, c), c**-0.5, dt, device), qkv_b,
+                    randn(gen, (c, c), c**-0.5, dt, device),
+                    randn(gen, (c,), 0.05, torch.float32, device),
+                    1 + randn(gen, (c,), 0.1, torch.float32, device),
+                    randn(gen, (c,), 0.1, torch.float32, device),
+                    randn(gen, (f, c), c**-0.5, dt, device),
+                    randn(gen, (f,), 0.05, torch.float32, device),
+                    randn(gen, (c, f), f**-0.5, dt, device),
+                    randn(gen, (c,), 0.05, torch.float32, device),
+                    1 + randn(gen, (c,), 0.1, torch.float32, device),
+                    randn(gen, (c,), 0.1, torch.float32, device),
+                    *window_tables(gen, h, n, mask, device), h, nw,
+                )
+                case = f"stage{stage}{' shifted' if shifted else ''}"
+                results[("swin_block", case, dname(dt))] = compare(
+                    f"swin_block {case} {dname(dt)} [{w},{n},{c}] h={h} nW={nw}",
+                    lambda: swin_block.swin_block(*args),
+                    lambda: swin_block.swin_block_reference(*args),
+                    block=True, work=work_swin_block(w, n, c, h, f, nw, isz), dtype=dt,
+                )
+                del args
+            if stage not in (1, 4):
+                continue
+            nw = per_item
+            mask = (_shift_attn_mask(res, res, window, window // 2) if per_item > 1
+                    else np.zeros((1, n, n), np.float32))
+            q, k, v = (randn(gen, (w, h, n, hd), 1.0, dt, device) for _ in range(3))
+            args = (q, k, v, *window_tables(gen, h, n, mask, device), nw)
+            results[("window_attention", f"stage{stage}", dname(dt))] = compare(
+                f"window_attention stage{stage} {dname(dt)} [{w},{h},{n},{hd}] nW={nw}",
+                lambda: window_attn.window_attention(*args),
+                lambda: window_attn.window_attention_reference(*args),
+                work=work_window_attn(w, h, n, hd, nw, isz), dtype=dt,
+                library_fn=sdpa_yardstick(*args),
+            )
+            del q, k, v, args
+            rows = w * n
+            args = (randn(gen, (rows, c), 1.0, dt, device),
+                    randn(gen, (f, c), c**-0.5, dt, device), randn(gen, (f,), 0.05, dt, device),
+                    randn(gen, (c, f), f**-0.5, dt, device), randn(gen, (c,), 0.05, dt, device))
+            results[("fused_mlp", f"stage{stage}", dname(dt))] = compare(
+                f"fused_mlp stage{stage} {dname(dt)} [{rows},{c}] hidden={f}",
+                lambda: mlp.fused_mlp(*args),
+                lambda: mlp.fused_mlp_reference(*args),
+                work=work_mlp(rows, c, f, isz, ln=False), dtype=dt,
+            )
+            del args
+            torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     return results
 
@@ -208,9 +396,11 @@ def check_kernels(device) -> dict:
 
 
 def build_slice(device, full: bool, seed: int = 0):
-    """(pipeline, noise corpus, models) with seeded random weights."""
+    """(pipeline, noise corpus, models) with seeded random weights: the ViT
+    member, three SwinV2 members (each with its own weights) and the VED
+    gate."""
     from vsc22_tpu_torch.core.types import VideoFeature
-    from vsc22_tpu_torch.models import clip, vit, vsm
+    from vsc22_tpu_torch.models import clip, swinv2, vit, vsm
     from vsc22_tpu_torch.models.layers import reset_parameters
     from vsc22_tpu_torch.ops.pca import pca_fit
     from vsc22_tpu_torch.pipelines.batch_query import (
@@ -220,28 +410,29 @@ def build_slice(device, full: bool, seed: int = 0):
     )
 
     if full:
-        models = (
-            vit.vit_base_patch32_384_descriptor(torch.bfloat16, device),
-            clip.clip_vit_l14(torch.bfloat16, device),
-            vsm.vsm_base(torch.bfloat16, device),
-        )
-        size, out, max_frames, chunk = 384, 512, 256, 128
+        vit_m = vit.vit_base_patch32_384_descriptor(torch.bfloat16, device)
+        swins = [swinv2.swinv2_base_256_descriptor(torch.bfloat16, device) for _ in range(3)]
+        clip_m = clip.clip_vit_l14(torch.bfloat16, device)
+        vsm_m = vsm.vsm_base(torch.bfloat16, device)
+        vit_size, swin_size, out, max_frames, chunk = 384, 256, 512, 256, 128
     else:
-        models = (
-            vit.vit_tiny_test_descriptor(torch.float32, device),
-            clip.clip_tiny_test(torch.float32, device),
-            vsm.VideoScoreModel(vsm.VSMConfig(feat_dim=32, hidden=32, layers=1, heads=2,
-                                              max_frames=8), torch.float32, device),
-        )
-        size, out, max_frames, chunk = 64, 8, 8, 4
+        vit_m = vit.vit_tiny_test_descriptor(torch.float32, device)
+        swins = [swinv2.swinv2_tiny_test_descriptor(torch.float32, device) for _ in range(3)]
+        clip_m = clip.clip_tiny_test(torch.float32, device)
+        vsm_m = vsm.VideoScoreModel(vsm.VSMConfig(feat_dim=32, hidden=32, layers=1, heads=2,
+                                                  max_frames=8), torch.float32, device)
+        vit_size, swin_size, out, max_frames, chunk = 64, 32, 8, 8, 4
     gen = torch.Generator().manual_seed(seed)
-    for m in models:
+    for m in (vit_m, *swins, clip_m, vsm_m):
         reset_parameters(m, gen)
-    vit_m, clip_m, vsm_m = models
+    extractors = [BatchedExtractor(vit_m, vit_size, "efficientnet", chunk)] + [
+        BatchedExtractor(m, swin_size, "vit", chunk) for m in swins
+    ]
+    feat_dim = sum(e.model.out_dim for e in extractors)
     rng = np.random.default_rng(0)
-    pca = pca_fit(rng.standard_normal((2048, vit_m.out_dim)).astype(np.float32), out, device)
+    pca = pca_fit(rng.standard_normal((2048, feat_dim)).astype(np.float32), out, device)
     pipe = BatchedQueryPipeline(
-        [BatchedExtractor(vit_m, size, "efficientnet", chunk)],
+        extractors,
         pca=pca,
         ved=BatchedVED(clip_m, vsm_m, max_frames, chunk),
         use_fsd=True,
@@ -257,7 +448,7 @@ def build_slice(device, full: bool, seed: int = 0):
         )
         for i in range(100)
     ]
-    return pipe, noise, models
+    return pipe, noise, dict(vit=vit_m, swins=swins, clip=clip_m, vsm=vsm_m)
 
 
 def run_slice(pipe, noise, names, videos, device, dev_videos=None, batch=24):
@@ -271,18 +462,31 @@ def run_slice(pipe, noise, names, videos, device, dev_videos=None, batch=24):
     return feats, normed
 
 
-def check_small_slice(device) -> None:
+def zero_counts(wrappers) -> None:
+    for w in wrappers:
+        w.launches = 0
+
+
+def counts(wrappers) -> dict:
+    return {w.__name__: w.launches for w in wrappers}
+
+
+def check_small_slice(device, wrappers) -> None:
     """The port on the card against the port's plain path on the CPU, at
-    the tiny configs in float32 with identical weights."""
+    the tiny configs in float32 with identical weights. The tiny SwinV2
+    members take the module path, so B6 and B7 run on the card here."""
     videos = synth_videos(8, 6, 128, 128)
     names = [f"Q{i:06d}" for i in range(len(videos))]
     cpu_pipe, noise, _ = build_slice("cpu", full=False)
     gpu_pipe = copy.deepcopy(cpu_pipe)
     gpu_pipe.device = torch.device(device)
-    for m in (gpu_pipe.extractors[0].model, gpu_pipe.ved.clip_model, gpu_pipe.ved.vsm_model):
+    for m in [e.model for e in gpu_pipe.extractors] + [gpu_pipe.ved.clip_model,
+                                                        gpu_pipe.ved.vsm_model]:
         m.to(device)
     want_f, want_n = run_slice(cpu_pipe, noise, names, videos, "cpu", batch=4)
+    zero_counts(wrappers)
     got_f, got_n = run_slice(gpu_pipe, noise, names, videos, device, batch=4)
+    launches = counts(wrappers)
     err = 0.0
     for w, g, wn, gn in zip(want_f, got_f, want_n, got_n):
         check(w.video_id == g.video_id, "small slice: names differ")
@@ -292,8 +496,11 @@ def check_small_slice(device) -> None:
                   float(np.abs(wn.feature - gn.feature).max()))
     score_err = max(abs(cpu_pipe.video_scores[n] - gpu_pipe.video_scores[n]) for n in names)
     print(f"  small slice (tiny configs, f32): card vs CPU plain path: features max_abs_err "
-          f"{err:.3e} (tol 1e-3), VED scores {score_err:.3e} (tol 1e-4)", flush=True)
+          f"{err:.3e} (tol 1e-3), VED scores {score_err:.3e} (tol 1e-4); launches {launches}",
+          flush=True)
     check(err <= 1e-3 and score_err <= 1e-4, "small slice: card and CPU disagree")
+    check(launches["window_attention"] > 0 and launches["fused_mlp"] > 0,
+          "small slice: the tiny SwinV2 members did not run B6 and B7 on the card")
 
 
 def record_chunks(module) -> list:
@@ -326,40 +533,170 @@ def capture_row_max_operands(run) -> list:
     return seen
 
 
+def stage_split(pipe, run) -> dict:
+    """Seconds per pipeline stage over run(), host clock with a device sync
+    at both edges of each stage (so the stages do not overlap, as they do
+    not in the unsplit pass): VED, FSD, each extractor's model, the shared
+    crop-resize, and the rest (dedup, PCA, score-norm, host glue)."""
+    times: dict = {}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    names = ["extract ViT-B/32"] + [f"extract SwinV2 {i + 1}"
+                                    for i in range(len(pipe.extractors) - 1)]
+    patched = [(pipe.ved, "scores", "VED"), (pipe, "_fsd_boxes", "FSD"),
+               (pipe, "_extract", "extract stage")]
+    patched += [(e, "extract", n) for e, n in zip(pipe.extractors, names)]
+    for obj, attr, name in patched:
+        setattr(obj, attr, timed(name, getattr(obj, attr)))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for obj, attr, _ in patched:
+            delattr(obj, attr)
+    models = sum(times[n] for n in names)
+    split = {"VED": times["VED"], "FSD": times["FSD"]}
+    split.update({n: times[n] for n in names})
+    split["crop-resize"] = times["extract stage"] - models
+    split["rest"] = total - times["VED"] - times["FSD"] - times["extract stage"]
+    split["total"] = total
+    return split
+
+
+def profile_pass(run) -> None:
+    """run() under torch.profiler: device time by kernel (device events
+    only, so no kernel counts twice under the op that launched it), its
+    share of all device time, calls, and the device's idle share of the
+    wall clock under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_s = sum(r[0] for r in rows) / 1e6
+    print(f"  profiled pass: wall {wall:.3f} s, device kernel time {device_s:.3f} s, "
+          f"device idle {1 - device_s / wall:.1%} of the wall (under the profiler)", flush=True)
+    for us, calls, key in sorted(rows, reverse=True)[:15]:
+        print(f"    {us / 1e6:8.3f} s {us / 1e6 / device_s:6.1%} {calls:7d} calls  {key[:110]}",
+              flush=True)
+
+
+# --- phase 4: the SwinV2 block paths ----------------------------------------
+
+
+def check_swin_paths(device, wrappers) -> dict:
+    """One SwinV2-Base member in float32 on a 16-frame chunk, under the
+    default block dispatch (B1 in stages 1-3; stage 4 takes the module path
+    in f32) and under `fused_block=False` (B6 + B7 in every block), with the
+    same weights: the L2-normalised descriptors agree to 1e-3. The card
+    counterpart of tests/test_swin_block_fused.py's path test."""
+    from vsc22_tpu_torch.models.layers import l2_normalize, reset_parameters
+    from vsc22_tpu_torch.models.swinv2 import swinv2_base_256_descriptor
+
+    fused = swinv2_base_256_descriptor(torch.float32, device)
+    reset_parameters(fused, torch.Generator().manual_seed(7))
+    module = swinv2_base_256_descriptor(torch.float32, device, fused_block=False)
+    module.load_state_dict(fused.state_dict())
+    gen = torch.Generator().manual_seed(8)
+    images = torch.randn((16, 256, 256, 3), generator=gen).to(device)
+    zero_counts(wrappers)
+    with torch.inference_mode():
+        a = l2_normalize(fused(images))
+        b = l2_normalize(module(images))
+    torch.cuda.synchronize()
+    launches = counts(wrappers)
+    err = float((a - b).abs().max())
+    print(f"  SwinV2-Base f32, 16 frames: default dispatch vs fused_block=False: "
+          f"descriptors max_abs_err {err:.3e} (tol 1e-3); launches {launches} "
+          f"(expected B1 22, B6 and B7 2 + 24)", flush=True)
+    check(bool(torch.isfinite(a).all()) and a.shape == (16, 512), "path check: bad descriptors")
+    check(err <= 1e-3, "path check: the two SwinV2 block paths disagree")
+    check(launches["swin_block"] == 22, "path check: B1 launch count")
+    check(launches["window_attention"] == 26 and launches["fused_mlp"] == 26,
+          "path check: B6/B7 launch counts")
+    del fused, module, images
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --- main -------------------------------------------------------------------
+
+LIBRARIES = ("attn_proj", "ln_mlp", "row_max", "window_attn", "swin_block")
+# name -> (source, the TPU kernel it replaces, the phase-2 case reported)
+KERNELS = {
+    "attn_proj_residual": ("vsc22_tpu_torch/csrc/attn_proj.cu",
+                           "vsc22_tpu/ops/pallas_attn_proj.py:144", ("clip", "bf16")),
+    "ln_mlp_residual": ("vsc22_tpu_torch/csrc/ln_mlp.cu",
+                        "vsc22_tpu/ops/pallas_mlp.py:147", ("clip", "bf16")),
+    "row_max_gemm": ("vsc22_tpu_torch/csrc/row_max.cu",
+                     "vsc22_tpu/ops/pallas_sim.py:57", ("score_norm", "f32")),
+    "swin_block": ("vsc22_tpu_torch/csrc/swin_block.cu",
+                   "vsc22_tpu/ops/pallas_swin_block.py:387", ("stage3", "bf16")),
+    "window_attention": ("vsc22_tpu_torch/csrc/window_attn.cu",
+                         "vsc22_tpu/ops/pallas_window_attn.py:71", ("stage4", "f32")),
+    "fused_mlp": ("vsc22_tpu_torch/csrc/ln_mlp.cu",
+                  "vsc22_tpu/ops/pallas_mlp.py:70", ("stage4", "f32")),
+}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 2
     from vsc22_tpu_torch.kernels import build
     from vsc22_tpu_torch.ops.attn_proj import attn_proj_residual
-    from vsc22_tpu_torch.ops.mlp import ln_mlp_residual
+    from vsc22_tpu_torch.ops.mlp import fused_mlp, ln_mlp_residual
     from vsc22_tpu_torch.ops.sim import row_max_gemm, row_max_gemm_reference
+    from vsc22_tpu_torch.ops.swin_block import swin_block
+    from vsc22_tpu_torch.ops.window_attn import window_attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    wrappers = (attn_proj_residual, ln_mlp_residual, row_max_gemm, swin_block,
+                window_attention, fused_mlp)
+    t_start = time.perf_counter()
 
     print("phase 1: card and build", flush=True)
     print(card, flush=True)
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
     t0 = time.perf_counter()
-    libs = ("attn_proj", "ln_mlp", "row_max")
-    for name in libs:
-        build.library(name)
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        list(pool.map(build.library, LIBRARIES))
+    for name in LIBRARIES:
         print(build.build_log(name), file=sys.stderr)
-    print(f"  built {', '.join(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  built {', '.join(LIBRARIES)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(f"phase 2: kernels vs plain on the card ({card})", flush=True)
     kres = check_kernels(device)
+    kres.update(check_swin_kernels(device))
 
     print(f"phase 3: the slice ({card})", flush=True)
-    check_small_slice(device)
+    check_small_slice(device, wrappers)
 
     t0 = time.perf_counter()
-    pipe, noise, (vit_m, clip_m, _) = build_slice(device, full=True)
+    pipe, noise, models = build_slice(device, full=True)
     videos = synth_videos(24, 32, 360, 640)
     names = [f"Q{i:06d}" for i in range(len(videos))]
     dev_videos = [torch.from_numpy(v).to(device) for v in videos]
@@ -373,15 +710,14 @@ def main() -> int:
     print(f"  warm-up pass {time.perf_counter() - t0:.2f} s", flush=True)
     check(len(row_max_calls) == 1, f"score-norm called K3 {len(row_max_calls)} times, not once")
 
-    vit_chunks, clip_chunks = record_chunks(vit_m), record_chunks(clip_m)
-    wrappers = (attn_proj_residual, ln_mlp_residual, row_max_gemm)
-    for w in wrappers:
-        w.launches = 0
+    vit_chunks, clip_chunks = record_chunks(models["vit"]), record_chunks(models["clip"])
+    swin_chunks = record_chunks(models["swins"][0])
+    zero_counts(wrappers)
     t0 = time.perf_counter()
     feats, normed = run_slice(pipe, noise, names, videos, device, dev_videos)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = counts(wrappers)
 
     for f in feats:
         check(f.feature.ndim == 2 and f.feature.shape[1] == 512 and len(f.feature) > 0,
@@ -391,16 +727,26 @@ def main() -> int:
         check(f.feature.shape[1] == 512 and bool(np.isfinite(f.feature).all()),
               f"{f.video_id}: bad score-normalized rows")
     per_pass = 12 * len(vit_chunks) + 24 * len(clip_chunks)
-    print(f"  launches {launches}; ViT chunks {vit_chunks}, CLIP chunks {clip_chunks} "
-          f"-> K1/K2 expected {per_pass} each, K3 >= 1", flush=True)
-    check(128 in vit_chunks and 128 in clip_chunks,
-          "no full 128-frame chunk: phase 2 checked K1/K2 at a shape the pass never gave them")
+    swin_pass = 24 * len(swin_chunks) * 3
+    print(f"  launches {launches}; ViT chunks {vit_chunks}, CLIP chunks {clip_chunks}, "
+          f"SwinV2 chunks {swin_chunks} (x3 members) -> K1/K2 expected {per_pass} each, "
+          f"B1 {swin_pass}, B6/B7 0 (bf16: every block fused), K3 >= 1", flush=True)
+    check(128 in vit_chunks and 128 in clip_chunks and 128 in swin_chunks,
+          "no full 128-frame chunk: phase 2 checked the kernels at a shape the pass never "
+          "gave them")
     check(launches["attn_proj_residual"] == per_pass, "K1 launch count")
     check(launches["ln_mlp_residual"] == per_pass, "K2 launch count")
     check(launches["row_max_gemm"] >= 1, "K3 launch count")
+    check(launches["swin_block"] == swin_pass, "B1 launch count")
+    check(launches["window_attention"] == 0 and launches["fused_mlp"] == 0,
+          "a bf16 SwinV2-Base block left the fused path")
     frames = sum(len(f.feature) for f in feats)
     print(f"  warm pass: {len(videos)} videos in {elapsed:.3f} s = "
           f"{len(videos) / elapsed:.3f} videos/s ({frames} kept frames) on {card}", flush=True)
+    split = stage_split(pipe, lambda: run_slice(pipe, noise, names, videos, device, dev_videos))
+    print("  stage split (a third pass, synchronised at each stage edge): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()), flush=True)
+    profile_pass(lambda: run_slice(pipe, noise, names, videos, device, dev_videos))
 
     # K3 on the very operands score-norm gave it in the warm-up pass.
     q, r = row_max_calls[0]
@@ -409,25 +755,26 @@ def main() -> int:
         "(the pass's own operands)",
         lambda: row_max_gemm(q, r),
         lambda: row_max_gemm_reference(q, r),
-        ROW_MAX_TOL,
+        ROW_MAX_TOL, work=work_row_max(q.shape[0], r.shape[0], q.shape[1]),
     )
+    del pipe, models, dev_videos, row_max_calls, q, r
+    torch.cuda.empty_cache()
 
-    sources = {
-        "attn_proj_residual": ("vsc22_tpu_torch/csrc/attn_proj.cu",
-                               "vsc22_tpu/ops/pallas_attn_proj.py:144", ("clip", "bf16")),
-        "ln_mlp_residual": ("vsc22_tpu_torch/csrc/ln_mlp.cu",
-                            "vsc22_tpu/ops/pallas_mlp.py:147", ("clip", "bf16")),
-        "row_max_gemm": ("vsc22_tpu_torch/csrc/row_max.cu",
-                         "vsc22_tpu/ops/pallas_sim.py:57", ("score_norm", "f32")),
-    }
+    print(f"phase 4: the SwinV2 block paths ({card})", flush=True)
+    path_launches = check_swin_paths(device, wrappers)
+    launches["window_attention"] = path_launches["window_attention"]
+    launches["fused_mlp"] = path_launches["fused_mlp"]
+
     kernels = []
-    for name, (src, replaces, (tag, dname)) in sources.items():
-        r = kres[(name, tag, dname)]
+    for name, (src, replaces, (tag, dn)) in KERNELS.items():
+        r = kres[(name, tag, dn)]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
-            plain_ms=r["plain_ms"], case=f"{tag} {dname}",
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], case=f"{tag} {dn}",
         ))
+    print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

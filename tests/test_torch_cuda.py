@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at
 ragged shapes the main path does not reach (odd rows and widths, head dims
-other than 64, tiny and single-row operands).
+other than 64 or 32, window sizes other than 16 and 8, tiny, single-row and
+single-window operands).
 
 Needs a CUDA device; skips elsewhere. The shared conftest imports JAX,
 which the GPU host lacks, so run it there without it:
@@ -11,9 +12,17 @@ which the GPU host lacks, so run it there without it:
 import pytest
 import torch
 
+import chip_smoke
 from vsc22_tpu_torch.ops.attn_proj import attn_proj_residual, attn_proj_residual_reference
-from vsc22_tpu_torch.ops.mlp import ln_mlp_residual, ln_mlp_residual_reference
+from vsc22_tpu_torch.ops.mlp import (
+    fused_mlp,
+    fused_mlp_reference,
+    ln_mlp_residual,
+    ln_mlp_residual_reference,
+)
 from vsc22_tpu_torch.ops.sim import row_max_gemm, row_max_gemm_reference
+from vsc22_tpu_torch.ops.swin_block import swin_block, swin_block_reference
+from vsc22_tpu_torch.ops.window_attn import window_attention, window_attention_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +112,86 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError):  # weights on the CPU
         ln_mlp_residual(torch.zeros(4, 8, device=device), torch.ones(8), torch.zeros(8),
                         torch.zeros(16, 8), torch.zeros(16), torch.zeros(8, 16), torch.zeros(8))
+
+
+def window_tables(gen, h, n, nw, device):
+    """rpb = 16 sigmoid(N(0,1)), scale = exp(N(2, 0.3^2)), and a shift-like
+    mask (-100 on 20% of the pairs; zeros for one window per item)."""
+    rpb = (16 * torch.sigmoid(torch.randn((h, n, n), generator=gen))).to(device)
+    scale = torch.exp(2 + 0.3 * torch.randn((h,), generator=gen)).to(device)
+    mask = torch.where(torch.rand((nw, n, n), generator=gen) > 0.8, -100.0, 0.0)
+    if nw == 1:
+        mask.zero_()
+    return rpb, scale, mask.to(device)
+
+
+# (W, N, C, H, nW): stage-1 and stage-2 classes with ragged window counts,
+# a stage-4 class, a single window, and windows of 36 and 16 tokens whose
+# row counts are no multiple of the 64-row tiles, with head dims 16 and 20.
+SWIN_CASES = [(16, 256, 128, 4, 16), (12, 256, 256, 8, 4), (3, 64, 128, 4, 1),
+              (1, 256, 128, 4, 1), (10, 36, 48, 3, 5), (7, 16, 40, 2, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w,n,c,h,nw", SWIN_CASES)
+def test_swin_block_ragged(device, dtype, w, n, c, h, nw):
+    gen = torch.Generator().manual_seed(w * n + c)
+    f = 4 * c
+    qkv_b = randn(gen, (3 * c,), 0.05, torch.float32, device)
+    qkv_b[c : 2 * c] = 0.0  # the zero k bias of the contract
+    args = (
+        randn(gen, (w, n, c), 1.0, dtype, device),
+        randn(gen, (3 * c, c), c**-0.5, dtype, device), qkv_b,
+        randn(gen, (c, c), c**-0.5, dtype, device), randn(gen, (c,), 0.05, torch.float32, device),
+        1 + randn(gen, (c,), 0.1, torch.float32, device), randn(gen, (c,), 0.1, torch.float32, device),
+        randn(gen, (f, c), c**-0.5, dtype, device), randn(gen, (f,), 0.05, torch.float32, device),
+        randn(gen, (c, f), f**-0.5, dtype, device), randn(gen, (c,), 0.05, torch.float32, device),
+        1 + randn(gen, (c,), 0.1, torch.float32, device), randn(gen, (c,), 0.1, torch.float32, device),
+        *window_tables(gen, h, n, nw, device), h, nw,
+    )
+    before = swin_block.launches
+    got = swin_block(*args)
+    assert swin_block.launches == before + 1
+    want = swin_block_reference(*args)
+    torch.cuda.synchronize()
+    ok, err, share, words = chip_smoke.agreement(got, want, chip_smoke.F32_TOL, block=True)
+    assert ok, (err, words)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w,h,n,hd,nw", [(32, 4, 256, 32, 16), (9, 8, 256, 32, 3),
+                                         (5, 32, 64, 32, 1), (1, 4, 256, 32, 1),
+                                         (6, 3, 36, 16, 2), (4, 2, 16, 20, 4)])
+def test_window_attention_ragged(device, dtype, w, h, n, hd, nw):
+    gen = torch.Generator().manual_seed(w * n + hd)
+    q, k, v = (randn(gen, (w, h, n, hd), 1.0, dtype, device) for _ in range(3))
+    args = (q, k, v, *window_tables(gen, h, n, nw, device), nw)
+    before = window_attention.launches
+    got = window_attention(*args)
+    assert window_attention.launches == before + 1
+    assert_close(got, window_attention_reference(*args), TOL[dtype])
+
+
+def test_window_attention_raises_past_shared_memory(device):
+    # f32 k and v of 1024 tokens at hd=32 need 264 KB of shared memory.
+    q = torch.zeros(1, 1, 1024, 32, device=device)
+    with pytest.raises(RuntimeError):
+        window_attention(q, q, q, torch.zeros(1, 1024, 1024, device=device),
+                         torch.ones(1, device=device), torch.zeros(1, 1024, 1024, device=device), 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c,hidden", [(37, 48, 80), (1, 32, 128), (16448, 128, 512)])
+def test_fused_mlp_ragged(device, dtype, rows, c, hidden):
+    gen = torch.Generator().manual_seed(rows + c + hidden)
+    args = (
+        randn(gen, (rows, c), 1.0, dtype, device),
+        randn(gen, (hidden, c), c**-0.5, dtype, device),
+        randn(gen, (hidden,), 0.1, dtype, device),  # biases in the dtype, as layers.Mlp
+        randn(gen, (c, hidden), hidden**-0.5, dtype, device),
+        randn(gen, (c,), 0.1, dtype, device),
+    )
+    before = fused_mlp.launches
+    got = fused_mlp(*args)
+    assert fused_mlp.launches == before + 1
+    assert_close(got, fused_mlp_reference(*args), TOL[dtype])

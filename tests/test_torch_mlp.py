@@ -1,13 +1,15 @@
-"""Port kernel K2 (LayerNorm + MLP + residual): its plain version against
-the JAX Pallas kernel (interpret mode) and the XLA oracle."""
+"""Port kernels K2 (LayerNorm + MLP + residual) and B7 (`fused_mlp`, the
+MLP alone): their plain versions against the JAX Pallas kernels
+(interpret mode) and the XLA oracles."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from vsc22_tpu.ops.pallas_mlp import _ln_forward, _xla_ln_mlp
-from vsc22_tpu_torch.ops.mlp import ln_mlp_residual
+import chip_smoke
+from vsc22_tpu.ops.pallas_mlp import _forward, _ln_forward, _xla_ln_mlp, _xla_mlp
+from vsc22_tpu_torch.ops.mlp import fused_mlp, ln_mlp_residual
 
 # f32 on both sides; the sums run in another order.
 ATOL = 1e-5
@@ -73,3 +75,45 @@ def test_unknown_activation_and_device_raise():
     t = lambda a: torch.from_numpy(a).to("meta")
     with pytest.raises(ValueError):
         ln_mlp_residual(*(t(a) for a in args), "gelu", 1e-5)
+
+
+def port_mlp(x, w1, b1, w2, b2, dtype=torch.float32):
+    t = torch.from_numpy
+    return fused_mlp(
+        t(x).to(dtype), t(np.ascontiguousarray(w1.T)).to(dtype), t(b1).to(dtype),
+        t(np.ascontiguousarray(w2.T)).to(dtype), t(b2).to(dtype),
+    )
+
+
+def test_fused_mlp_matches_pallas_interpret():
+    x, _, _, w1, b1, w2, b2 = make_inputs(96, 128, 512, seed=3)
+    want = np.asarray(_forward(*(jnp.asarray(a) for a in (x, w1, b1, w2, b2)), row_tile=64,
+                               activation="gelu", interpret=True))
+    np.testing.assert_allclose(port_mlp(x, w1, b1, w2, b2).numpy(), want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("rows,c,hidden", [(64, 128, 512), (37, 48, 80), (1, 16, 64)])
+def test_fused_mlp_matches_xla_oracle(rows, c, hidden):
+    x, _, _, w1, b1, w2, b2 = make_inputs(rows, c, hidden, seed=4)
+    want = np.asarray(_xla_mlp(*(jnp.asarray(a) for a in (x, w1, b1, w2, b2))))
+    np.testing.assert_allclose(port_mlp(x, w1, b1, w2, b2).numpy(), want, atol=ATOL, rtol=0)
+
+
+def test_fused_mlp_bf16_rounds_where_jax_rounds():
+    """As `layers.Mlp` calls it: the biases in bf16 too, added in f32; the
+    hidden and the output rounded. Under chip_smoke's bf16 bound."""
+    x, _, _, w1, b1, w2, b2 = make_inputs(96, 128, 512, seed=5)
+    args = [jnp.asarray(a).astype(jnp.bfloat16) for a in (x, w1, b1, w2, b2)]
+    for want in (_forward(*args, row_tile=32, activation="gelu", interpret=True),
+                 _xla_mlp(*args)):
+        got = port_mlp(x, w1, b1, w2, b2, torch.bfloat16)
+        want = torch.from_numpy(np.array(want.astype(jnp.float32))).bfloat16()
+        ok, err, share, words = chip_smoke.agreement(got, want, chip_smoke.F32_TOL)
+        assert ok, (err, words)
+
+
+def test_fused_mlp_takes_cpu_or_cuda_only():
+    x, _, _, w1, b1, w2, b2 = make_inputs(8, 16, 32)
+    t = lambda a: torch.from_numpy(a).to("meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fused_mlp(*(t(a) for a in (x, w1.T.copy(), b1, w2.T.copy(), b2)))

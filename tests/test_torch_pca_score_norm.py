@@ -16,7 +16,7 @@ def test_pca_fit_matches_jax_on_separated_spectrum():
     scales = np.linspace(12.0, 1.0, 24)
     x = (rng.standard_normal((800, 24)) * scales) @ basis.T + rng.standard_normal(24)
     x = x.astype(np.float32)
-    want, got = jax_pca_fit(x, 10), pca_fit(x, 10)
+    want, got = jax_pca_fit(x, 10), pca_fit(x, 10, device="cpu")
     np.testing.assert_allclose(got.mean, want.mean, atol=1e-5)
     # Both apply sklearn's svd_flip rule, so signs agree; JAX solves in f32,
     # the port in f64.
@@ -47,7 +47,8 @@ def test_query_score_normalize_matches_jax(corpus):
     queries, _, noise = corpus
     scores = {q.video_id: s for q, s in zip(queries, [0.5, 0.0001, 0.9, 0.002, 0.0])}
     want = jsn.query_score_normalize(queries, noise, video_scores=scores, beta=1.2)
-    got = psn.query_score_normalize(queries, noise, video_scores=scores, beta=1.2)
+    got = psn.query_score_normalize(queries, noise, video_scores=scores, beta=1.2,
+                                    device="cpu")
     assert [g.video_id for g in got] == [w.video_id for w in want]
     for g, w, q in zip(got, want, queries):
         assert g.feature.shape == (len(q.feature), 512)  # 511 kept + bias
@@ -63,7 +64,7 @@ def test_query_score_normalize_matches_jax(corpus):
 def test_score_normalize_and_ref_side_match_jax(corpus):
     queries, refs, noise = corpus
     wq, wr = jsn.score_normalize(queries, refs, noise, beta=1.5)
-    gq, gr = psn.score_normalize(queries, refs, noise, beta=1.5)
+    gq, gr = psn.score_normalize(queries, refs, noise, beta=1.5, device="cpu")
     for g, w in zip(gq + gr, wq + wr):
         np.testing.assert_allclose(g.feature, w.feature, atol=2e-6, rtol=0)
     for g, w in zip(psn.ref_score_normalize(refs, noise), jsn.ref_score_normalize(refs, noise)):
@@ -74,6 +75,22 @@ def test_score_normalize_and_ref_side_match_jax(corpus):
 def test_unported_and_invalid_uses_raise(corpus):
     queries, refs, noise = corpus
     with pytest.raises(NotImplementedError):
-        psn.query_score_normalize(queries, noise, nk=10)
+        psn.query_score_normalize(queries, noise, nk=10, device="cpu")
     with pytest.raises(ValueError):
         psn.ref_score_normalize(refs, refs)
+
+
+def test_entry_points_default_to_the_card(corpus):
+    """With no device named, the PCA fit and score-norm run on the card, and
+    without one they raise instead of falling back to the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        return
+    queries, refs, noise = corpus
+    x = np.random.default_rng(2).standard_normal((50, 8)).astype(np.float32)
+    for call in (lambda: pca_fit(x, 4),
+                 lambda: psn.query_score_normalize(queries, noise),
+                 lambda: psn.score_normalize(queries, refs, noise)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

@@ -1,6 +1,8 @@
-"""The ported slice end to end against the JAX pipeline: tiny ViT member +
-tiny CLIP/VSM VED gate + FSD + the JAX-fitted PCA + query score-norm
-(nk=1), on the bench's synthetic corpus, f32 on the CPU."""
+"""The ported slice end to end against the JAX pipeline, in the four-member
+configuration of `bench.py --smoke`: a tiny ViT member + three tiny SwinV2
+members (size 32, preset "vit") + tiny CLIP/VSM VED gate + FSD + the
+JAX-fitted PCA + query score-norm (nk=1), on the bench's synthetic corpus,
+f32 on the CPU."""
 
 import jax
 import jax.numpy as jnp
@@ -11,13 +13,15 @@ import torch
 import bench
 import chip_smoke
 from vsc22_tpu.core.types import VideoFeature
+from test_torch_swinv2 import randomized_params
 from vsc22_tpu.models.clip import clip_tiny_test
+from vsc22_tpu.models.swinv2 import SWINV2_TINY_TEST, SwinTransformerV2
 from vsc22_tpu.models.vit import vit_tiny_test_descriptor
 from vsc22_tpu.models.vsm import VSMConfig, VideoScoreModel
 from vsc22_tpu.ops.pca import pca_fit
 from vsc22_tpu.pipelines import batch_query as jbq
 from vsc22_tpu.retrieval.score_norm import query_score_normalize as jax_qsn
-from vsc22_tpu_torch.models import clip, vit, vsm
+from vsc22_tpu_torch.models import clip, swinv2, vit, vsm
 from vsc22_tpu_torch.ops.pca import PCAModel
 from vsc22_tpu_torch.pipelines import batch_query as pbq
 from vsc22_tpu_torch.retrieval.score_norm import query_score_normalize
@@ -35,7 +39,15 @@ def runs():
     clip_p = jax.device_get(clip_j.init(jax.random.PRNGKey(1), jnp.zeros((1, 32, 32, 3))))
     vsm_j = VideoScoreModel(cfg=VSMConfig(**VSM_SIZE))
     vsm_p = jax.device_get(vsm_j.init(jax.random.PRNGKey(2), jnp.zeros((1, 8, 32))))
-    pca = pca_fit(np.random.default_rng(3).standard_normal((100, 16)).astype(np.float32), 8)
+    # Three members of one architecture with their own weights, so the
+    # concat order shows; randomized so no block is an identity.
+    swin_j = SwinTransformerV2(cfg=SWINV2_TINY_TEST)
+    swin_init = swin_j.init(jax.random.PRNGKey(5), jnp.zeros((1, 32, 32, 3)))
+    swin_ps = [{"params": randomized_params(swin_init["params"], 10 + i)} for i in range(3)]
+    feat_dim = 16 + 3 * SWINV2_TINY_TEST.output_dim
+    pca = pca_fit(
+        np.random.default_rng(3).standard_normal((100, feat_dim)).astype(np.float32), 8
+    )
 
     videos = bench.synth_videos(N_VIDEOS, 6, 128, 128)
     names = [f"Q{i:06d}" for i in range(N_VIDEOS)]
@@ -48,28 +60,33 @@ def runs():
 
     jpipe = jbq.BatchedQueryPipeline(
         [jbq.BatchedExtractor(model=vit_j, params=vit_p, size=64, preset="efficientnet",
-                              chunk=4)],
+                              chunk=4)]
+        + [jbq.BatchedExtractor(model=swin_j, params=p, size=32, preset="vit", chunk=4)
+           for p in swin_ps],
         pca=pca, ved=jbq.BatchedVED(clip_j, clip_p, vsm_j, vsm_p, max_frames=8, chunk=4),
         use_fsd=True, score_threshold=0.0, out_dim=8,
     )
     ppipe = pbq.BatchedQueryPipeline(
         [pbq.BatchedExtractor(
             jax_params.load_vit_descriptor(vit.vit_tiny_test_descriptor(), vit_p),
-            size=64, preset="efficientnet", chunk=4)],
+            size=64, preset="efficientnet", chunk=4)]
+        + [pbq.BatchedExtractor(
+            jax_params.load_swinv2_descriptor(swinv2.swinv2_tiny_test_descriptor(), p),
+            size=32, preset="vit", chunk=4) for p in swin_ps],
         pca=PCAModel(pca.mean, pca.components, pca.explained_variance),
         ved=pbq.BatchedVED(
             jax_params.load_clip_visual(clip.clip_tiny_test(), clip_p),
             jax_params.load_video_score_model(
                 vsm.VideoScoreModel(vsm.VSMConfig(**VSM_SIZE)), vsm_p),
             max_frames=8, chunk=4),
-        use_fsd=True, score_threshold=0.0, out_dim=8,
+        use_fsd=True, score_threshold=0.0, out_dim=8, device="cpu",
     )
     want = jpipe.process_many(names, videos, batch=4)
     got = ppipe.process_many(names, videos, batch=4)
     want_sn = jax_qsn(want, noise, video_scores=jpipe.video_scores, score_threshold=0.0,
                       beta=1.2, nk=1)
     got_sn = query_score_normalize(got, noise, video_scores=ppipe.video_scores,
-                                   score_threshold=0.0, beta=1.2, nk=1)
+                                   score_threshold=0.0, beta=1.2, nk=1, device="cpu")
     ctx = jpipe._prepare(names, videos)
     got_boxes = ppipe._fsd_boxes(
         videos, [torch.from_numpy(v) for v in videos], [ppipe.video_scores[n] for n in names]
@@ -119,7 +136,7 @@ def test_placeholder_sequence_matches_reference_seeding():
     model = vit.vit_tiny_test_descriptor()
     pipe = pbq.BatchedQueryPipeline(
         [pbq.BatchedExtractor(model, size=64)], ved=None, use_fsd=False,
-        score_threshold=2.0, out_dim=8,
+        score_threshold=2.0, out_dim=8, device="cpu",
     )
     videos = bench.synth_videos(3, 2, 64, 64)
     out = pipe.process_many(["A", "B", "C"], videos, batch=2)
@@ -129,6 +146,24 @@ def test_placeholder_sequence_matches_reference_seeding():
             f.feature[0], np.random.uniform(-1e-5, 1e-5, size=8).astype(np.float32)
         )
         assert f.timestamps.shape == (1, 2)
+
+
+def test_four_members_concatenated_in_order(runs):
+    """The pre-PCA rows are [ViT | Swin 1 | Swin 2 | Swin 3], each member
+    L2-normalized on its own, as in the JAX pipeline."""
+    pipe = runs["ppipe"]
+    assert [e.model.out_dim for e in pipe.extractors] == [16, 8, 8, 8]
+    assert pipe.pca.components.shape == (8, 40)
+
+
+def test_pipeline_defaults_to_the_card():
+    """With no device named, the pipeline runs on the card, and without one
+    it raises instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        return
+    model = vit.vit_tiny_test_descriptor()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pbq.BatchedQueryPipeline([pbq.BatchedExtractor(model, size=64)], ved=None)
 
 
 def test_chip_smoke_synth_videos_is_the_bench_corpus():

@@ -136,15 +136,16 @@ __device__ __forceinline__ void mainloop(const LA& la, const LB& lb, int m0, int
   }
 }
 
-// out[m][n] = T( res[m][n] + act(sum_k A'[m][k] W[n][k] + bias[n]) ), where
+// out[m][n] = TO( res[m][n] + act(sum_k A'[m][k] W[n][k] + bias[n]) ), where
 // A' is A, or LayerNorm(A) rounded to T when LN (f32 two-pass row
 // statistics, then (x - mean) * rsqrt(var + eps) * g + b). The residual
-// is optional (res == nullptr).
-template <typename T, int ACT, bool LN>
+// is optional (res == nullptr). The output type TO is T, or float where a
+// caller keeps the f32 sum for an epilogue of its own.
+template <typename T, int ACT, bool LN, typename TO = T>
 __global__ void __launch_bounds__(kThreads)
     gemm_bias_act_kernel(const T* __restrict__ A, const T* __restrict__ W,
-                         const float* __restrict__ bias, const T* __restrict__ res,
-                         T* __restrict__ out, int M, int N, int K,
+                         const float* __restrict__ bias, const TO* __restrict__ res,
+                         TO* __restrict__ out, int M, int N, int K,
                          const float* __restrict__ ln_g, const float* __restrict__ ln_b,
                          float eps) {
   __shared__ TileSmem s;
@@ -194,17 +195,21 @@ __global__ void __launch_bounds__(kThreads)
       float v = activate<ACT>(acc[i][j] + bias[n]);
       const size_t o = (size_t)m * N + n;
       if (res != nullptr) v = to_f32(res[o]) + v;
-      out[o] = from_f32<T>(v);
+      out[o] = from_f32<TO>(v);
     }
   }
 }
 
-template <typename T, int ACT, bool LN>
-inline void launch_gemm(const T* A, const T* W, const float* bias, const T* res, T* out,
+// The residual's type is taken from `out` (res may be nullptr).
+template <typename X> struct same_type { using type = X; };
+
+template <typename T, int ACT, bool LN, typename TO = T>
+inline void launch_gemm(const T* A, const T* W, const float* bias,
+                        const typename same_type<TO>::type* res, TO* out,
                         int M, int N, int K, const float* ln_g, const float* ln_b, float eps,
                         cudaStream_t stream) {
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  gemm_bias_act_kernel<T, ACT, LN>
+  gemm_bias_act_kernel<T, ACT, LN, TO>
       <<<grid, kThreads, 0, stream>>>(A, W, bias, res, out, M, N, K, ln_g, ln_b, eps);
 }
 

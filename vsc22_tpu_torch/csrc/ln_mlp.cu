@@ -1,6 +1,12 @@
-// K2: out = x + fc2(act(fc1(LN(x))))
+// K2: out = x + fc2(act(fc1(LN(x))))   and   B7: out = fc2(gelu(fc1(x)))
 //
-// Replaces the Pallas kernel vsc22_tpu/ops/pallas_mlp.py `_ln_forward`
+// B7 replaces the Pallas kernel vsc22_tpu/ops/pallas_mlp.py `_forward` (its
+// pallas_call at :77; dispatcher `fused_mlp` :242): K2 below with exact
+// GELU, without the LN and without the residual, the output rounded to the
+// working dtype. It is the same two launches of the shared GEMM, and bound
+// the same way.
+//
+// K2 replaces the Pallas kernel vsc22_tpu/ops/pallas_mlp.py `_ln_forward`
 // (its pallas_call at :155; dispatcher `ln_mlp_residual` :195): f32
 // LayerNorm statistics, LN output rounded to the working dtype, hidden and
 // output accumulated in f32, hidden rounded to the working dtype after the
@@ -47,6 +53,19 @@ int ln_mlp_residual(const void* x, const float* ln_g, const float* ln_b, const v
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int fused_mlp(const void* x, const void* w1, const float* b1, const void* w2, const float* b2,
+              void* hidden, void* out, int M, int C, int Hd, cudaStream_t stream) {
+  T* ht = static_cast<T*>(hidden);
+  launch_gemm<T, kActGelu, false>(static_cast<const T*>(x), static_cast<const T*>(w1), b1,
+                                  nullptr, ht, M, Hd, C, nullptr, nullptr, 0.0f, stream);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  launch_gemm<T, kActNone, false>(ht, static_cast<const T*>(w2), b2, nullptr,
+                                  static_cast<T*>(out), M, C, Hd, nullptr, nullptr, 0.0f, stream);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace vsc22
 
 // x, out: [M, C]; w1: [Hd, C] and w2: [C, Hd] in Linear layout (out, in);
@@ -61,4 +80,15 @@ extern "C" int vsc22_ln_mlp_residual(const void* x, const float* ln_g, const flo
                                                  C, Hd, act, eps, s);
   return vsc22::ln_mlp_residual<float>(x, ln_g, ln_b, w1, b1, w2, b2, hidden, out, M, C, Hd,
                                        act, eps, s);
+}
+
+// B7. x, out: [M, C]; w1: [Hd, C] and w2: [C, Hd] in Linear layout; b1, b2:
+// f32; hidden: scratch [M, Hd].
+extern "C" int vsc22_fused_mlp(const void* x, const void* w1, const float* b1, const void* w2,
+                               const float* b2, void* hidden, void* out, int M, int C, int Hd,
+                               int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == vsc22::kBF16)
+    return vsc22::fused_mlp<__nv_bfloat16>(x, w1, b1, w2, b2, hidden, out, M, C, Hd, s);
+  return vsc22::fused_mlp<float>(x, w1, b1, w2, b2, hidden, out, M, C, Hd, s);
 }

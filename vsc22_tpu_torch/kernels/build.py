@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -68,8 +69,11 @@ def _compile(name: str, out: Path) -> None:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    """The loaded library of `csrc/<name>.cu`, built first if needed.
+    Different libraries may build at once, from several threads."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is None:
             path = BUILD_DIR / f"{name}-{_digest(name)}.so"

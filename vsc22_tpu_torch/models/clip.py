@@ -15,6 +15,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from vsc22_tpu_torch.core.device import resolve
 from vsc22_tpu_torch.models.layers import (
     AttentionParams,
     LayerNorm,
@@ -110,9 +111,11 @@ class CLIPVisual(nn.Module):
         return layer_norm(x, self.ln_post, _CLIP_LN_EPS, dt)
 
 
-def clip_vit_l14(dtype=torch.bfloat16, device=None) -> CLIPVisual:
-    return CLIPVisual(CLIP_VIT_L14, dtype, device)
+def clip_vit_l14(dtype=torch.bfloat16, device="cuda") -> CLIPVisual:
+    """The VED gate's CLIP ViT-L/14; on the card unless `device` says otherwise."""
+    return CLIPVisual(CLIP_VIT_L14, dtype, resolve(device))
 
 
 def clip_tiny_test(dtype=torch.float32, device=None) -> CLIPVisual:
+    """Small config for tests (on the CPU by default: it exists for tests)."""
     return CLIPVisual(CLIP_TINY_TEST, dtype, device)

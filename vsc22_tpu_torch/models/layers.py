@@ -19,21 +19,26 @@ from vsc22_tpu_torch.ops.mlp import ln_mlp_residual
 
 
 class Linear(nn.Module):
-    """y = x W^T + b, W [out, in] in `dtype`, b float32."""
+    """y = x W^T + b, W [out, in] in `dtype`, b float32 (or no bias)."""
 
-    def __init__(self, in_dim: int, out_dim: int, dtype=torch.float32, device=None):
+    def __init__(self, in_dim: int, out_dim: int, dtype=torch.float32, device=None,
+                 bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_dim, in_dim, dtype=dtype, device=device))
-        self.bias = nn.Parameter(torch.empty(out_dim, dtype=torch.float32, device=device))
+        self.bias = (
+            nn.Parameter(torch.empty(out_dim, dtype=torch.float32, device=device))
+            if bias else None
+        )
 
     def reset(self, generator: torch.Generator) -> None:
         _normal_(self.weight, self.weight.shape[1] ** -0.5, generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x):
         """In the weight's dtype, as a flax Dense with that `dtype`."""
         w = self.weight
-        return F.linear(x.to(w.dtype), w, self.bias.to(w.dtype))
+        return F.linear(x.to(w.dtype), w, None if self.bias is None else self.bias.to(w.dtype))
 
 
 class LayerNorm(nn.Module):
@@ -58,12 +63,14 @@ def _normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
 
 def reset_parameters(module: nn.Module, generator: torch.Generator,
                      embed_std: float = 0.02) -> None:
-    """Seeded random init of a port model: Linear weights N(0, 1/fan_in),
-    zero biases, unit LayerNorm scales, N(0, embed_std^2) for every other
-    parameter (class tokens, position tables)."""
+    """Seeded random init of a port model: every submodule with a
+    `reset(generator)` method sets its own parameters (Linear weights
+    N(0, 1/fan_in), zero biases, unit LayerNorm scales; see each class);
+    every other parameter (class tokens, position tables) is drawn from
+    N(0, embed_std^2)."""
     owned = set()
     for m in module.modules():
-        if isinstance(m, (Linear, LayerNorm, PatchEmbed)):
+        if callable(getattr(m, "reset", None)):
             m.reset(generator)
             owned.update(id(p) for p in m.parameters(recurse=False))
     for p in module.parameters():

@@ -13,6 +13,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from vsc22_tpu_torch.core.device import resolve
 from vsc22_tpu_torch.models.layers import (
     GeMPool,
     LayerNorm,
@@ -89,11 +90,13 @@ class VitDescriptor(nn.Module):
         return self.head(self.gem(self.backbone(images)))
 
 
-def vit_base_patch32_384_descriptor(dtype=torch.bfloat16, device=None) -> VitDescriptor:
-    """The v68 ensemble member: ViT-B/32 @ 384, 512-d descriptors."""
-    return VitDescriptor(VIT_BASE_PATCH32_384, dtype=dtype, device=device)
+def vit_base_patch32_384_descriptor(dtype=torch.bfloat16, device="cuda") -> VitDescriptor:
+    """The v68 ensemble member: ViT-B/32 @ 384, 512-d descriptors; on the
+    card unless `device` says otherwise."""
+    return VitDescriptor(VIT_BASE_PATCH32_384, dtype=dtype, device=resolve(device))
 
 
 def vit_tiny_test_descriptor(dtype=torch.float32, device=None) -> VitDescriptor:
-    """Small config for unit tests and CPU runs."""
+    """Small config for unit tests and CPU runs (on the CPU by default: it
+    exists for tests)."""
     return VitDescriptor(VIT_TINY_TEST, head_dim=64, out_dim=16, dtype=dtype, device=device)

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vsc22_tpu_torch.core.device import resolve
 from vsc22_tpu_torch.models.layers import AttentionParams, LayerNorm, Linear, layer_norm
 
 
@@ -108,9 +109,11 @@ class VideoScoreModel(nn.Module):
         return self.output_proj(cat).squeeze(-1)
 
 
-def vsm_base(dtype=torch.bfloat16, device=None) -> VideoScoreModel:
-    return VideoScoreModel(VSM_BASE, dtype, device)
+def vsm_base(dtype=torch.bfloat16, device="cuda") -> VideoScoreModel:
+    """The VED gate's video-score model; on the card unless `device` says otherwise."""
+    return VideoScoreModel(VSM_BASE, dtype, resolve(device))
 
 
 def vsm_tiny_test(dtype=torch.float32, device=None) -> VideoScoreModel:
+    """Small config for tests (on the CPU by default: it exists for tests)."""
     return VideoScoreModel(VSM_TINY_TEST, dtype, device)

@@ -1,10 +1,12 @@
-"""LayerNorm + MLP + residual (kernel K2).
+"""The transformer MLP kernels, over rows [M, C]:
 
-    out = x + fc2(act(fc1(LN(x))))
+    K2  ln_mlp_residual:  out = x + fc2(act(fc1(LN(x))))
+    B7  fused_mlp:        out = fc2(gelu(fc1(x)))
 
-over rows [M, C]. Counterpart of `vsc22_tpu/ops/pallas_mlp.py`
-`ln_mlp_residual`; the CUDA kernel is `csrc/ln_mlp.cu`. act is "gelu"
-(exact, erf) or "quick_gelu" (x * sigmoid(1.702 x)).
+Counterparts of `vsc22_tpu/ops/pallas_mlp.py` `ln_mlp_residual` (its
+`_ln_forward`) and `fused_mlp` (its `_forward`); both CUDA kernels are in
+`csrc/ln_mlp.cu`. act is "gelu" (exact, erf) or "quick_gelu"
+(x * sigmoid(1.702 x)); B7 is only ever GELU (SwinV2's `layers.Mlp`).
 
 `w1` [hidden, C] and `w2` [C, hidden] are in PyTorch's Linear layout
 [out, in]; LN scale/bias and the fc biases are f32. x, w1 and w2 share the
@@ -22,6 +24,7 @@ _ACT_CODES = {"gelu": 1, "quick_gelu": 2}
 _ARGTYPES = (
     [build.PTR] * 9 + [build.INT] * 4 + [build.FLOAT, build.INT, build.PTR]
 )
+_MLP_ARGTYPES = [build.PTR] * 7 + [build.INT] * 4 + [build.PTR]
 
 
 def _activate(h, activation: str):
@@ -78,3 +81,41 @@ def ln_mlp_residual(x, ln_s, ln_b, w1, b1, w2, b2,
 
 
 ln_mlp_residual.launches = 0
+
+
+def fused_mlp_reference(x, w1, b1, w2, b2):
+    """Plain PyTorch version: the JAX XLA oracle `_xla_mlp` (biases added
+    in f32, the hidden and the output rounded to x's dtype)."""
+    dt = x.dtype
+    h = F.gelu(x.float() @ w1.to(dt).float().t() + b1.float()).to(dt)
+    return (h.float() @ w2.to(dt).float().t() + b2.float()).to(dt)
+
+
+def fused_mlp(x, w1, b1, w2, b2):
+    """B7 on a CUDA tensor, the plain version on a CPU tensor. b1 and b2
+    may come in any float dtype (`layers.Mlp` passes the working dtype);
+    the kernel adds them in f32."""
+    if x.device.type == "cpu":
+        return fused_mlp_reference(x, w1, b1, w2, b2)
+    device = build.require_cuda(x)
+    code = build.working_dtype(x)
+    m, c = x.shape
+    hidden = w1.shape[0]
+    b1, b2 = b1.float(), b2.float()
+    build.check_cuda("x", x, device, x.dtype, (m, c))
+    build.check_cuda("w1", w1, device, x.dtype, (hidden, c))
+    build.check_cuda("b1", b1, device, torch.float32, (hidden,))
+    build.check_cuda("w2", w2, device, x.dtype, (c, hidden))
+    build.check_cuda("b2", b2, device, torch.float32, (c,))
+    h = torch.empty((m, hidden), dtype=x.dtype, device=device)
+    out = torch.empty_like(x)
+    build.call(
+        "ln_mlp", "vsc22_fused_mlp", _MLP_ARGTYPES,
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        h.data_ptr(), out.data_ptr(), m, c, hidden, code, build.stream_ptr(device),
+    )
+    fused_mlp.launches += 1
+    return out
+
+
+fused_mlp.launches = 0

@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from vsc22_tpu_torch.core.device import resolve
+
 
 @dataclasses.dataclass
 class PCAModel:
@@ -25,9 +27,10 @@ class PCAModel:
         return (np.asarray(x, np.float32) - self.mean) @ self.components.T
 
 
-def pca_fit(x: np.ndarray, n_components: int, device="cpu") -> PCAModel:
-    """Fit exact PCA on rows `x`; returns the top `n_components` axes."""
-    xt = torch.as_tensor(np.asarray(x, np.float32), device=device).double()
+def pca_fit(x: np.ndarray, n_components: int, device="cuda") -> PCAModel:
+    """Fit exact PCA on rows `x`, on the card unless `device` says otherwise;
+    returns the top `n_components` axes."""
+    xt = torch.as_tensor(np.asarray(x, np.float32), device=resolve(device)).double()
     mean = xt.mean(dim=0)
     xc = xt - mean
     cov = xc.t() @ xc / (xt.shape[0] - 1)

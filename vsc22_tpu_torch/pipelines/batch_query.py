@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from vsc22_tpu_torch.core.device import resolve
 from vsc22_tpu_torch.core.types import VideoFeature
 from vsc22_tpu_torch.data import fsd
 from vsc22_tpu_torch.data.transforms import (
@@ -109,7 +110,8 @@ class BatchedVED:
 
 
 class BatchedQueryPipeline:
-    """Multi-video batched orchestration of the query descriptor path."""
+    """Multi-video batched orchestration of the query descriptor path, on
+    `device`: the card unless the caller says otherwise."""
 
     def __init__(
         self,
@@ -120,7 +122,7 @@ class BatchedQueryPipeline:
         score_threshold: float = SCORE_THRESHOLD,
         frame_threshold: float = FRAME_THRESHOLD,
         out_dim: int = 512,
-        device="cpu",
+        device="cuda",
     ):
         self.extractors = list(extractors)
         self.pca = pca
@@ -129,7 +131,7 @@ class BatchedQueryPipeline:
         self.score_threshold = score_threshold
         self.frame_threshold = frame_threshold
         self.out_dim = out_dim
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.rnd_idx = 0
         self.video_scores: Dict[str, float] = {}
 

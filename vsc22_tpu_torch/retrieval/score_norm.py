@@ -17,6 +17,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from vsc22_tpu_torch.core.device import resolve
 from vsc22_tpu_torch.core.types import VideoFeature
 from vsc22_tpu_torch.ops.sim import row_max_gemm
 
@@ -101,9 +102,11 @@ def score_normalize(
     replace_dim: bool = True,
     beta: float = 1.0,
     nk: int = 1,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[List[VideoFeature], List[VideoFeature]]:
-    """Normalize queries and refs together against a noise corpus."""
+    """Normalize queries and refs together against a noise corpus; the
+    noise search runs on `device` (the card unless the caller says otherwise)."""
+    device = resolve(device)
     _check_disjoint(refs, score_norm_refs)
     low_var_dim = (
         _min_variance_dim(score_norm_refs)
@@ -130,10 +133,12 @@ def query_score_normalize(
     replace_dim: bool = True,
     beta: float = 1.0,
     nk: int = 1,
-    device="cpu",
+    device="cuda",
 ) -> List[VideoFeature]:
     """Query-side normalization with VED gating: queries whose video score
-    is under `score_threshold` get bias -100."""
+    is under `score_threshold` get bias -100. The noise search runs on
+    `device` (the card unless the caller says otherwise)."""
+    device = resolve(device)
     dim = low_var_dim if score_norm_refs is not None and replace_dim else None
     queries = _prepare(queries, dim, l2_normalize)
     score_norm_refs = _prepare(score_norm_refs, dim, l2_normalize)

@@ -2,7 +2,8 @@
 
 The JAX package's variables (`model.init(...)`, or
 `flax.serialization.to_state_dict`, fetched to the host as numpy) map onto
-`VitDescriptor`, `CLIPVisual` and `VideoScoreModel`: Dense kernels
+`VitDescriptor`, `SwinTransformerV2`, `CLIPVisual` and `VideoScoreModel`:
+Dense kernels
 [in, out] are transposed to Linear [out, in], HWIO patch convs become
 OIHW, and every array is copied into the existing parameter (which casts
 it to that parameter's dtype and device). Nothing here imports JAX.
@@ -15,6 +16,7 @@ import torch
 
 from vsc22_tpu_torch.models.clip import CLIPVisual
 from vsc22_tpu_torch.models.layers import LayerNorm, Linear, PatchEmbed
+from vsc22_tpu_torch.models.swinv2 import SwinTransformerV2
 from vsc22_tpu_torch.models.vit import VitDescriptor
 from vsc22_tpu_torch.models.vsm import VideoScoreModel
 
@@ -30,6 +32,10 @@ def _dense(mod: Linear, kernel, bias=None) -> None:
     _copy(mod.weight, np.asarray(kernel).T)
     if mod.bias is not None:
         _copy(mod.bias, bias)
+
+
+def _dense_tree(mod: Linear, tree) -> None:
+    _dense(mod, tree["kernel"], tree.get("bias"))
 
 
 def _ln(mod: LayerNorm, tree) -> None:
@@ -66,6 +72,36 @@ def load_vit_descriptor(model: VitDescriptor, variables) -> VitDescriptor:
     _ln(vit.norm, bb["norm"])
     _dense(model.gem.proj, p["gem"]["proj"]["kernel"], p["gem"]["proj"]["bias"])
     _dense(model.head, p["head"]["kernel"], p["head"]["bias"])
+    return model
+
+
+@torch.no_grad()
+def load_swinv2_descriptor(model: SwinTransformerV2, variables) -> SwinTransformerV2:
+    """The JAX `SwinTransformerV2` tree (either block path: both declare
+    it) into the port's model."""
+    p = _params(variables)
+    _conv(model.patch_embed, p["patch_embed"])
+    _ln(model.patch_norm, p["patch_norm"])
+    for s, blocks in enumerate(model.stages):
+        for i, block in enumerate(blocks):
+            t = p[f"stage{s}_block{i}"]
+            a, ta = block.attn, t["attn"]
+            _copy(a.logit_scale, ta["logit_scale"])
+            _copy(a.qkv_weight, np.asarray(ta["qkv_kernel"]).T)
+            _copy(a.q_bias, ta["q_bias"])
+            _copy(a.v_bias, ta["v_bias"])
+            _dense_tree(a.cpb_fc1, ta["cpb_fc1"])
+            _dense_tree(a.cpb_fc2, ta["cpb_fc2"])
+            _dense_tree(a.proj, ta["proj"])
+            _ln(block.norm1, t["norm1"])
+            _dense(block.mlp.fc1, t["mlp"]["fc1_kernel"], t["mlp"]["fc1_bias"])
+            _dense(block.mlp.fc2, t["mlp"]["fc2_kernel"], t["mlp"]["fc2_bias"])
+            _ln(block.norm2, t["norm2"])
+    for s, merge in enumerate(model.merges):
+        _dense_tree(merge.reduction, p[f"merge{s}"]["reduction"])
+        _ln(merge.norm, p[f"merge{s}"]["norm"])
+    _ln(model.norm, p["norm"])
+    _dense_tree(model.output_proj, p["output_proj"])
     return model
 
 

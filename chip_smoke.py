@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's query descriptor path once on one NVIDIA GPU.
+"""Drive the PyTorch port's query descriptor and eval paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -12,8 +12,10 @@ result line):
      (TF32 off) and bfloat16: K1 and K2 at a full 128-frame chunk of each
      model (ViT-B/32, CLIP ViT-L/14); B1 at all four SwinV2-Base stage
      shapes of a 128-frame chunk, shifted and unshifted where the stage has
-     both; B6 and B7 at the stage 1 and stage 4 shapes. Max error and the
-     share of elements that differ, against the stated bounds; median
+     both; B6 and B7 at the stage 1 and stage 4 shapes; B5 at the search's
+     shape (a 4096-row query tile against 1.28M refs; f16, f32, and D 511).
+     Max error and the share of elements that differ, against the stated
+     bounds; median
      kernel, plain and (where one PyTorch call computes the function)
      library times, and the least time the card could take (the bound);
   3. the slice end to end: first on a small input (tiny ViT + three tiny
@@ -32,7 +34,16 @@ result line):
      frames, with the default block dispatch (B1, and B6 + B7 in stage 4)
      and with `fused_block=False` (B6 + B7 everywhere): the L2-normalised
      descriptors agree to 1e-3;
-  5. a JSON line of per-kernel numbers, then the device line.
+  5. the descriptor-track eval path at the reference corpus size of
+     `scripts/scaled_eval.py` (40,000 ref videos x 32 frames x 512-d on the
+     card, 4,000 noise videos, 100 planted copies), on 1,000 query videos:
+     score-norm, the exact global budget search of 1200 hits per query
+     (B5), the top 25 candidates, TN localization of the top 5 in a process
+     pool, candidate µAP > 0.95; B5's launches cover every 4096-row query
+     tile; for 256 sampled query rows `row_topk` on B5 equals the exact
+     per-tile path; then the search alone at all 10,000 query videos. Every
+     stage's wall time is printed;
+  6. a JSON line of per-kernel numbers, then the device line.
 
 Needs CUDA (it refuses to run without) and no network; builds in
 `vsc22_tpu_torch/_build/`. It imports nothing of JAX or of the JAX package.
@@ -40,8 +51,10 @@ Needs CUDA (it refuses to run without) and no network; builds in
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -121,9 +134,11 @@ def cuda_ms(fn, reps: int = 10) -> float:
 # --- the least time the card could take ------------------------------------
 
 # One NVIDIA H100 SXM at its full 700 W (published datasheet peaks):
-# bf16 dense tensor-core rate, float32 rate outside the tensor cores
-# (the port's f32 GEMMs run with TF32 off), HBM bandwidth.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# bf16 and f16 dense tensor-core rate (f32 accumulate), float32 rate
+# outside the tensor cores (the port's f32 GEMMs run with TF32 off), HBM
+# bandwidth. The rate is the card's for the operands' type, whatever
+# units a kernel's design uses.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -165,6 +180,12 @@ def work_swin_block(w, n, c, h, f, nw, isz):
 def work_row_max(nq, nr, d):
     """K3: f32 products of f16-rounded rows; queries, refs in, row max out."""
     return 2 * nq * nr * d, 4 * (nq * d + nr * d + nq)
+
+
+def work_extract_topk(nq, nr, num_valid, d, k, isz):
+    """B5: the products over the valid columns; queries and refs in, the
+    row top-k (f32 scores, i32 columns) and the f32 bound out."""
+    return 2 * nq * num_valid * d, (nq + nr) * d * isz + nq * (8 * k + 4)
 
 
 # --- phase 2: kernels against their plain versions ------------------------
@@ -388,6 +409,73 @@ def check_swin_kernels(device) -> dict:
             )
             del args
             torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    return results
+
+
+# B5 against its plain version: scores and bound within TOPK_TOL (f16
+# products are exact in f32, and both sides sum them in f32 in another
+# order); per row the same set of columns, except where the plain k-th and
+# (k+1)-th scores lie within TOPK_TOL, so a near tie at the cut may go
+# either way.
+TOPK_TOL = 1e-5
+
+
+def topk_agreement(got, want) -> tuple:
+    """(ok, max_abs_err, rows whose column sets differ) of B5's (scores,
+    indices, bound) against the plain version's, the latter run with k + 1."""
+    gs, gi, gb = got
+    ws, wi, wb = want
+    k = gs.shape[1]
+    err = max(float((gs - ws[:, :k]).abs().max()), float((gb - wb).abs().max()))
+    near_tie = (ws[:, k - 1] - ws[:, k]).abs() <= TOPK_TOL
+    same = (gi.sort(dim=1).values == wi[:, :k].sort(dim=1).values).all(dim=1)
+    ok = err <= TOPK_TOL and bool((same | near_tie).all())
+    return ok, err, int((~same).sum())
+
+
+def unit_rows(gen, n, d, device):
+    x = torch.randn((n, d), generator=gen, device=device)
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def check_topk_kernel(device) -> dict:
+    """B5 at the main-path shape: one 4096-row query tile against the
+    1.28M-row reference corpus (40,000 videos x 32 frames), 512-d, the
+    tail past num_valid masked, e 4 over 1024-column blocks, k 128; in
+    f16 (the eval's transfer type), f32, and f16 at D 511."""
+    from vsc22_tpu_torch.ops import topk
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    nq, nr, nv, e, tile_r, k = 4096, 1_280_000, 1_279_000, 4, 1024, 128
+    q32, r32 = unit_rows(gen, nq, 512, device), unit_rows(gen, nr, 512, device)
+    results = {}
+    for dt, d, reps in ((torch.float16, 512, 5), (torch.float32, 512, 2), (torch.float16, 511, 2)):
+        q = q32[:, :d].to(dt).contiguous()
+        r = r32[:, :d].to(dt).contiguous()
+        kw = dict(e=e, tile_r=tile_r)
+        got = topk.extract_topk(q, r, nv, k=k, **kw)
+        want = topk.extract_topk_reference(q, r, nv, k=k + 1, **kw)
+        torch.cuda.synchronize()
+        ok, err, differ = topk_agreement(got, want)
+        del got, want
+        ms = cuda_ms(lambda: topk.extract_topk(q, r, nv, k=k, **kw), reps)
+        plain_ms = cuda_ms(lambda: topk.extract_topk_reference(q, r, nv, k=k, **kw), reps)
+        res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                   **bound(*work_extract_topk(nq, nr, nv, d, k, q.element_size()), dt))
+        tag = "f16" if dt == torch.float16 else "f32"
+        # the design's own floor: every product an f32 FFMA
+        ffma_ms = 1e3 * 2 * nq * nv * d / PEAK_FLOPS[torch.float32]
+        print(f"  extract_topk {tag} [{nq},{d}]x[{nr},{d}] num_valid {nv} e={e} tile_r={tile_r} "
+              f"k={k}: max_abs_err {err:.3e} (tol {TOPK_TOL:g}), {differ} rows with another "
+              f"column set (near ties only) {'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {res['bound_ms']:.3f} ms ({res['bound_by']}), "
+              f"FFMA floor {ffma_ms:.3f} ms", flush=True)
+        check(ok, f"extract_topk {tag} D{d}: kernel disagrees with its plain version "
+                  f"(max_abs_err {err}, {differ} rows)")
+        results[("extract_topk", f"D{d}", tag)] = res
+        del q, r
+    del q32, r32
     torch.cuda.empty_cache()
     return results
 
@@ -637,9 +725,253 @@ def check_swin_paths(device, wrappers) -> dict:
     return launches
 
 
+# --- phase 5: the descriptor-track eval path -----------------------------------
+
+# The reference operating point of `scripts/scaled_eval.py` (10k query
+# videos x 40k ref videos x 32 frames, 512-d, 4k noise videos, 100 planted
+# copies); the eval path runs on the first 1,000 query videos, so that the
+# host-side TN localization of 5 pairs per query fits the time limit, and
+# the search alone is timed at all 10,000.
+EVAL_SIZES = dict(queries=10_000, eval_queries=1_000, refs=40_000, noise=4_000, frames=32,
+                  dim=512, planted=100)
+
+
+def make_corpus(n_queries, n_refs, n_noise, frames, dim, planted=100, seed=0):
+    """The planted-copy corpus of `scripts/scaled_eval.make_corpus`, as the
+    port's VideoFeatures: unit random frames; query i < planted carries
+    frames 10-19 of ref i, lightly noised, at its frames 5-14. Returns
+    (queries, refs, noise, gt). Each corpus is one draw, which gives the
+    same values as the script's draw per video from the same seed."""
+    from vsc22_tpu_torch.core.types import VideoFeature
+
+    rng = np.random.default_rng(seed)
+
+    def mk(prefix, count, start=0):
+        f = rng.standard_normal((count * frames, dim), dtype=np.float32)
+        f /= np.linalg.norm(f, axis=1, keepdims=True)
+        return [VideoFeature(video_id=f"{prefix}{start + i:06d}",
+                             timestamps=np.arange(frames, dtype=np.float32),
+                             feature=f[i * frames : (i + 1) * frames])
+                for i in range(count)]
+
+    refs = mk("R", n_refs)
+    queries = mk("Q", n_queries)
+    noise = mk("R", n_noise, start=n_refs)  # ids disjoint from the evaluated refs
+    planted = min(planted, n_queries, n_refs)
+    gt = []
+    span = min(10, frames - 5)
+    for i in range(planted):
+        q, r = queries[i], refs[i]
+        q.feature[5 : 5 + span] = r.feature[10 : 10 + span] + rng.normal(
+            0, 0.05, (span, dim)).astype(np.float32)
+        q.feature /= np.linalg.norm(q.feature, axis=1, keepdims=True)
+        gt.append((q.video_id, r.video_id, 5.0, 5.0 + span, 10.0, 10.0 + span))
+    return queries, refs, noise, gt
+
+
+@contextlib.contextmanager
+def call_times(targets):
+    """Seconds spent inside each (owner, attribute, name) method while the
+    block runs, summed over calls, with a device sync at both edges of
+    every call (nested calls count in both)."""
+    times: dict = {}
+    saved = []
+    for owner, attr, name in targets:
+        fn = getattr(owner, attr)  # bound, where owner is a class
+
+        def wrapper(*args, _fn=fn, _name=name, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[_name] = times.get(_name, 0.0) + time.perf_counter() - t0
+            return out
+
+        saved.append((owner, attr, vars(owner)[attr]))
+        setattr(owner, attr, wrapper)
+    try:
+        yield times
+    finally:
+        for owner, attr, raw in saved:
+            setattr(owner, attr, raw)
+
+
+def search_split(search_fn) -> tuple:
+    """(search_fn(), its split): the searcher's row_topk (B5 + rescans +
+    transfers), within it the exact per-tile rescans and the torch fast
+    scan (deeper rounds, where B5's rule fails), global_topk's host
+    selection, the index build (ref packing and upload), and the per-pair
+    aggregation (with the query packing)."""
+    from vsc22_tpu_torch.retrieval import index, search
+
+    targets = [(search.SimilaritySearcher, "row_topk", "row_topk"),
+               (search, "_row_topk_exact", "exact rescans"),
+               (search, "_row_topk_fast", "torch fast scan"),
+               (search.SimilaritySearcher, "global_topk", "global_topk"),
+               (index.VideoIndex, "_ensure_built", "index build"),
+               (index.VideoIndex, "search_max_aggregated", "search_max_aggregated")]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with call_times(targets) as t:
+        out = search_fn()
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    split = {
+        "row_topk": t.get("row_topk", 0.0),
+        "of it exact rescans": t.get("exact rescans", 0.0),
+        "of it torch fast scan": t.get("torch fast scan", 0.0),
+        "global selection": t.get("global_topk", 0.0) - t.get("row_topk", 0.0),
+        "index build": t.get("index build", 0.0),
+        "per-pair aggregation": (t.get("search_max_aggregated", 0.0) - t.get("global_topk", 0.0)
+                                 - t.get("index build", 0.0)),
+        "rest": total - t.get("search_max_aggregated", 0.0),
+    }
+    print("    split: " + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()), flush=True)
+    return out, split
+
+
+def timed_stage(stages: dict, name: str, fn):
+    """fn() on the host clock, with a device sync at both edges."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    stages[name] = time.perf_counter() - t0
+    print(f"  {name}: {stages[name]:.3f} s", flush=True)
+    return out
+
+
+def check_b5_against_exact(sn_queries, sn_refs, device, rows=256, k=128) -> None:
+    """For `rows` sampled query rows, `row_topk` (on B5) against the exact
+    per-tile path on the card, on the same f16 corpus: the same top-k sets
+    (near ties at the cut aside) and scores within TOPK_TOL. Rows that fail
+    B5's certificate come back from the exact path inside `row_topk`, so at
+    most a quarter of them may, or the check would hold the exact path
+    against itself."""
+    from vsc22_tpu_torch.ops.topk import extract_topk
+    from vsc22_tpu_torch.retrieval import search
+    from vsc22_tpu_torch.retrieval.packed import PackedFeatures
+
+    packed = PackedFeatures.from_video_features(sn_refs)
+    searcher = search.SimilaritySearcher(packed.features[: packed.num_rows], device=device,
+                                         transfer_dtype=np.float16)
+    all_q = np.concatenate([q.feature for q in sn_queries])
+    pick = np.sort(np.random.default_rng(5).choice(len(all_q), rows, replace=False))
+    before = extract_topk.launches
+    exact = search._row_topk_exact
+    rescanned = []
+    search._row_topk_exact = lambda q, *a: rescanned.append(q.shape[0]) or exact(q, *a)
+    try:
+        s, i = searcher.row_topk(all_q[pick], k)
+    finally:
+        search._row_topk_exact = exact
+    check(extract_topk.launches == before + 1, "cross-check: row_topk did not run B5")
+    es, ei = exact(searcher._to_device(all_q[pick]), searcher.refs, searcher.num_refs, k + 1,
+                   searcher.ref_tile)
+    zero = torch.zeros(rows)
+    ok, err, differ = topk_agreement(
+        (torch.from_numpy(s), torch.from_numpy(i).long(), zero), (es.cpu(), ei.cpu(), zero))
+    print(f"  cross-check, {rows} sampled query rows, k={k}: row_topk on B5 vs the exact "
+          f"per-tile path on the card: max_abs_err {err:.3e} (tol {TOPK_TOL:g}), {differ} rows "
+          f"with another column set (near ties only) {'ok' if ok else 'FAIL'}; "
+          f"{sum(rescanned)} of {rows} rows failed B5's certificate and were rescanned "
+          f"(limit {rows // 4})", flush=True)
+    check(ok, "cross-check: row_topk on B5 disagrees with the exact path")
+    check(sum(rescanned) <= rows // 4,
+          f"cross-check: {sum(rescanned)} of {rows} rows came from the exact rescan, not B5")
+    del searcher, packed
+    torch.cuda.empty_cache()
+
+
+def run_eval(device, wrappers, card: str) -> dict:
+    """The descriptor-track eval path as `scripts/scaled_eval.py` runs it:
+    score-norm (beta 1.2, nk 1), the global budget search of 1200 hits per
+    query (f16 transfer), the top 25 candidates per query, TN localization
+    of the top 5 (score-normalised, a process pool), candidate µAP on the
+    planted copies. Then the B5 cross-check and the search alone at the
+    full query count. Returns B5's launches in the eval path."""
+    from vsc22_tpu_torch.align.vta import BaseVtaModel
+    from vsc22_tpu_torch.core.metrics import average_precision
+    from vsc22_tpu_torch.core.types import CandidatePair
+    from vsc22_tpu_torch.ops.topk import extract_topk
+    from vsc22_tpu_torch.pipelines.descriptor_eval import localize_and_verify, search
+    from vsc22_tpu_torch.retrieval.score_norm import (
+        _min_variance_dim,
+        query_score_normalize,
+        ref_score_normalize,
+    )
+    from vsc22_tpu_torch.retrieval.search import QUERY_TILE  # one B5 launch per tile
+
+    sizes, concurrency = EVAL_SIZES, min(8, os.cpu_count() or 1)
+    stages: dict = {}
+    queries, refs, noise, gt = timed_stage(stages, "corpus_gen", lambda: make_corpus(
+        sizes["queries"], sizes["refs"], sizes["noise"], sizes["frames"], sizes["dim"],
+        sizes["planted"]))
+    n_eval = sizes["eval_queries"]
+    eval_q = queries[:n_eval]
+    print(f"  corpus: {len(queries)} query x {len(refs)} ref videos of {sizes['frames']} "
+          f"frames, {sizes['dim']}-d, {len(noise)} noise videos, {len(gt)} planted; the eval "
+          f"path takes the first {n_eval} queries", flush=True)
+    gt_pairs = [CandidatePair(query_id=q, ref_id=r, score=1.0) for q, r, *_ in gt]
+    low_var = _min_variance_dim(noise)
+
+    zero_counts(wrappers)
+    sn_q, sn_refs = timed_stage(stages, "score_norm", lambda: (
+        query_score_normalize(eval_q, noise, low_var_dim=low_var, beta=1.2, nk=1, device=device),
+        ref_score_normalize(refs, noise, beta=1.2, nk=1)))
+    candidates, _ = timed_stage(stages, "search_1200_per_query", lambda: search_split(
+        lambda: search(sn_q, sn_refs, transfer_dtype=np.float16, device=device)))
+    b5_search = extract_topk.launches
+    with call_times([(BaseVtaModel, "forward_sim", "alignment")]) as tn_times:
+        matches = timed_stage(stages, "tn_localization", lambda: localize_and_verify(
+            sn_q, sn_refs, candidates, score_normalization=True, concurrency=concurrency))
+    print(f"    split: TN alignment in {concurrency} worker processes "
+          f"{tn_times['alignment']:.3f} s, the rest (maps, matches, pool start and stop) "
+          f"{stages['tn_localization'] - tn_times['alignment']:.3f} s", flush=True)
+    ap = timed_stage(stages, "metrics", lambda: average_precision(gt_pairs, candidates)).ap
+    launches = counts(wrappers)
+
+    q_rows = sum(len(q.feature) for q in sn_q)
+    tiles = -(-q_rows // QUERY_TILE)
+    located = {(m.query_id, m.ref_id) for m in matches} & {(p.query_id, p.ref_id)
+                                                           for p in gt_pairs}
+    print(f"  eval path ({n_eval} x {len(refs)} videos, {q_rows} x "
+          f"{sum(len(r.feature) for r in sn_refs)} rows): {len(candidates)} candidates, "
+          f"{len(matches)} matches ({len(located)} of {len(gt)} planted pairs localized), "
+          f"candidate µAP {ap:.4f} (bar 0.95); launches {launches} (B5 >= {tiles}, the "
+          f"4096-row query tiles of the first row_topk)", flush=True)
+    check(0 < len(candidates) <= 25 * n_eval, f"eval: {len(candidates)} candidates")
+    check(all(np.isfinite(c.score) for c in candidates), "eval: non-finite candidate scores")
+    check(ap > 0.95, f"eval: candidate µAP {ap:.4f} <= 0.95 on the planted copies")
+    check(b5_search >= tiles, f"eval: B5 launched {b5_search} times, fewer than the {tiles} "
+                              "query tiles of the first row_topk")
+
+    check_b5_against_exact(sn_q, sn_refs, device)
+
+    n_all = len(queries)
+    sn_all = timed_stage(stages, f"score_norm ({n_all} queries)", lambda: query_score_normalize(
+        queries, noise, low_var_dim=low_var, beta=1.2, nk=1, device=device))
+    zero_counts(wrappers)
+    full, _ = timed_stage(stages, f"search_1200_per_query ({n_all} x {len(refs)})",
+                          lambda: search_split(lambda: search(
+                              sn_all, sn_refs, transfer_dtype=np.float16, device=device)))
+    full_launches = extract_topk.launches
+    full_rows = sum(len(q.feature) for q in sn_all)
+    full_ap = average_precision(gt_pairs, full).ap
+    print(f"  search alone at {n_all} x {len(refs)} videos ({full_rows} x "
+          f"{sum(len(r.feature) for r in sn_refs)} rows, global_k {1200 * n_all}): "
+          f"{len(full)} candidates, candidate µAP {full_ap:.4f}, B5 launches {full_launches}",
+          flush=True)
+    check(full_launches >= -(-full_rows // QUERY_TILE), "full search: too few B5 launches")
+    check(0 < len(full) <= 25 * n_all and full_ap > 0.95, "full search: bad candidates")
+    print(f"  stage walls on {card}: " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()),
+          flush=True)
+    return launches
+
+
 # --- main -------------------------------------------------------------------
 
-LIBRARIES = ("attn_proj", "ln_mlp", "row_max", "window_attn", "swin_block")
+LIBRARIES = ("attn_proj", "ln_mlp", "row_max", "window_attn", "swin_block", "extract_topk")
 # name -> (source, the TPU kernel it replaces, the phase-2 case reported)
 KERNELS = {
     "attn_proj_residual": ("vsc22_tpu_torch/csrc/attn_proj.cu",
@@ -654,6 +986,8 @@ KERNELS = {
                          "vsc22_tpu/ops/pallas_window_attn.py:71", ("stage4", "f32")),
     "fused_mlp": ("vsc22_tpu_torch/csrc/ln_mlp.cu",
                   "vsc22_tpu/ops/pallas_mlp.py:70", ("stage4", "f32")),
+    "extract_topk": ("vsc22_tpu_torch/csrc/extract_topk.cu",
+                     "vsc22_tpu/ops/pallas_topk.py:83", ("D512", "f16")),
 }
 
 
@@ -666,6 +1000,7 @@ def main() -> int:
     from vsc22_tpu_torch.ops.mlp import fused_mlp, ln_mlp_residual
     from vsc22_tpu_torch.ops.sim import row_max_gemm, row_max_gemm_reference
     from vsc22_tpu_torch.ops.swin_block import swin_block
+    from vsc22_tpu_torch.ops.topk import extract_topk
     from vsc22_tpu_torch.ops.window_attn import window_attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -674,7 +1009,7 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     wrappers = (attn_proj_residual, ln_mlp_residual, row_max_gemm, swin_block,
-                window_attention, fused_mlp)
+                window_attention, fused_mlp, extract_topk)
     t_start = time.perf_counter()
 
     print("phase 1: card and build", flush=True)
@@ -691,6 +1026,7 @@ def main() -> int:
     print(f"phase 2: kernels vs plain on the card ({card})", flush=True)
     kres = check_kernels(device)
     kres.update(check_swin_kernels(device))
+    kres.update(check_topk_kernel(device))
 
     print(f"phase 3: the slice ({card})", flush=True)
     check_small_slice(device, wrappers)
@@ -764,6 +1100,9 @@ def main() -> int:
     path_launches = check_swin_paths(device, wrappers)
     launches["window_attention"] = path_launches["window_attention"]
     launches["fused_mlp"] = path_launches["fused_mlp"]
+
+    print(f"phase 5: the descriptor-track eval path ({card})", flush=True)
+    launches["extract_topk"] = run_eval(device, wrappers, card)["extract_topk"]
 
     kernels = []
     for name, (src, replaces, (tag, dn)) in KERNELS.items():

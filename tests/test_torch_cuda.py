@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at
 ragged shapes the main path does not reach (odd rows and widths, head dims
 other than 64 or 32, window sizes other than 16 and 8, tiny, single-row and
-single-window operands).
+single-window operands; B5 at every e, ragged blocks and duplicate rows).
 
 Needs a CUDA device; skips elsewhere. The shared conftest imports JAX,
 which the GPU host lacks, so run it there without it:
@@ -22,6 +22,7 @@ from vsc22_tpu_torch.ops.mlp import (
 )
 from vsc22_tpu_torch.ops.sim import row_max_gemm, row_max_gemm_reference
 from vsc22_tpu_torch.ops.swin_block import swin_block, swin_block_reference
+from vsc22_tpu_torch.ops.topk import extract_topk, extract_topk_reference
 from vsc22_tpu_torch.ops.window_attn import window_attention, window_attention_reference
 
 pytestmark = pytest.mark.cuda
@@ -195,3 +196,85 @@ def test_fused_mlp_ragged(device, dtype, rows, c, hidden):
     got = fused_mlp(*args)
     assert fused_mlp.launches == before + 1
     assert_close(got, fused_mlp_reference(*args), TOL[dtype])
+
+
+# (nq, nr, d, num_valid, e, tile_r, k): query counts off the 64-row tile,
+# D 1, 511 and 512, num_valid inside the last (ragged) block, e 1 to 8,
+# tile_r off the 64-column sub-tile, and k past nb * e (padded).
+TOPK_CASES = [(70, 3000, 512, 2950, 4, 1024, 16), (1, 2048, 511, 2048, 1, 256, 5),
+              (130, 700, 1, 650, 8, 128, 20), (64, 1500, 64, 1499, 2, 100, 40),
+              (200, 5000, 96, 4900, 3, 512, 50), (33, 4096, 128, 3000, 5, 1024, 8),
+              (257, 9000, 32, 8999, 6, 1000, 16), (5, 640, 48, 640, 7, 64, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("nq,nr,d,nv,e,tile_r,k", TOPK_CASES)
+def test_extract_topk_ragged(device, dtype, nq, nr, d, nv, e, tile_r, k):
+    gen = torch.Generator().manual_seed(nq + nr + d + e)
+    # entries of variance 1/D, so the scores are O(1) at every D
+    q = randn(gen, (nq, d), d**-0.5, dtype, device)
+    r = randn(gen, (nr, d), d**-0.5, dtype, device)
+    before = extract_topk.launches
+    got = extract_topk(q, r, nv, e=e, tile_r=tile_r, k=k)
+    assert extract_topk.launches == before + 1
+    want = extract_topk_reference(q, r, nv, e=e, tile_r=tile_r, k=k + 1)
+    torch.cuda.synchronize()
+    ok, err, differ = chip_smoke.topk_agreement(got, want)
+    assert ok, (err, differ)
+    nb_e = -(-nr // tile_r) * e
+    if k > nb_e:
+        assert (got[0][:, nb_e:] == want[0][:, nb_e:k]).all()
+        assert (got[1][:, nb_e:] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("e", [1, 2, 4, 8])
+def test_extract_topk_duplicate_rows_lowest_column_wins(device, dtype, e):
+    """Duplicate ref rows score exactly alike (small integers: every
+    product and sum is exact in any order), so the kernel must surface
+    them in column order within a block and rank them so across blocks."""
+    gen = torch.Generator().manual_seed(e)
+    d, nr, tile_r = 40, 2100, 256
+    r = torch.randint(-1, 2, (nr, d), generator=gen).float()
+    q = torch.randint(0, 3, (70, d), generator=gen).float()
+    dup = [3, 70, 71, 200, 255, 256, 300, 301, 1800, 2099]
+    r[dup] = 3.0
+    r[2000:2050] = r[1999]  # a run of equal rows across a block edge
+    q, r = q.to(dtype).to(device), r.to(dtype).to(device)
+    got = extract_topk(q, r, nr, e=e, tile_r=tile_r, k=12)
+    want = extract_topk_reference(q, r, nr, e=e, tile_r=tile_r, k=12)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    per_block = {}
+    for col in dup:
+        per_block.setdefault(col // tile_r, []).append(col)
+    lowest = sorted(c for cols in per_block.values() for c in cols[:e])
+    assert got[1][:, : len(lowest)].tolist() == [lowest] * 70
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+def test_extract_topk_operands_off_the_vector_alignment(device, dtype):
+    """Contiguous views that start one element into a buffer: the kernel
+    must not take its aligned vector loads there."""
+    gen = torch.Generator().manual_seed(11)
+    nq, nr, d = 50, 700, 64
+    qb = randn(gen, (nq * d + 1,), d**-0.5, dtype, device)
+    rb = randn(gen, (nr * d + 1,), d**-0.5, dtype, device)
+    q, r = qb[1:].view(nq, d), rb[1:].view(nr, d)
+    got = extract_topk(q, r, nr, e=4, tile_r=256, k=10)
+    want = extract_topk_reference(q, r, nr, e=4, tile_r=256, k=11)
+    torch.cuda.synchronize()
+    ok, err, differ = chip_smoke.topk_agreement(got, want)
+    assert ok, (err, differ)
+
+
+def test_extract_topk_rejects_what_the_kernel_does_not_take(device):
+    q = torch.zeros(4, 8, device=device)
+    with pytest.raises(TypeError):  # mixed types
+        extract_topk(q, torch.zeros(16, 8, device=device, dtype=torch.float16), 16, e=2,
+                     tile_r=8, k=2)
+    with pytest.raises(ValueError):  # refs on the CPU
+        extract_topk(q, torch.zeros(16, 8), 16, e=2, tile_r=8, k=2)
+    with pytest.raises(ValueError):  # e past the template range
+        extract_topk(q, torch.zeros(16, 8, device=device), 16, e=9, tile_r=16, k=2)

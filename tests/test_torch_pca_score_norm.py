@@ -73,11 +73,18 @@ def test_score_normalize_and_ref_side_match_jax(corpus):
 
 
 def test_unported_and_invalid_uses_raise(corpus):
+    """nk > 1 is ported now (through the searcher; its parity with the JAX
+    package is in test_torch_search.py), so it runs; score-normalizing
+    against the evaluated refs themselves still raises."""
     queries, refs, noise = corpus
-    with pytest.raises(NotImplementedError):
-        psn.query_score_normalize(queries, noise, nk=10, device="cpu")
+    out = psn.query_score_normalize(queries, noise, nk=10, device="cpu")
+    assert [q.video_id for q in out] == [q.video_id for q in queries]
+    for q, src in zip(out, queries):
+        assert q.feature.shape == src.feature.shape and np.isfinite(q.feature).all()
     with pytest.raises(ValueError):
         psn.ref_score_normalize(refs, refs)
+    with pytest.raises(ValueError):
+        psn.score_normalize(queries, refs, refs, device="cpu")
 
 
 def test_entry_points_default_to_the_card(corpus):

@@ -1,17 +1,19 @@
 """CSLS-style score normalization against a noise reference corpus.
 
-Counterpart of `vsc22_tpu/retrieval/score_norm.py` for nk=1: each query
-frame gets an extra dimension holding -beta * (top-1 inner-product
-similarity to the noise corpus), computed by kernel K3 (`ops/sim.py`)
-on `device`; references get a constant-1 extra dimension. Before that the
-noise corpus's minimum-variance dimension is deleted and rows are
-re-L2-normalized. nk > 1 needs the batched top-k search, which is not
-ported yet.
+Counterpart of `vsc22_tpu/retrieval/score_norm.py`: each query frame gets
+an extra dimension holding -beta * mean(top-nk inner-product similarities
+to the noise corpus), references a constant-1 extra dimension, so a plain
+inner product realizes sim(q, r) + bias(q). Before that the noise corpus's
+minimum-variance dimension is deleted and rows are re-L2-normalized. nk=1
+runs kernel K3 (`ops/sim.py`) on `device`; nk > 1 one batched `row_topk`
+of the searcher (`retrieval/search.py`) over every frame.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -20,6 +22,11 @@ import torch
 from vsc22_tpu_torch.core.device import resolve
 from vsc22_tpu_torch.core.types import VideoFeature
 from vsc22_tpu_torch.ops.sim import row_max_gemm
+from vsc22_tpu_torch.retrieval.search import SimilaritySearcher
+
+
+def transform_features(features: List[VideoFeature], transform) -> List[VideoFeature]:
+    return [dataclasses.replace(f, feature=transform(f.feature)) for f in features]
 
 
 def _repack(features: List[VideoFeature], packed: np.ndarray) -> List[VideoFeature]:
@@ -67,6 +74,31 @@ def _min_variance_dim(features: List[VideoFeature]) -> int:
     return int(stacked.var(axis=0).argmin())
 
 
+# Serving calls score-norm once per batch against the same noise corpus;
+# the searcher (the corpus on the device) is kept for the next call. Keyed
+# by the device and a content digest of the prepared matrix, so a hit is
+# only possible for byte-identical noise. Least recently used goes first.
+_SEARCHER_CACHE: "OrderedDict[tuple, SimilaritySearcher]" = OrderedDict()
+_SEARCHER_CACHE_SIZE = 4
+
+
+def _cached_searcher(noise: np.ndarray, device) -> SimilaritySearcher:
+    key = (
+        str(device),
+        noise.shape,
+        hashlib.blake2b(np.ascontiguousarray(noise).tobytes(), digest_size=16).hexdigest(),
+    )
+    searcher = _SEARCHER_CACHE.get(key)
+    if searcher is None:
+        searcher = SimilaritySearcher(noise, device=device)
+        _SEARCHER_CACHE[key] = searcher
+        while len(_SEARCHER_CACHE) > _SEARCHER_CACHE_SIZE:
+            _SEARCHER_CACHE.popitem(last=False)
+    else:
+        _SEARCHER_CACHE.move_to_end(key)
+    return searcher
+
+
 def _noise_bias(
     queries: List[VideoFeature],
     score_norm_refs: List[VideoFeature],
@@ -74,16 +106,19 @@ def _noise_bias(
     nk: int,
     device,
 ) -> np.ndarray:
-    """Packed per-query-frame bias [sum(N_i), 1] = -beta * top-1 noise sim."""
-    if nk != 1:
-        raise NotImplementedError("nk > 1 needs the batched top-k search, not ported yet")
+    """Packed per-query-frame bias [sum(N_i), 1] =
+    -beta * mean(top-nk sims to the noise corpus): K3 for nk=1, else one
+    batched top-k over every video's frames."""
     noise = np.concatenate([r.feature for r in score_norm_refs], axis=0)
     all_q = np.concatenate([q.feature for q in queries], axis=0)
-    sims = row_max_gemm(
-        torch.from_numpy(np.ascontiguousarray(all_q)).to(device),
-        torch.from_numpy(np.ascontiguousarray(noise)).to(device),
-    )
-    return -beta * sims.cpu().numpy()[:, None]
+    if nk == 1:
+        sims = row_max_gemm(
+            torch.from_numpy(np.ascontiguousarray(all_q)).to(device),
+            torch.from_numpy(np.ascontiguousarray(noise)).to(device),
+        )
+        return -beta * sims.cpu().numpy()[:, None]
+    sims, _ = _cached_searcher(noise, device).row_topk(all_q, nk)
+    return -beta * sims.mean(axis=1, keepdims=True)
 
 
 def _check_disjoint(refs: List[VideoFeature], score_norm_refs: List[VideoFeature]):
@@ -160,8 +195,12 @@ def ref_score_normalize(
     score_norm_refs: List[VideoFeature],
     l2_normalize: bool = True,
     replace_dim: bool = True,
+    beta: float = 1.0,
+    nk: int = 1,
 ) -> List[VideoFeature]:
-    """Reference-side normalization: delete noise min-var dim, L2, append 1s."""
+    """Reference-side normalization: delete noise min-var dim, L2, append 1s.
+    `beta` and `nk` are taken, and ignored, as the JAX signature takes them:
+    the reference side gets no bias."""
     _check_disjoint(refs, score_norm_refs)
     dim = (
         _min_variance_dim(score_norm_refs)

@@ -18,6 +18,7 @@ result line):
      bounds; median
      kernel, plain and (where one PyTorch call computes the function)
      library times, and the least time the card could take (the bound);
+     B8, B9 and B10 at a full 128-frame chunk of each model, f32 and bf16;
   3. the slice end to end: first on a small input (tiny ViT + three tiny
      SwinV2 members on the module path, i.e. B6 and B7), the port on the
      card against the port's plain path on the CPU (same weights, float32);
@@ -43,7 +44,16 @@ result line):
      tile; for 256 sampled query rows `row_topk` on B5 equals the exact
      per-tile path; then the search alone at all 10,000 query videos. Every
      stage's wall time is printed;
-  6. a JSON line of per-kernel numbers, then the device line.
+  6. the CLIP block variants: the VED gate's CLIP ViT-L/14 at full width
+     and depth in the JAX `CLIPBlock`'s three configurations (default K1 +
+     K2, `use_half_block` on B9 + K2, `use_block_kernel` on B10): CLS
+     features of all three agree to 1e-3 in float32 on 16 frames; in bf16,
+     `BatchedVED.scores` over phase 3's 24 videos in each, the scores within
+     VED_SCORE_TOL of the default's and the gate decisions alike, with the
+     launch counts the depth requires; ms per 128-frame tower chunk of
+     each; `MultiHeadAttention` without a bias (B8) against the same module
+     with a zero bias (its einsum path) at CLIP's shape;
+  7. a JSON line of per-kernel numbers, then the device line.
 
 Needs CUDA (it refuses to run without) and no network; builds in
 `vsc22_tpu_torch/_build/`. It imports nothing of JAX or of the JAX package.
@@ -155,6 +165,26 @@ def work_attn_proj(b, l, c, h, isz):
     """K1: QK^T and PV per head, the projection; x, qkv, W, b in, out."""
     flops = 4 * b * h * l * l * (c // h) + 2 * b * l * c * c
     return flops, (5 * b * l * c + c * c) * isz + 4 * c
+
+
+def work_attn(b, l, h, hd, isz):
+    """B8: QK^T and PV per head; q, k, v in, out."""
+    return 4 * b * h * l * l * hd, 4 * b * l * h * hd * isz
+
+
+def work_ln_attn_proj(b, l, c, h, isz):
+    """B9: the QKV product, K1's work; x, weights in, out; LN params and
+    biases f32."""
+    flops = 8 * b * l * c * c + 4 * b * h * l * l * (c // h)
+    return flops, (2 * b * l * c + 4 * c * c) * isz + 4 * 6 * c
+
+
+def work_vit_block(b, l, c, h, f, isz):
+    """B10: QKV, proj, fc1, fc2 and the attention core; x in, out; weights;
+    LN params and biases f32."""
+    weights = 4 * c * c + 2 * c * f
+    flops = 2 * b * l * weights + 4 * b * h * l * l * (c // h)
+    return flops, (2 * b * l * c + weights) * isz + 4 * (9 * c + f)
 
 
 def work_mlp(m, c, hidden, isz, ln=True):
@@ -271,17 +301,20 @@ def dname(dt) -> str:
     return "f32" if dt == torch.float32 else "bf16"
 
 
+# A 128-frame chunk of each model that has pre-LN blocks.
+BLOCK_SHAPES = {
+    "vit": dict(b=128, l=145, c=768, h=12, hidden=3072, act="gelu", eps=1e-6),
+    "clip": dict(b=128, l=257, c=1024, h=16, hidden=4096, act="quick_gelu", eps=1e-5),
+}
+
+
 def check_kernels(device) -> dict:
     """K1 and K2 at the shapes of a full 128-frame chunk of each model."""
     from vsc22_tpu_torch.ops import attn_proj, mlp
 
     gen = torch.Generator().manual_seed(0)
     results = {}
-    shapes = {
-        "vit": dict(b=128, l=145, c=768, h=12, hidden=3072, act="gelu", eps=1e-6),
-        "clip": dict(b=128, l=257, c=1024, h=16, hidden=4096, act="quick_gelu", eps=1e-5),
-    }
-    for tag, s in shapes.items():
+    for tag, s in BLOCK_SHAPES.items():
         b, l, c, hidden = s["b"], s["l"], s["c"], s["hidden"]
         for dt in (torch.float32, torch.bfloat16):
             isz = torch.empty((), dtype=dt).element_size()
@@ -312,6 +345,64 @@ def check_kernels(device) -> dict:
             )
             del x, qkv, rows, w1, w2
     torch.cuda.empty_cache()
+    return results
+
+
+def block_params(gen, c, f, dt, device) -> dict:
+    """LN1, qkv, proj, LN2, fc1, fc2 of a pre-LN block (Linear layouts)."""
+    vec = lambda n, std: randn(gen, (n,), std, torch.float32, device)
+    w = lambda o, i: randn(gen, (o, i), i**-0.5, dt, device)
+    return dict(ln1_s=1 + vec(c, 0.1), ln1_b=vec(c, 0.1), qkv_w=w(3 * c, c),
+                qkv_b=vec(3 * c, 0.1), proj_w=w(c, c), proj_b=vec(c, 0.05),
+                ln2_s=1 + vec(c, 0.1), ln2_b=vec(c, 0.1), fc1_w=w(f, c), fc1_b=vec(f, 0.05),
+                fc2_w=w(c, f), fc2_b=vec(c, 0.05))
+
+
+def check_block_kernels(device) -> dict:
+    """B8, B9 and B10 at the shapes of a full 128-frame chunk of each model
+    (B8 there as `MultiHeadAttention` would call it, B9 and B10 as the CLIP
+    block variants and a ViT-width block would), f32 and bf16. B10's bf16
+    atol is B1's: its residual x1 is rounded inside the block."""
+    from vsc22_tpu_torch.ops import attn, attn_proj, vit_block
+
+    gen = torch.Generator().manual_seed(4)
+    results = {}
+    for tag, s in BLOCK_SHAPES.items():
+        b, l, c, h, f = s["b"], s["l"], s["c"], s["h"], s["hidden"]
+        hd = c // h
+        for dt in (torch.float32, torch.bfloat16):
+            isz = torch.empty((), dtype=dt).element_size()
+            # q carries the softmax scale, as MultiHeadAttention passes it.
+            q = randn(gen, (b, l, h, hd), 1.5 * hd**-0.5, dt, device)
+            k, v = (randn(gen, (b, l, h, hd), 1.5, dt, device) for _ in range(2))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            results[("packed_attention", tag, dname(dt))] = compare(
+                f"packed_attention {tag} {dname(dt)} [{b},{l},{h},{hd}]",
+                lambda: attn.packed_attention(q, k, v),
+                lambda: attn.packed_attention_reference(q, k, v),
+                work=work_attn(b, l, h, hd, isz), dtype=dt,
+                library_fn=lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=1.0),
+            )
+            del q, k, v, qt, kt, vt
+            x = randn(gen, (b, l, c), 1.0, dt, device)
+            p = block_params(gen, c, f, dt, device)
+            half = (x, *(p[n] for n in ("ln1_s", "ln1_b", "qkv_w", "qkv_b", "proj_w",
+                                        "proj_b")), h, s["eps"])
+            results[("ln_attn_proj_residual", tag, dname(dt))] = compare(
+                f"ln_attn_proj_residual {tag} {dname(dt)} [{b},{l},{c}] h={h}",
+                lambda: attn_proj.ln_attn_proj_residual(*half),
+                lambda: attn_proj.ln_attn_proj_residual_reference(*half),
+                work=work_ln_attn_proj(b, l, c, h, isz), dtype=dt,
+            )
+            whole = (x, *p.values(), h, s["act"], s["eps"])
+            results[("vit_block", tag, dname(dt))] = compare(
+                f"vit_block {tag} {dname(dt)} [{b},{l},{c}] h={h} F={f} {s['act']}",
+                lambda: vit_block.vit_block(*whole),
+                lambda: vit_block.vit_block_reference(*whole),
+                block=True, work=work_vit_block(b, l, c, h, f, isz), dtype=dt, reps=5,
+            )
+            del x, p, half, whole
+            torch.cuda.empty_cache()
     return results
 
 
@@ -969,9 +1060,128 @@ def run_eval(device, wrappers, card: str) -> dict:
     return launches
 
 
+# --- phase 6: the CLIP block variants ------------------------------------------
+
+CLIP_PATHS = ("default", "half_block", "block_kernel")
+# The largest |score difference| of a bf16 block variant's VED scores from
+# the default path's, over phase 3's 24 videos: ten times the spread that
+# 1-ulp flips of the residual stream through 24 layers give (PERF.md). A
+# gate decision may differ only for a score within this distance of the
+# threshold.
+VED_SCORE_TOL = 0.02
+
+
+def set_clip_path(model, path: str) -> None:
+    """Switch every block of a CLIPVisual to one of the JAX `CLIPBlock`'s
+    three configurations (plain attributes, read at each call)."""
+    for block in model.blocks:
+        block.use_half_block = path == "half_block"
+        block.use_block_kernel = path == "block_kernel"
+
+
+def check_clip_paths(device, wrappers, ved, dev_videos, card: str) -> dict:
+    """The VED gate's CLIP tower on each block path; returns the launches of
+    B8 (the MultiHeadAttention check), B9 (the half-block VED run) and B10
+    (the block-kernel VED run)."""
+    from vsc22_tpu_torch.models.clip import clip_vit_l14
+    from vsc22_tpu_torch.models.layers import MultiHeadAttention, reset_parameters
+    from vsc22_tpu_torch.pipelines.query_extract import SCORE_THRESHOLD
+
+    layers, size = len(ved.clip_model.blocks), ved.clip_model.cfg.img_size
+    # float32 on 16 frames: CLS features of the three paths, same weights.
+    model = clip_vit_l14(torch.float32, device)
+    reset_parameters(model, torch.Generator().manual_seed(9))
+    width = model.cfg.width
+    images = torch.randn((16, size, size, 3), generator=torch.Generator().manual_seed(10))
+    images = images.to(device)
+    cls = {}
+    with torch.inference_mode():
+        for path in CLIP_PATHS:
+            set_clip_path(model, path)
+            cls[path] = model(images)[:, 0]
+    torch.cuda.synchronize()
+    errs = {path: float((cls[path] - cls["default"]).abs().max()) for path in CLIP_PATHS[1:]}
+    ok = all(bool(torch.isfinite(c).all()) and c.shape == (16, width) for c in cls.values())
+    print(f"  CLIP ViT-L/14 f32, 16 frames: CLS features vs the default path: "
+          + ", ".join(f"{k} max_abs_err {v:.3e}" for k, v in errs.items()) + " (tol 1e-3)",
+          flush=True)
+    check(ok and max(errs.values()) <= 1e-3, "CLIP paths: f32 CLS features disagree")
+    del model, images, cls
+    torch.cuda.empty_cache()
+
+    # bf16: the VED gate over phase 3's videos on each path.
+    chunks = record_chunks(ved.clip_model)
+    scores, launches, chunk_ms = {}, {}, {}
+    frames = torch.randn((128, size, size, 3), generator=torch.Generator().manual_seed(11))
+    frames = frames.to(device)
+    for path in CLIP_PATHS:
+        set_clip_path(ved.clip_model, path)
+        with torch.inference_mode():
+            ved.scores(dev_videos)  # warm-up
+            chunks.clear()
+            zero_counts(wrappers)
+            scores[path] = ved.scores(dev_videos)
+            torch.cuda.synchronize()
+            launches[path] = counts(wrappers)
+            n_chunks = len(chunks)
+            chunk_ms[path] = cuda_ms(lambda: ved.clip_model(frames), reps=3)
+    set_clip_path(ved.clip_model, "default")
+    depth = layers * n_chunks
+    b9_b10 = max(abs(a - b) for a, b in zip(scores["half_block"], scores["block_kernel"]))
+    print(f"  VED bf16: max |score difference| half_block vs block_kernel {b9_b10:.3e}",
+          flush=True)
+    for path in CLIP_PATHS:
+        gated = [sc < SCORE_THRESHOLD for sc in scores[path]]
+        diff = max(abs(a - b) for a, b in zip(scores[path], scores["default"]))
+        print(f"  VED bf16 on {path}: {len(dev_videos)} videos, {n_chunks} CLIP chunks, "
+              f"{chunk_ms[path]:.3f} ms per 128-frame tower chunk on {card}; scores "
+              f"{min(scores[path]):.4f}..{max(scores[path]):.4f}, max |diff| vs default "
+              f"{diff:.3e} (bound {VED_SCORE_TOL}); gated below {SCORE_THRESHOLD}: "
+              f"{sum(gated)} of {len(gated)}; launches {launches[path]}", flush=True)
+        check(all(np.isfinite(scores[path])), f"VED {path}: non-finite scores")
+        check(diff <= VED_SCORE_TOL, f"VED {path}: scores {diff} from the default path's")
+        for a, b in zip(scores[path], scores["default"]):
+            check((a < SCORE_THRESHOLD) == (b < SCORE_THRESHOLD)
+                  or abs(b - SCORE_THRESHOLD) <= VED_SCORE_TOL,
+                  f"VED {path}: a gate decision flipped away from the threshold")
+    check(launches["default"]["attn_proj_residual"] == depth
+          and launches["default"]["ln_mlp_residual"] == depth, "VED default: K1/K2 launches")
+    check(launches["half_block"]["ln_attn_proj_residual"] == depth
+          and launches["half_block"]["ln_mlp_residual"] == depth
+          and launches["half_block"]["attn_proj_residual"] == 0, "VED half block: B9/K2 launches")
+    check(launches["block_kernel"]["vit_block"] == depth
+          and launches["block_kernel"]["ln_mlp_residual"] == 0, "VED block kernel: B10 launches")
+    del frames
+
+    # B8 through MultiHeadAttention at CLIP's shape, against its einsum path.
+    mha = MultiHeadAttention(1024, 16, torch.bfloat16, device=device)
+    reset_parameters(mha, torch.Generator().manual_seed(12))
+    x = torch.randn((128, 257, 1024), generator=torch.Generator().manual_seed(13))
+    x = x.to(torch.bfloat16).to(device)
+    zero_bias = torch.zeros((1, 1, 1, 257), device=device)
+    with torch.inference_mode():
+        zero_counts(wrappers)
+        got = mha(x)
+        torch.cuda.synchronize()
+        b8 = counts(wrappers)["packed_attention"]
+        want = mha(x, zero_bias)
+    torch.cuda.synchronize()
+    ok, err, share, words = agreement(got, want, F32_TOL)
+    print(f"  MultiHeadAttention bf16 [128,257,1024] h=16: no bias (B8, {b8} launch) vs a zero "
+          f"bias (einsum path): max_abs_err {err:.3e} ({words}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok and b8 == 1, "MultiHeadAttention: B8 path disagrees with the einsum path")
+    del mha, x, got, want
+    torch.cuda.empty_cache()
+    return {"packed_attention": b8,
+            "ln_attn_proj_residual": launches["half_block"]["ln_attn_proj_residual"],
+            "vit_block": launches["block_kernel"]["vit_block"]}
+
+
 # --- main -------------------------------------------------------------------
 
-LIBRARIES = ("attn_proj", "ln_mlp", "row_max", "window_attn", "swin_block", "extract_topk")
+LIBRARIES = ("attn_proj", "ln_mlp", "row_max", "window_attn", "swin_block", "extract_topk",
+             "attn", "vit_block")
 # name -> (source, the TPU kernel it replaces, the phase-2 case reported)
 KERNELS = {
     "attn_proj_residual": ("vsc22_tpu_torch/csrc/attn_proj.cu",
@@ -988,6 +1198,12 @@ KERNELS = {
                   "vsc22_tpu/ops/pallas_mlp.py:70", ("stage4", "f32")),
     "extract_topk": ("vsc22_tpu_torch/csrc/extract_topk.cu",
                      "vsc22_tpu/ops/pallas_topk.py:83", ("D512", "f16")),
+    "packed_attention": ("vsc22_tpu_torch/csrc/attn.cu",
+                         "vsc22_tpu/ops/pallas_attn.py:82", ("clip", "bf16")),
+    "ln_attn_proj_residual": ("vsc22_tpu_torch/csrc/attn_proj.cu",
+                              "vsc22_tpu/ops/pallas_attn_proj.py:302", ("clip", "bf16")),
+    "vit_block": ("vsc22_tpu_torch/csrc/vit_block.cu",
+                  "vsc22_tpu/ops/pallas_vit_block.py:176", ("clip", "bf16")),
 }
 
 
@@ -996,11 +1212,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 2
     from vsc22_tpu_torch.kernels import build
-    from vsc22_tpu_torch.ops.attn_proj import attn_proj_residual
+    from vsc22_tpu_torch.ops.attn import packed_attention
+    from vsc22_tpu_torch.ops.attn_proj import attn_proj_residual, ln_attn_proj_residual
     from vsc22_tpu_torch.ops.mlp import fused_mlp, ln_mlp_residual
     from vsc22_tpu_torch.ops.sim import row_max_gemm, row_max_gemm_reference
     from vsc22_tpu_torch.ops.swin_block import swin_block
     from vsc22_tpu_torch.ops.topk import extract_topk
+    from vsc22_tpu_torch.ops.vit_block import vit_block
     from vsc22_tpu_torch.ops.window_attn import window_attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1009,7 +1227,8 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     wrappers = (attn_proj_residual, ln_mlp_residual, row_max_gemm, swin_block,
-                window_attention, fused_mlp, extract_topk)
+                window_attention, fused_mlp, extract_topk, packed_attention,
+                ln_attn_proj_residual, vit_block)
     t_start = time.perf_counter()
 
     print("phase 1: card and build", flush=True)
@@ -1027,6 +1246,7 @@ def main() -> int:
     kres = check_kernels(device)
     kres.update(check_swin_kernels(device))
     kres.update(check_topk_kernel(device))
+    kres.update(check_block_kernels(device))
 
     print(f"phase 3: the slice ({card})", flush=True)
     check_small_slice(device, wrappers)
@@ -1093,7 +1313,8 @@ def main() -> int:
         lambda: row_max_gemm_reference(q, r),
         ROW_MAX_TOL, work=work_row_max(q.shape[0], r.shape[0], q.shape[1]),
     )
-    del pipe, models, dev_videos, row_max_calls, q, r
+    ved = pipe.ved  # phase 6 runs the VED gate again, on each CLIP block path
+    del pipe, models, row_max_calls, q, r
     torch.cuda.empty_cache()
 
     print(f"phase 4: the SwinV2 block paths ({card})", flush=True)
@@ -1104,7 +1325,14 @@ def main() -> int:
     print(f"phase 5: the descriptor-track eval path ({card})", flush=True)
     launches["extract_topk"] = run_eval(device, wrappers, card)["extract_topk"]
 
+    print(f"phase 6: the CLIP block variants ({card})", flush=True)
+    t0 = time.perf_counter()
+    launches.update(check_clip_paths(device, wrappers, ved, dev_videos, card))
+    print(f"  phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
+    del ved, dev_videos
+
     kernels = []
+    check(all(launches[name] > 0 for name in KERNELS), f"a kernel never ran: {launches}")
     for name, (src, replaces, (tag, dn)) in KERNELS.items():
         r = kres[(name, tag, dn)]
         kernels.append(dict(

@@ -1,13 +1,24 @@
-"""Port kernel K1 (attention + projection + residual): its plain version
-against the JAX Pallas kernel (interpret mode) and the XLA oracle."""
+"""Port kernels K1 (attention + projection + residual) and B9 (LN1 + QKV +
+the same): their plain versions against the JAX Pallas kernels (interpret
+mode) and the XLA oracles."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from vsc22_tpu.ops.pallas_attn_proj import _attn_proj_xla, attn_proj_residual_fused
-from vsc22_tpu_torch.ops.attn_proj import attn_proj_residual, attn_proj_residual_reference
+from vsc22_tpu.ops.pallas_attn_proj import (
+    _attn_proj_xla,
+    _ln_attn_proj_xla,
+    attn_proj_residual_fused,
+    ln_attn_proj_residual_fused,
+)
+from vsc22_tpu_torch.ops.attn_proj import (
+    attn_proj_residual,
+    attn_proj_residual_reference,
+    ln_attn_proj_residual,
+    ln_attn_proj_residual_reference,
+)
 
 # f32 on both sides; the sums run in another order.
 ATOL = 1e-5
@@ -69,3 +80,71 @@ def test_cpu_runs_plain_version_and_other_devices_raise():
     assert attn_proj_residual.launches == before
     with pytest.raises(ValueError):
         attn_proj_residual(*(t(a).to("meta") for a in (x, qkv, pw, pb)), 2)
+
+
+# B9 in f32 against the JAX kernel and oracle (the issue's bar for the
+# half block: its QKV product adds a K=C sum in another order).
+HALF_ATOL, HALF_RTOL = 3e-5, 1e-4
+
+
+def make_half_block(b, l, c, seed=7):
+    """The inputs of tests/test_pallas_attn_proj.py's half-block test; JAX
+    layouts (Dense kernels [in, out])."""
+    rng = np.random.default_rng(seed)
+    f = lambda a: a.astype(np.float32)
+    return dict(
+        x=f(rng.standard_normal((b, l, c)) * 0.5),
+        ln_s=f(1 + 0.1 * rng.standard_normal(c)), ln_b=f(0.1 * rng.standard_normal(c)),
+        qkv_w=f(rng.standard_normal((c, 3 * c)) * c**-0.5),
+        qkv_b=f(0.1 * rng.standard_normal(3 * c)),
+        proj_w=f(rng.standard_normal((c, c)) * c**-0.5), proj_b=f(0.1 * rng.standard_normal(c)),
+    )
+
+
+def port_half(a, h, dtype=torch.float32, fn=ln_attn_proj_residual):
+    t = lambda k: torch.from_numpy(a[k])
+    w = lambda k: torch.from_numpy(np.ascontiguousarray(a[k].T)).to(dtype)
+    return fn(t("x").to(dtype), t("ln_s"), t("ln_b"), w("qkv_w"), t("qkv_b"), w("proj_w"),
+              t("proj_b"), h, 1e-5)
+
+
+def jax_args(a):
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    return (j["x"], j["ln_s"], j["ln_b"], j["qkv_w"], j["qkv_b"], j["proj_w"], j["proj_b"])
+
+
+@pytest.mark.parametrize("b,l,c,h", [(1, 257, 256, 4), (2, 128, 256, 8)])
+def test_half_block_matches_pallas_interpret(b, l, c, h):
+    a = make_half_block(b, l, c)
+    want = np.asarray(ln_attn_proj_residual_fused(*jax_args(a), h, interpret=True))
+    np.testing.assert_allclose(port_half(a, h).numpy(), want, atol=HALF_ATOL, rtol=HALF_RTOL)
+
+
+@pytest.mark.parametrize("b,l,c,h", [(1, 257, 256, 4), (2, 128, 256, 8), (3, 17, 32, 2)])
+def test_half_block_matches_xla_oracle(b, l, c, h):
+    a = make_half_block(b, l, c, seed=8)
+    want = np.asarray(_ln_attn_proj_xla(*jax_args(a), h))
+    np.testing.assert_allclose(port_half(a, h).numpy(), want, atol=HALF_ATOL, rtol=HALF_RTOL)
+
+
+def test_half_block_bf16_rounds_where_jax_rounds():
+    """bf16: LN output, q/k/v, probabilities, attention and output rounded
+    as in the XLA oracle; differences are single bf16 ulps."""
+    a = make_half_block(2, 145, 256, seed=9)
+    j = jax_args(a)
+    bf = lambda t: t.astype(jnp.bfloat16)
+    want = np.asarray(_ln_attn_proj_xla(bf(j[0]), j[1], j[2], bf(j[3]), j[4], bf(j[5]), j[6],
+                                        4)).astype(np.float32)
+    got = port_half(a, 4, torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=1e-2, rtol=1e-2)
+
+
+def test_half_block_cpu_runs_plain_version_and_other_devices_raise():
+    a = make_half_block(1, 9, 32, seed=10)
+    before = ln_attn_proj_residual.launches
+    got = port_half(a, 2)
+    assert torch.equal(got, port_half(a, 2, fn=ln_attn_proj_residual_reference))
+    assert ln_attn_proj_residual.launches == before
+    with pytest.raises(ValueError):
+        ln_attn_proj_residual(*(torch.from_numpy(a[k]).to("meta") for k in a), 2)

@@ -64,6 +64,36 @@ def test_clip_visual_matches_jax():
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("flags,op", [({"use_half_block": True}, "ln_attn_proj_residual"),
+                                      ({"use_block_kernel": True}, "vit_block")],
+                         ids=["half_block", "block_kernel"])
+def test_clip_block_variants_match_jax(flags, op, monkeypatch):
+    """The tiny CLIP tower on B9 + K2 or on B10 against the JAX tower on its
+    default blocks (the same function; on the CPU the JAX dispatchers run
+    their XLA twins), with the same weights, at this file's f32 bar."""
+    jm = jclip.clip_tiny_test()
+    variables = jax.device_get(jm.init(jax.random.PRNGKey(5), jnp.zeros((1, 32, 32, 3))))
+    x = images(3, 32, seed=5)
+    want = np.asarray(jm.apply(variables, jnp.asarray(x)))
+    model = jax_params.load_clip_visual(clip.clip_tiny_test(), variables)
+    for block in model.blocks:
+        for k, v in flags.items():
+            setattr(block, k, v)
+    calls = []
+    real = getattr(clip, op)
+    monkeypatch.setattr(clip, op, lambda *a: calls.append(1) or real(*a))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    assert len(calls) == len(model.blocks)  # every block took the variant
+    assert got.shape == want.shape == (3, 17, 32)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_clip_block_flags_default_off():
+    block = clip.clip_tiny_test().blocks[0]
+    assert block.use_block_kernel is False and block.use_half_block is False
+
+
 def test_video_score_model_matches_jax():
     jm = jvsm.vsm_tiny_test()
     variables = jax.device_get(jm.init(jax.random.PRNGKey(3), jnp.zeros((1, 8, 16))))

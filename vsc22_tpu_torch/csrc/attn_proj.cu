@@ -1,121 +1,64 @@
 // K1: out = x + softmax(q k^T / sqrt(hd)) v @ W_proj^T + b_proj
+// B9: out = x + proj(attn(qkv(LN1 x)))
 //
-// Replaces the Pallas kernel vsc22_tpu/ops/pallas_attn_proj.py
+// K1 replaces the Pallas kernel vsc22_tpu/ops/pallas_attn_proj.py
 // `attn_proj_residual_fused` (its pallas_call at :165): q|k|v packed in
 // qkv [B, L, 3C] (head h at columns h*hd of each third), probabilities and
 // the attention output rounded to the working dtype, the residual added
 // in f32.
 //
-// What bounds it on the H100: at the main-path shapes (ViT L=145, CLIP
-// L=257, hd=64) the attention core is ~2*L*hd FMAs per query row on
-// operands that fit in one SM's shared memory, so it is bound by
-// shared-memory bandwidth of the CUDA-core dot products; the projection
-// is a dense [B*L, C] x [C, C] product, bound by FMA throughput on CUDA cores
-// in this version (no tensor cores).
+// B9 replaces `ln_attn_proj_residual_fused` (its pallas_call at :329,
+// kernel `_make_half_block_kernel` :189): LN1 with two-pass statistics
+// (accumulated in f64, rounded to f32), its output rounded to the working
+// dtype; the QKV product accumulated in f32 with the f32 bias added and q,
+// k, v each rounded to the working dtype; logits scaled by 1/sqrt(hd)
+// after the product; then K1's attention, projection and residual.
 //
-// Design: two launches.
-//  1. attn_kernel: one block per (query tile of 64 rows, head, frame).
-//     K^T and V of that head for all L tokens sit in dynamic shared memory
-//     (L*hd*2 values: 66 KB bf16 / 132 KB f32 at CLIP's L=257, hence the
-//     raised dynamic-smem limit). One warp per query row: lanes own keys
-//     for the logits (f32, over exactly L keys -- the loop bound replaces
-//     the TPU kernel's -1e9 pad mask), warp-reduced max and sum, the
-//     probabilities rounded to the working dtype, then lanes own head dims
-//     for P.V. The output is rounded to the working dtype into a scratch
-//     attn [B, L, C].
-//  2. the shared tiled GEMM (gemm_nt.cuh) with a bias + f32 residual
-//     epilogue: out = T(x + (attn W^T + b)).
+// What bounds them on the H100: at the main-path shapes (ViT L=145, CLIP
+// L=257, hd=64) the attention core (attn_core.cuh) is bound by
+// shared-memory bandwidth of CUDA-core dot products; the projection (and
+// B9's QKV product, 3x its FLOPs) is a dense [B*L, C] x [C, n*C] product,
+// bound by FMA throughput on CUDA cores in this version (no tensor cores).
+//
+// Design: K1 is two launches, B9 three:
+//  0. (B9) the shared tiled GEMM (gemm_nt.cuh) with LN1 fused into its
+//     A-tile load and the QKV bias in its epilogue -> qkv [B, L, 3C] in the
+//     working dtype (a scratch in device memory);
+//  1. the shared attention core, one block per (query tile, head, frame),
+//     reading q, k and v from the packed rows (stride 3C) -> attn [B, L, C];
+//  2. the shared tiled GEMM with a bias + f32 residual epilogue:
+//     out = T(x + (attn W^T + b)).
 // Later work: keep P.V on chip into the projection, and tensor cores.
-#include "gemm_nt.cuh"
+#include "attn_core.cuh"
 
 namespace vsc22 {
-
-constexpr int kAttnThreads = 256;
-constexpr int kAttnWarps = kAttnThreads / 32;
-constexpr int kQueryTile = 64;
-
-template <typename T>
-__global__ void __launch_bounds__(kAttnThreads)
-    attn_kernel(const T* __restrict__ qkv, T* __restrict__ attn, int L, int C, int hd,
-                float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* kt = reinterpret_cast<T*>(smem_raw);  // [hd][L]
-  T* vs = kt + (size_t)hd * L;             // [L][hd]
-  float* qbuf = reinterpret_cast<float*>(vs + (size_t)L * hd);  // [warps][hd]
-  float* pbuf = qbuf + kAttnWarps * hd;                          // [warps][L]
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const size_t row_stride = 3 * (size_t)C;
-  const T* base = qkv + (size_t)b * L * row_stride + (size_t)h * hd;
-
-  for (int e = threadIdx.x; e < L * hd; e += kAttnThreads) {
-    const int j = e / hd, d = e % hd;
-    const T* row = base + (size_t)j * row_stride + d;
-    kt[(size_t)d * L + j] = row[C];
-    vs[(size_t)j * hd + d] = row[2 * C];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* q = qbuf + warp * hd;
-  float* p = pbuf + warp * L;
-  const int i_end = min(L, (int)(blockIdx.x + 1) * kQueryTile);
-  for (int i = blockIdx.x * kQueryTile + warp; i < i_end; i += kAttnWarps) {
-    const T* qrow = base + (size_t)i * row_stride;
-    for (int d = lane; d < hd; d += 32) q[d] = to_f32(qrow[d]);
-    __syncwarp();
-
-    float mx = -INFINITY;
-    for (int j = lane; j < L; j += 32) {
-      float s = 0.0f;
-      for (int d = 0; d < hd; ++d) s = fmaf(q[d], to_f32(kt[(size_t)d * L + j]), s);
-      s *= scale;
-      p[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int j = lane; j < L; j += 32) {
-      const float ex = expf(p[j] - mx);
-      p[j] = ex;
-      sum += ex;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < L; j += 32) p[j] = round_to<T>(p[j] / sum);
-    __syncwarp();
-
-    T* orow = attn + ((size_t)b * L + i) * C + (size_t)h * hd;
-    for (int d = lane; d < hd; d += 32) {
-      float acc = 0.0f;
-      for (int j = 0; j < L; ++j) acc = fmaf(p[j], to_f32(vs[(size_t)j * hd + d]), acc);
-      orow[d] = from_f32<T>(acc);
-    }
-    __syncwarp();
-  }
-}
-
-inline size_t attn_smem_bytes(int L, int hd, size_t elem) {
-  return 2 * (size_t)L * hd * elem + (size_t)kAttnWarps * (hd + L) * sizeof(float);
-}
 
 template <typename T>
 int attn_proj_residual(const void* x, const void* qkv, const void* proj_w, const float* proj_b,
                        void* attn, void* out, int B, int L, int C, int H,
                        cudaStream_t stream) {
   const int hd = C / H;
-  const size_t smem = attn_smem_bytes(L, hd, sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + kQueryTile - 1) / kQueryTile, H, B);
-  attn_kernel<T><<<grid, kAttnThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(attn), L, C, hd, 1.0f / sqrtf((float)hd));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const T* q = static_cast<const T*>(qkv);
+  int err = launch_attn_core<T>(q, q + C, q + 2 * C, 3 * C, static_cast<T*>(attn), C, B, L, H, hd,
+                                1.0f / sqrtf((float)hd), stream);
+  if (err != 0) return err;
   launch_gemm<T, kActNone, false>(static_cast<const T*>(attn), static_cast<const T*>(proj_w),
                                   proj_b, static_cast<const T*>(x), static_cast<T*>(out),
                                   B * L, C, C, nullptr, nullptr, 0.0f, stream);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int ln_attn_proj_residual(const void* x, const float* ln_g, const float* ln_b,
+                          const void* qkv_w, const float* qkv_b, const void* proj_w,
+                          const float* proj_b, void* qkv, void* attn, void* out, int B, int L,
+                          int C, int H, float eps, cudaStream_t stream) {
+  launch_gemm<T, kActNone, true>(static_cast<const T*>(x), static_cast<const T*>(qkv_w), qkv_b,
+                                 nullptr, static_cast<T*>(qkv), B * L, 3 * C, C, ln_g, ln_b, eps,
+                                 stream);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return attn_proj_residual<T>(x, qkv, proj_w, proj_b, attn, out, B, L, C, H, stream);
 }
 
 }  // namespace vsc22
@@ -130,4 +73,21 @@ extern "C" int vsc22_attn_proj_residual(const void* x, const void* qkv, const vo
     return vsc22::attn_proj_residual<__nv_bfloat16>(x, qkv, proj_w, proj_b, attn, out, B, L,
                                                     C, H, s);
   return vsc22::attn_proj_residual<float>(x, qkv, proj_w, proj_b, attn, out, B, L, C, H, s);
+}
+
+// B9. x, out, attn (scratch): [B, L, C]; qkv (scratch): [B, L, 3C]; qkv_w:
+// [3C, C] and proj_w: [C, C] in Linear layout; ln_g, ln_b, proj_b: f32
+// [C]; qkv_b: f32 [3C].
+extern "C" int vsc22_ln_attn_proj_residual(const void* x, const float* ln_g, const float* ln_b,
+                                           const void* qkv_w, const float* qkv_b,
+                                           const void* proj_w, const float* proj_b, void* qkv,
+                                           void* attn, void* out, int B, int L, int C, int H,
+                                           float eps, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == vsc22::kBF16)
+    return vsc22::ln_attn_proj_residual<__nv_bfloat16>(x, ln_g, ln_b, qkv_w, qkv_b, proj_w,
+                                                       proj_b, qkv, attn, out, B, L, C, H, eps,
+                                                       s);
+  return vsc22::ln_attn_proj_residual<float>(x, ln_g, ln_b, qkv_w, qkv_b, proj_w, proj_b, qkv,
+                                             attn, out, B, L, C, H, eps, s);
 }

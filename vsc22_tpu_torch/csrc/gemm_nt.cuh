@@ -61,6 +61,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
@@ -87,14 +93,17 @@ template <typename T> struct RowLoader {
 };
 
 // LayerNorm(x) rounded to T, from per-row statistics held in shared memory
-// for the block's rows m0 .. m0 + kBM.
+// for the block's rows m0 .. m0 + kBM: ((x - mean) * rstd) * g + b with
+// one f32 rounding per operation (no contraction), as the plain versions'
+// separate tensor operations round.
 template <typename T> struct LnLoader {
   const T* x;
   int k_dim, m0;
   const float *mean, *rstd, *g, *b;
   __device__ __forceinline__ float operator()(int r, int k) const {
     const float v = to_f32(x[(size_t)r * k_dim + k]);
-    return round_to<T>((v - mean[r - m0]) * rstd[r - m0] * g[k] + b[k]);
+    return round_to<T>(
+        __fadd_rn(__fmul_rn(__fmul_rn(v - mean[r - m0], rstd[r - m0]), g[k]), b[k]));
   }
 };
 
@@ -262,17 +271,21 @@ __device__ __forceinline__ void mainloop128(const T* __restrict__ a, const T* __
 }
 
 // out[m][n] = TO( res[m][n] + act(sum_k A'[m][k] W[n][k] + bias[n]) ), where
-// A' is A, or LayerNorm(A) rounded to T when LN (f32 two-pass row
-// statistics, then (x - mean) * rsqrt(var + eps) * g + b). The residual
+// A' is A, or LayerNorm(A) rounded to T when LN: the row mean and the
+// two-pass variance accumulated in f64 and rounded to f32 (so they are the
+// correctly rounded values, whatever the summation order; the plain
+// versions compute them so too), then LnLoader. The residual
 // is optional (res == nullptr). The output type TO is T, or float where a
-// caller keeps the f32 sum for an epilogue of its own.
+// caller keeps the f32 sum for an epilogue of its own. Columns n <
+// scaled_cols are multiplied by col_scale in f32 before the rounding (B10
+// folds the softmax scale into q there).
 template <typename T, int ACT, bool LN, typename TO = T>
 __global__ void __launch_bounds__(kThreads)
     gemm_bias_act_kernel(const T* __restrict__ A, const T* __restrict__ W,
                          const float* __restrict__ bias, const TO* __restrict__ res,
                          TO* __restrict__ out, int M, int N, int K,
                          const float* __restrict__ ln_g, const float* __restrict__ ln_b,
-                         float eps) {
+                         float eps, int scaled_cols, float col_scale) {
   __shared__ TileSmem s;
   __shared__ float mean_s[kBM], rstd_s[kBM];
   const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
@@ -285,15 +298,16 @@ __global__ void __launch_bounds__(kThreads)
       float mean = 0.0f, rstd = 0.0f;
       if (gm < M) {
         const T* row = A + (size_t)gm * K;
-        float sum = 0.0f;
-        for (int k = lane; k < K; k += 32) sum += to_f32(row[k]);
-        mean = warp_sum(sum) / (float)K;
-        float sq = 0.0f;
+        double sum = 0.0;
+        for (int k = lane; k < K; k += 32) sum += (double)to_f32(row[k]);
+        mean = (float)(warp_sum(sum) / K);
+        double sq = 0.0;
         for (int k = lane; k < K; k += 32) {
-          const float d = to_f32(row[k]) - mean;
-          sq = fmaf(d, d, sq);
+          const double d = (double)(to_f32(row[k]) - mean);
+          sq += d * d;
         }
-        rstd = rsqrtf(warp_sum(sq) / (float)K + eps);
+        const float var = (float)(warp_sum(sq) / K);
+        rstd = rsqrtf(var + eps);
       }
       if (lane == 0) {
         mean_s[r] = mean;
@@ -318,6 +332,7 @@ __global__ void __launch_bounds__(kThreads)
       const int n = n0 + tx + 16 * j;
       if (n >= N) continue;
       float v = activate<ACT>(acc[i][j] + bias[n]);
+      if (n < scaled_cols) v *= col_scale;
       const size_t o = (size_t)m * N + n;
       if (res != nullptr) v = to_f32(res[o]) + v;
       out[o] = from_f32<TO>(v);
@@ -332,10 +347,10 @@ template <typename T, int ACT, bool LN, typename TO = T>
 inline void launch_gemm(const T* A, const T* W, const float* bias,
                         const typename same_type<TO>::type* res, TO* out,
                         int M, int N, int K, const float* ln_g, const float* ln_b, float eps,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, int scaled_cols = 0, float col_scale = 1.0f) {
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  gemm_bias_act_kernel<T, ACT, LN, TO>
-      <<<grid, kThreads, 0, stream>>>(A, W, bias, res, out, M, N, K, ln_g, ln_b, eps);
+  gemm_bias_act_kernel<T, ACT, LN, TO><<<grid, kThreads, 0, stream>>>(
+      A, W, bias, res, out, M, N, K, ln_g, ln_b, eps, scaled_cols, col_scale);
 }
 
 }  // namespace vsc22

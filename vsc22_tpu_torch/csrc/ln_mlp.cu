@@ -7,10 +7,10 @@
 // the same way.
 //
 // K2 replaces the Pallas kernel vsc22_tpu/ops/pallas_mlp.py `_ln_forward`
-// (its pallas_call at :155; dispatcher `ln_mlp_residual` :195): f32
-// LayerNorm statistics, LN output rounded to the working dtype, hidden and
-// output accumulated in f32, hidden rounded to the working dtype after the
-// activation, residual added in f32. act is exact GELU (erff; the oracle
+// (its pallas_call at :155; dispatcher `ln_mlp_residual` :195): LayerNorm
+// statistics accumulated in f64 and rounded to f32, LN output rounded to
+// the working dtype, hidden and output accumulated in f32, hidden rounded
+// to the working dtype after the activation, residual added in f32. act is exact GELU (erff; the oracle
 // is `_xla_ln_mlp`, not the TPU kernel's polynomial erf) or QuickGELU
 // x * sigmoid(1.702 x).
 //
@@ -24,7 +24,7 @@
 // tile, so this first version is two launches of the shared tiled GEMM
 // (gemm_nt.cuh) and the hidden makes one round trip through device memory
 // in the working dtype:
-//  (a) LN fused into the A-tile load (per-block f32 two-pass row stats)
+//  (a) LN fused into the A-tile load (per-block two-pass row stats)
 //      + fc1 + b1 + activation -> hidden [rows, hidden];
 //  (b) fc2 + b2 + f32 residual -> out [rows, C].
 // Keeping the hidden on chip (split-K over hidden tiles with the fc2

@@ -3,9 +3,14 @@
 Counterpart of `vsc22_tpu/models/clip.py`: patch conv without bias, class
 embedding, learned positions, ln_pre, pre-LN blocks with QuickGELU MLPs,
 ln_post, no projection; returns all tokens (the VED gate takes CLS). LN
-eps is 1e-5. Each block runs the two-kernel path of `clip.py:102-134`:
-LN1 (f32 two-pass stats) + the QKV GEMM in torch, then K1 for attention +
-projection + residual and K2 for LN2 + MLP + residual.
+eps is 1e-5. A block runs one of the JAX `CLIPBlock`'s three paths
+(`clip.py:88-134`), chosen by its flags (plain attributes, read at each
+call; both False by default, as in the JAX package):
+- default: LN1 (two-pass stats) + the QKV GEMM in torch, then K1 for
+  attention + projection + residual and K2 for LN2 + MLP + residual;
+- `use_half_block`: B9 for LN1 + QKV + attention + projection + residual,
+  then K2;
+- `use_block_kernel`: B10 for the whole block.
 """
 
 from __future__ import annotations
@@ -23,8 +28,9 @@ from vsc22_tpu_torch.models.layers import (
     PatchEmbed,
     layer_norm,
 )
-from vsc22_tpu_torch.ops.attn_proj import attn_proj_residual
-from vsc22_tpu_torch.ops.mlp import ln_mlp_residual
+from vsc22_tpu_torch.ops.attn_proj import attn_proj_residual, ln_attn_proj_residual
+from vsc22_tpu_torch.ops.mlp import ln_mlp_residual, ln_rows
+from vsc22_tpu_torch.ops.vit_block import vit_block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,18 +53,19 @@ _CLIP_LN_EPS = 1e-5
 
 
 def _ln_two_pass(x, ln: LayerNorm, dtype, eps: float = _CLIP_LN_EPS):
-    """`clip._ln`: f32 two-pass stats, (x - mean) * rsqrt(var + eps) * s + b."""
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = ((xf - mean) ** 2).mean(-1, keepdim=True)
-    return ((xf - mean) * torch.rsqrt(var + eps) * ln.weight + ln.bias).to(dtype)
+    """`clip._ln`: two-pass stats, (x - mean) * rsqrt(var + eps) * s + b,
+    computed as the kernels' LN prologue computes it (`mlp.ln_rows`)."""
+    return ln_rows(x.float(), ln.weight, ln.bias, eps).to(dtype)
 
 
 class CLIPBlock(nn.Module):
-    def __init__(self, width: int, heads: int, dtype=torch.float32, device=None):
+    def __init__(self, width: int, heads: int, dtype=torch.float32, device=None,
+                 use_block_kernel: bool = False, use_half_block: bool = False):
         super().__init__()
         self.heads = heads
         self.dtype = dtype
+        self.use_block_kernel = use_block_kernel
+        self.use_half_block = use_half_block
         self.ln_1 = LayerNorm(width, device)
         self.attn = AttentionParams(width, dtype, device)
         self.ln_2 = LayerNorm(width, device)
@@ -68,10 +75,22 @@ class CLIPBlock(nn.Module):
     def forward(self, x):  # [B, L, C]
         b, l, c = x.shape
         dt = self.dtype
-        qkv = self.attn.qkv(_ln_two_pass(x, self.ln_1, dt))
-        x = attn_proj_residual(
-            x.to(dt), qkv, self.attn.proj.weight, self.attn.proj.bias, self.heads
-        )
+        qkv_w, qkv_b = self.attn.qkv.weight, self.attn.qkv.bias
+        proj_w, proj_b = self.attn.proj.weight, self.attn.proj.bias
+        if self.use_block_kernel:
+            return vit_block(
+                x.to(dt), self.ln_1.weight, self.ln_1.bias, qkv_w, qkv_b, proj_w, proj_b,
+                self.ln_2.weight, self.ln_2.bias, self.c_fc.weight, self.c_fc.bias,
+                self.c_proj.weight, self.c_proj.bias, self.heads, "quick_gelu", _CLIP_LN_EPS,
+            )
+        if self.use_half_block:
+            x = ln_attn_proj_residual(
+                x.to(dt), self.ln_1.weight, self.ln_1.bias, qkv_w, qkv_b, proj_w, proj_b,
+                self.heads, _CLIP_LN_EPS,
+            )
+        else:
+            qkv = self.attn.qkv(_ln_two_pass(x, self.ln_1, dt))
+            x = attn_proj_residual(x.to(dt), qkv, proj_w, proj_b, self.heads)
         return ln_mlp_residual(
             x.reshape(b * l, c), self.ln_2.weight, self.ln_2.bias,
             self.c_fc.weight, self.c_fc.bias, self.c_proj.weight, self.c_proj.bias,

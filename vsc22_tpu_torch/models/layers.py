@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vsc22_tpu_torch.ops.attn import attention
 from vsc22_tpu_torch.ops.attn_proj import attn_proj_residual
 from vsc22_tpu_torch.ops.mlp import ln_mlp_residual
 
@@ -151,6 +152,38 @@ class AttentionParams(nn.Module):
         super().__init__()
         self.qkv = Linear(dim, 3 * dim, dtype, device)
         self.proj = Linear(dim, dim, dtype, device)
+
+
+class MultiHeadAttention(nn.Module):
+    """Attention with a fused QKV projection (JAX `MultiHeadAttention`):
+    params `qkv` (bias optional) and `proj`. Inference only: `attn_drop`
+    and `proj_drop` are kept as fields and never applied. With no
+    `attn_bias` it runs `attention(q * hd^-0.5, k, v)` (B8 on the card);
+    with one, f32 logits scaled after the product plus the bias (the JAX
+    einsum path, `layers.py:152-158`)."""
+
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32, qkv_bias: bool = True,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
+        self.qkv = Linear(dim, 3 * dim, dtype, device, bias=qkv_bias)
+        self.proj = Linear(dim, dim, dtype, device)
+
+    def forward(self, x, attn_bias=None):  # [B, L, C]
+        b, l, c = x.shape
+        hd = c // self.num_heads
+        qkv = self.qkv(x).reshape(b, l, 3, self.num_heads, hd)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # [B, L, H, hd]
+        if attn_bias is None:
+            out = attention((q * hd**-0.5).contiguous(), k.contiguous(), v.contiguous())
+        else:
+            logits = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float()) * hd**-0.5
+            probs = torch.softmax(logits + attn_bias, dim=-1).to(self.dtype)
+            out = torch.einsum("bhlm,bmhd->blhd", probs.float(), v.float())
+        return self.proj(out.reshape(b, l, c).to(self.dtype))
 
 
 class MlpParams(nn.Module):

@@ -4,8 +4,9 @@ Counterpart of `vsc22_tpu/models/vsm.py` (`MS` head): CLIP CLS frame
 features -> Linear + LN(1e-5) -> [CLS] frames [SEP] + positions ->
 LN(1e-12) -> post-LN BERT layers (LN eps 1e-12, erf GELU, additive mask
 bias -1e4 on masked keys, `vsm.py:114`) -> concat([CLS] state,
-masked-average pool) -> Linear -> 1 logit. Attention is plain torch: it
-takes a mask bias, and the JAX package runs it in XLA too.
+masked-average pool) -> Linear -> 1 logit. Attention is
+`layers.MultiHeadAttention` with the mask bias, so it takes the plain
+einsum path, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vsc22_tpu_torch.core.device import resolve
-from vsc22_tpu_torch.models.layers import AttentionParams, LayerNorm, Linear, layer_norm
+from vsc22_tpu_torch.models.layers import LayerNorm, Linear, MultiHeadAttention, layer_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,27 +39,16 @@ class PostLNBlock(nn.Module):
 
     def __init__(self, hidden: int, heads: int, dtype=torch.float32, device=None):
         super().__init__()
-        self.heads = heads
         self.dtype = dtype
-        self.attn = AttentionParams(hidden, dtype, device)
+        self.attn = MultiHeadAttention(hidden, heads, dtype, device=device)
         self.ln_attn = LayerNorm(hidden, device)
         self.fc1 = Linear(hidden, 4 * hidden, dtype, device)
         self.fc2 = Linear(4 * hidden, hidden, dtype, device)
         self.ln_mlp = LayerNorm(hidden, device)
 
-    def _attention(self, x, mask_bias):
-        b, l, c = x.shape
-        hd = c // self.heads
-        qkv = self.attn.qkv(x).reshape(b, l, 3, self.heads, hd).float()
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        logits = torch.einsum("blhd,bmhd->bhlm", q, k) * hd**-0.5 + mask_bias
-        probs = torch.softmax(logits, dim=-1).to(self.dtype).float()
-        out = torch.einsum("bhlm,bmhd->blhd", probs, v).reshape(b, l, c)
-        return self.attn.proj(out.to(self.dtype))
-
     def forward(self, x, mask_bias):
         dt = self.dtype
-        x = layer_norm(x + self._attention(x, mask_bias), self.ln_attn, 1e-12, dt)
+        x = layer_norm(x + self.attn(x, mask_bias), self.ln_attn, 1e-12, dt)
         y = self.fc2(F.gelu(self.fc1(x)))
         return layer_norm(x + y, self.ln_mlp, 1e-12, dt)
 

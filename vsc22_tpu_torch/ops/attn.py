@@ -1,0 +1,74 @@
+"""Plain (full, non-causal) attention over [B, L, H, hd] (kernel B8).
+
+    out = softmax(q k^T) v    per frame and head, the scale already in q
+
+Counterpart of `vsc22_tpu/ops/pallas_attn.py` `packed_attention` and its
+dispatcher `attention`; the CUDA kernel is `csrc/attn.cu`, one launch of
+the attention core that K1, B9 and B10 share (`csrc/attn_core.cuh`).
+Logits and the softmax in f32; probabilities and the output in q's dtype
+(float32 or bfloat16).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vsc22_tpu_torch.kernels import build
+
+_ARGTYPES = [build.PTR] * 4 + [build.INT] * 5 + [build.PTR]
+
+# Dynamic shared memory a block may opt in to on sm_90 (227 KB).
+SMEM_PER_BLOCK = 232_448
+
+
+def attn_smem_bytes(l: int, hd: int, itemsize: int) -> int:
+    """Shared memory of one block of the attention core: K^T and V of one
+    head for all L tokens, and per-warp q and probability rows (8 warps).
+    Mirrors `attn_smem_bytes` in `csrc/attn_core.cuh`."""
+    return 2 * l * hd * itemsize + 8 * (hd + l) * 4
+
+
+def check_attn_smem(l: int, hd: int, dtype: torch.dtype) -> None:
+    """Raise if the attention core cannot hold a head of L tokens."""
+    need = attn_smem_bytes(l, hd, torch.empty((), dtype=dtype).element_size())
+    if need > SMEM_PER_BLOCK:
+        raise RuntimeError(
+            f"attention core: L={l}, hd={hd} in {dtype} needs {need} bytes of shared "
+            f"memory per block, more than the {SMEM_PER_BLOCK} a block can have"
+        )
+
+
+def packed_attention_reference(q, k, v):
+    """Plain PyTorch version: the JAX XLA oracle `_attention_xla`."""
+    logits = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float())
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhlm,bmhd->blhd", probs.float(), v.float()).to(q.dtype)
+
+
+def packed_attention(q, k, v):
+    """B8 on a CUDA tensor, the plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        return packed_attention_reference(q, k, v)
+    device = build.require_cuda(q)
+    code = build.working_dtype(q)
+    b, l, h, hd = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        build.check_cuda(name, t, device, q.dtype, (b, l, h, hd))
+    check_attn_smem(l, hd, q.dtype)
+    out = torch.empty_like(q)
+    build.call(
+        "attn", "vsc22_packed_attention", _ARGTYPES,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, h, hd, code,
+        build.stream_ptr(device),
+    )
+    packed_attention.launches += 1
+    return out
+
+
+packed_attention.launches = 0
+
+
+def attention(q, k, v):
+    """softmax(q @ k^T) @ v over [B, L, H, hd]: the JAX dispatcher without
+    its TPU term. B8 on the card, the plain version on the CPU."""
+    return packed_attention(q, k, v)

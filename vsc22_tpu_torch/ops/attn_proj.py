@@ -1,13 +1,17 @@
-"""Attention + output projection + residual (kernel K1).
+"""Attention + output projection + residual (kernels K1 and B9).
 
-    out = x + softmax(q k^T / sqrt(hd)) v @ W_proj^T + b_proj
+    K1  attn_proj_residual:     out = x + softmax(q k^T / sqrt(hd)) v @ W_proj^T + b_proj
+    B9  ln_attn_proj_residual:  out = x + proj(attn(qkv(LN1 x)))
 
-with q|k|v packed in `qkv` [B, L, 3C] (the QKV GEMM output, bias
-included). Counterpart of `vsc22_tpu/ops/pallas_attn_proj.py`
-`attn_proj_residual`; the CUDA kernel is `csrc/attn_proj.cu`.
+K1 takes q|k|v packed in `qkv` [B, L, 3C] (the QKV GEMM output, bias
+included); B9 computes that packed qkv itself from LN1(x) (two-pass
+statistics, `mlp.ln_rows`). Counterparts of `vsc22_tpu/ops/pallas_attn_proj.py`
+`attn_proj_residual` and `ln_attn_proj_residual`; both CUDA kernels are in
+`csrc/attn_proj.cu`, on the attention core of `csrc/attn_core.cuh`.
 
-`proj_w` is in PyTorch's Linear layout [out, in]; `proj_b` is f32. x, qkv
-and proj_w share the working dtype (float32 or bfloat16).
+`qkv_w` [3C, C] and `proj_w` [C, C] are in PyTorch's Linear layout [out,
+in]; LN params and biases are f32. x, qkv and the weights share the
+working dtype (float32 or bfloat16).
 """
 
 from __future__ import annotations
@@ -15,8 +19,11 @@ from __future__ import annotations
 import torch
 
 from vsc22_tpu_torch.kernels import build
+from vsc22_tpu_torch.ops.attn import check_attn_smem
+from vsc22_tpu_torch.ops.mlp import ln_rows
 
 _ARGTYPES = [build.PTR] * 6 + [build.INT] * 5 + [build.PTR]
+_LN_ARGTYPES = [build.PTR] * 10 + [build.INT] * 4 + [build.FLOAT, build.INT, build.PTR]
 
 
 def attn_proj_residual_reference(x, qkv, proj_w, proj_b, num_heads: int):
@@ -33,6 +40,11 @@ def attn_proj_residual_reference(x, qkv, proj_w, proj_b, num_heads: int):
     return (x.float() + proj).to(dt)
 
 
+def _check_heads(c: int, num_heads: int) -> None:
+    if c % num_heads:
+        raise ValueError(f"width {c} is not a multiple of {num_heads} heads")
+
+
 def attn_proj_residual(x, qkv, proj_w, proj_b, num_heads: int):
     """K1 on a CUDA tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
@@ -40,12 +52,12 @@ def attn_proj_residual(x, qkv, proj_w, proj_b, num_heads: int):
     device = build.require_cuda(x)
     code = build.working_dtype(x)
     b, l, c = x.shape
-    if c % num_heads:
-        raise ValueError(f"width {c} is not a multiple of {num_heads} heads")
+    _check_heads(c, num_heads)
     build.check_cuda("x", x, device, x.dtype, (b, l, c))
     build.check_cuda("qkv", qkv, device, x.dtype, (b, l, 3 * c))
     build.check_cuda("proj_w", proj_w, device, x.dtype, (c, c))
     build.check_cuda("proj_b", proj_b, device, torch.float32, (c,))
+    check_attn_smem(l, c // num_heads, x.dtype)
     attn = torch.empty_like(x)
     out = torch.empty_like(x)
     build.call(
@@ -59,3 +71,46 @@ def attn_proj_residual(x, qkv, proj_w, proj_b, num_heads: int):
 
 
 attn_proj_residual.launches = 0
+
+
+def ln_attn_proj_residual_reference(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b,
+                                    num_heads: int, eps: float = 1e-5):
+    """Plain PyTorch version: the JAX XLA oracle `_ln_attn_proj_xla`."""
+    dt = x.dtype
+    ln = ln_rows(x.float(), ln_s, ln_b, eps).to(dt)
+    qkv = ln.float() @ qkv_w.to(dt).float().t() + qkv_b.float()
+    return attn_proj_residual_reference(x, qkv.to(dt), proj_w, proj_b, num_heads)
+
+
+def ln_attn_proj_residual(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b,
+                          num_heads: int, eps: float = 1e-5):
+    """B9 on a CUDA tensor, the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return ln_attn_proj_residual_reference(
+            x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b, num_heads, eps)
+    device = build.require_cuda(x)
+    code = build.working_dtype(x)
+    b, l, c = x.shape
+    _check_heads(c, num_heads)
+    build.check_cuda("x", x, device, x.dtype, (b, l, c))
+    build.check_cuda("ln_s", ln_s, device, torch.float32, (c,))
+    build.check_cuda("ln_b", ln_b, device, torch.float32, (c,))
+    build.check_cuda("qkv_w", qkv_w, device, x.dtype, (3 * c, c))
+    build.check_cuda("qkv_b", qkv_b, device, torch.float32, (3 * c,))
+    build.check_cuda("proj_w", proj_w, device, x.dtype, (c, c))
+    build.check_cuda("proj_b", proj_b, device, torch.float32, (c,))
+    check_attn_smem(l, c // num_heads, x.dtype)
+    qkv = torch.empty((b, l, 3 * c), dtype=x.dtype, device=device)
+    attn = torch.empty_like(x)
+    out = torch.empty_like(x)
+    build.call(
+        "attn_proj", "vsc22_ln_attn_proj_residual", _LN_ARGTYPES,
+        x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(),
+        proj_w.data_ptr(), proj_b.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
+        b, l, c, num_heads, eps, code, build.stream_ptr(device),
+    )
+    ln_attn_proj_residual.launches += 1
+    return out
+
+
+ln_attn_proj_residual.launches = 0

@@ -35,14 +35,25 @@ def _activate(h, activation: str):
     raise ValueError(f"unknown activation {activation!r}")
 
 
+def ln_rows(xf, scale, bias, eps: float):
+    """LayerNorm over the last axis of f32 rows, as the kernels' LN
+    prologue (`gemm_nt.cuh`) computes it: the mean and the two-pass
+    variance accumulated in float64 and rounded to f32 (the correctly
+    rounded values, whatever the summation order; the JAX oracles' f32
+    sums agree to f32 rounding), then (x - mean) * rsqrt(var + eps) *
+    scale + bias in f32, one rounding per operation."""
+    mean = xf.double().mean(-1, keepdim=True).float()
+    d = xf - mean
+    var = d.double().square().mean(-1, keepdim=True).float()
+    return d * torch.rsqrt(var + eps) * scale.float() + bias.float()
+
+
 def ln_mlp_residual_reference(x, ln_s, ln_b, w1, b1, w2, b2,
                               activation: str = "gelu", eps: float = 1e-5):
     """Plain PyTorch version: the JAX XLA oracle `_xla_ln_mlp`."""
     dt = x.dtype
     xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = ((xf - mean) ** 2).mean(-1, keepdim=True)
-    ln = ((xf - mean) * torch.rsqrt(var + eps) * ln_s.float() + ln_b.float()).to(dt)
+    ln = ln_rows(xf, ln_s, ln_b, eps).to(dt)
     h = ln.float() @ w1.to(dt).float().t() + b1.float()
     h = _activate(h, activation).to(dt)
     out = h.float() @ w2.to(dt).float().t() + b2.float()

@@ -2,8 +2,8 @@
 
 The JAX package's variables (`model.init(...)`, or
 `flax.serialization.to_state_dict`, fetched to the host as numpy) map onto
-`VitDescriptor`, `SwinTransformerV2`, `CLIPVisual` and `VideoScoreModel`:
-Dense kernels
+`VitDescriptor`, `SwinTransformerV2`, `CLIPVisual`, `VideoScoreModel` and
+a lone `MultiHeadAttention`: Dense kernels
 [in, out] are transposed to Linear [out, in], HWIO patch convs become
 OIHW, and every array is copied into the existing parameter (which casts
 it to that parameter's dtype and device). Nothing here imports JAX.
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from vsc22_tpu_torch.models.clip import CLIPVisual
-from vsc22_tpu_torch.models.layers import LayerNorm, Linear, PatchEmbed
+from vsc22_tpu_torch.models.layers import LayerNorm, Linear, MultiHeadAttention, PatchEmbed
 from vsc22_tpu_torch.models.swinv2 import SwinTransformerV2
 from vsc22_tpu_torch.models.vit import VitDescriptor
 from vsc22_tpu_torch.models.vsm import VideoScoreModel
@@ -35,6 +35,8 @@ def _dense(mod: Linear, kernel, bias=None) -> None:
 
 
 def _dense_tree(mod: Linear, tree) -> None:
+    if (mod.bias is None) != ("bias" not in tree):
+        raise ValueError("a Dense bias on one side only")
     _dense(mod, tree["kernel"], tree.get("bias"))
 
 
@@ -47,6 +49,13 @@ def _conv(mod: PatchEmbed, tree) -> None:
     _copy(mod.weight, np.asarray(tree["kernel"]).transpose(3, 2, 0, 1))  # HWIO -> OIHW
     if mod.bias is not None:
         _copy(mod.bias, tree["bias"])
+
+
+def _attention(mod, tree) -> None:
+    """The {qkv, proj} Dense trees of a JAX `MultiHeadAttention` or
+    `AttentionParams` (qkv without a bias where `qkv_bias=False`)."""
+    _dense_tree(mod.qkv, tree["qkv"])
+    _dense_tree(mod.proj, tree["proj"])
 
 
 def _params(variables) -> dict:
@@ -64,8 +73,7 @@ def load_vit_descriptor(model: VitDescriptor, variables) -> VitDescriptor:
     for i, block in enumerate(vit.blocks):
         t = bb[f"block{i}"]
         _ln(block.norm1, t["norm1"])
-        _dense(block.attn.qkv, t["attn"]["qkv"]["kernel"], t["attn"]["qkv"]["bias"])
-        _dense(block.attn.proj, t["attn"]["proj"]["kernel"], t["attn"]["proj"]["bias"])
+        _attention(block.attn, t["attn"])
         _ln(block.norm2, t["norm2"])
         _dense(block.mlp.fc1, t["mlp"]["fc1_kernel"], t["mlp"]["fc1_bias"])
         _dense(block.mlp.fc2, t["mlp"]["fc2_kernel"], t["mlp"]["fc2_bias"])
@@ -115,8 +123,7 @@ def load_clip_visual(model: CLIPVisual, variables) -> CLIPVisual:
     for i, block in enumerate(model.blocks):
         t = p[f"block{i}"]
         _ln(block.ln_1, t["ln_1"])
-        _dense(block.attn.qkv, t["attn"]["qkv"]["kernel"], t["attn"]["qkv"]["bias"])
-        _dense(block.attn.proj, t["attn"]["proj"]["kernel"], t["attn"]["proj"]["bias"])
+        _attention(block.attn, t["attn"])
         _ln(block.ln_2, t["ln_2"])
         _dense(block.c_fc, t["c_fc"]["kernel"], t["c_fc"]["bias"])
         _dense(block.c_proj, t["c_proj"]["kernel"], t["c_proj"]["bias"])
@@ -135,11 +142,17 @@ def load_video_score_model(model: VideoScoreModel, variables) -> VideoScoreModel
     _ln(model.emb_norm, p["emb_norm"])
     for i, layer in enumerate(model.layers):
         t = p[f"layer{i}"]
-        _dense(layer.attn.qkv, t["attn"]["qkv"]["kernel"], t["attn"]["qkv"]["bias"])
-        _dense(layer.attn.proj, t["attn"]["proj"]["kernel"], t["attn"]["proj"]["bias"])
+        _attention(layer.attn, t["attn"])
         _ln(layer.ln_attn, t["ln_attn"])
         _dense(layer.fc1, t["fc1"]["kernel"], t["fc1"]["bias"])
         _dense(layer.fc2, t["fc2"]["kernel"], t["fc2"]["bias"])
         _ln(layer.ln_mlp, t["ln_mlp"])
     _dense(model.output_proj, p["output_proj"]["kernel"], p["output_proj"]["bias"])
+    return model
+
+
+@torch.no_grad()
+def load_multi_head_attention(model: MultiHeadAttention, variables) -> MultiHeadAttention:
+    """A JAX `MultiHeadAttention` tree, with or without its qkv bias."""
+    _attention(model, _params(variables))
     return model

@@ -19,6 +19,8 @@ result line):
      kernel, plain and (where one PyTorch call computes the function)
      library times, and the least time the card could take (the bound);
      B8, B9 and B10 at a full 128-frame chunk of each model, f32 and bf16;
+     each attention case names the core it took (bf16: tensor cores; f32:
+     FFMA);
   3. the slice end to end: first on a small input (tiny ViT + three tiny
      SwinV2 members on the module path, i.e. B6 and B7), the port on the
      card against the port's plain path on the CPU (same weights, float32);
@@ -29,8 +31,8 @@ result line):
      that the models ran full 128-frame chunks, and that every kernel's
      launch count grew by what the models' depths require; the pass's stage
      split and, in one more pass under torch.profiler, its device time by
-     kernel; then K3 against its plain version on the operands score-norm
-     gave it in the warm-up pass;
+     kernel (the attention cores named); then K3 against its plain
+     version on the operands score-norm gave it in the warm-up pass;
   4. the SwinV2 path cross-check: one SwinV2-Base member in float32 on 16
      frames, with the default block dispatch (B1, and B6 + B7 in stage 4)
      and with `fused_block=False` (B6 + B7 everywhere): the L2-normalised
@@ -308,6 +310,13 @@ BLOCK_SHAPES = {
 }
 
 
+def core_words(dt, hd) -> str:
+    """Which attention core K1, B8, B9 and B10 take at (dtype, hd)."""
+    from vsc22_tpu_torch.ops.attn import attn_core
+
+    return f"{attn_core(dt, hd)} attention core"
+
+
 def check_kernels(device) -> dict:
     """K1 and K2 at the shapes of a full 128-frame chunk of each model."""
     from vsc22_tpu_torch.ops import attn_proj, mlp
@@ -324,7 +333,8 @@ def check_kernels(device) -> dict:
             pw = randn(gen, (c, c), c**-0.5, dt, device)
             pb = randn(gen, (c,), 0.1, torch.float32, device)
             results[("attn_proj_residual", tag, dname(dt))] = compare(
-                f"attn_proj_residual {tag} {dname(dt)} [{b},{l},{c}] h={s['h']}",
+                f"attn_proj_residual {tag} {dname(dt)} [{b},{l},{c}] h={s['h']} "
+                f"({core_words(dt, c // s['h'])})",
                 lambda: attn_proj.attn_proj_residual(x, qkv, pw, pb, s["h"]),
                 lambda: attn_proj.attn_proj_residual_reference(x, qkv, pw, pb, s["h"]),
                 work=work_attn_proj(b, l, c, s["h"], isz), dtype=dt,
@@ -377,7 +387,7 @@ def check_block_kernels(device) -> dict:
             k, v = (randn(gen, (b, l, h, hd), 1.5, dt, device) for _ in range(2))
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             results[("packed_attention", tag, dname(dt))] = compare(
-                f"packed_attention {tag} {dname(dt)} [{b},{l},{h},{hd}]",
+                f"packed_attention {tag} {dname(dt)} [{b},{l},{h},{hd}] ({core_words(dt, hd)})",
                 lambda: attn.packed_attention(q, k, v),
                 lambda: attn.packed_attention_reference(q, k, v),
                 work=work_attn(b, l, h, hd, isz), dtype=dt,
@@ -389,14 +399,16 @@ def check_block_kernels(device) -> dict:
             half = (x, *(p[n] for n in ("ln1_s", "ln1_b", "qkv_w", "qkv_b", "proj_w",
                                         "proj_b")), h, s["eps"])
             results[("ln_attn_proj_residual", tag, dname(dt))] = compare(
-                f"ln_attn_proj_residual {tag} {dname(dt)} [{b},{l},{c}] h={h}",
+                f"ln_attn_proj_residual {tag} {dname(dt)} [{b},{l},{c}] h={h} "
+                f"({core_words(dt, hd)})",
                 lambda: attn_proj.ln_attn_proj_residual(*half),
                 lambda: attn_proj.ln_attn_proj_residual_reference(*half),
                 work=work_ln_attn_proj(b, l, c, h, isz), dtype=dt,
             )
             whole = (x, *p.values(), h, s["act"], s["eps"])
             results[("vit_block", tag, dname(dt))] = compare(
-                f"vit_block {tag} {dname(dt)} [{b},{l},{c}] h={h} F={f} {s['act']}",
+                f"vit_block {tag} {dname(dt)} [{b},{l},{c}] h={h} F={f} {s['act']} "
+                f"({core_words(dt, hd)})",
                 lambda: vit_block.vit_block(*whole),
                 lambda: vit_block.vit_block_reference(*whole),
                 block=True, work=work_vit_block(b, l, c, h, f, isz), dtype=dt, reps=5,
@@ -773,9 +785,16 @@ def profile_pass(run) -> None:
     device_s = sum(r[0] for r in rows) / 1e6
     print(f"  profiled pass: wall {wall:.3f} s, device kernel time {device_s:.3f} s, "
           f"device idle {1 - device_s / wall:.1%} of the wall (under the profiler)", flush=True)
-    for us, calls, key in sorted(rows, reverse=True)[:15]:
+    top = sorted(rows, reverse=True)
+    # the 15 largest, then the attention cores of K1 wherever they rank
+    cores = [r for r in top[15:] if "attn_core" in r[2]]
+    for us, calls, key in top[:15] + cores:
         print(f"    {us / 1e6:8.3f} s {us / 1e6 / device_s:6.1%} {calls:7d} calls  {key[:110]}",
               flush=True)
+    core_us = sum(r[0] for r in rows if "attn_core" in r[2])
+    print(f"    attention cores (attn_core_mma_kernel: bf16 tensor cores; attn_core_kernel: "
+          f"FFMA) {core_us / 1e6:.3f} s, {core_us / 1e6 / device_s:.1%} of device time",
+          flush=True)
 
 
 # --- phase 4: the SwinV2 block paths ----------------------------------------

@@ -2,7 +2,9 @@
 ragged shapes the main path does not reach (odd rows and widths, head dims
 other than 64 or 32, window sizes other than 16 and 8, tiny, single-row and
 single-window operands; B5 at every e, ragged blocks and duplicate rows;
-B8, B9 and B10 at L 17, 50, 145 and 257 and hd 16, 32 and 64).
+B8, B9 and B10 at L 17, 50, 145 and 257 and hd 16, 32 and 64; the
+tensor-core attention core through B8 and K1 at L 1 to 257, soft and
+peaked, at its shared-memory edge and on misaligned operands).
 
 Needs a CUDA device; skips elsewhere. The shared conftest imports JAX,
 which the GPU host lacks, so run it there without it:
@@ -16,7 +18,7 @@ import pytest
 import torch
 
 import chip_smoke
-from vsc22_tpu_torch.ops.attn import packed_attention, packed_attention_reference
+from vsc22_tpu_torch.ops.attn import attn_core, packed_attention, packed_attention_reference
 from vsc22_tpu_torch.ops.attn_proj import (
     attn_proj_residual,
     attn_proj_residual_reference,
@@ -84,13 +86,16 @@ def test_attn_proj_raises_past_shared_memory(device):
                            torch.zeros(256, device=device), 1)
 
 
-# sha256 of K1's output bytes on `k1_clip_inputs`, as K1 gave them before
-# its attention core moved into csrc/attn_core.cuh (NVIDIA H100 80GB HBM3,
-# torch 2.11.0+cu128, CUDA 12.8). A redesign that changes K1's arithmetic
-# replaces them.
+# sha256 of K1's output bytes on `k1_clip_inputs` (NVIDIA H100 80GB HBM3,
+# torch 2.11.0+cu128, CUDA 12.8). float32: as K1 gave them before its
+# attention core moved into csrc/attn_core.cuh; the f32 FFMA core has not
+# changed since. bfloat16: from the tensor-core core, pinned after that
+# output met the bf16 bar against `attn_proj_residual_reference` (max
+# abs err 2^-7, 0.51% of the elements differing). A redesign that changes
+# K1's arithmetic replaces them.
 K1_DIGESTS = {
     torch.float32: "ddcbd304ca66e841e2f85056383816589a42b85ab424b1e1a257e730a9152a36",
-    torch.bfloat16: "d2f5c028ad436b8156e02a3c06b6f492623d8d53bd96d8e187d07866bf98ebb5",
+    torch.bfloat16: "ee653f41359f30d965ff1cab0a2994c25a2466b138e36a8af26fdd421e4d328a",
 }
 
 
@@ -113,6 +118,81 @@ def test_attn_proj_bitwise_as_before_the_core_moved(device, dtype):
     out = attn_proj_residual(*k1_clip_inputs(dtype, device))
     torch.cuda.synchronize()
     assert digest(out) == K1_DIGESTS[dtype]
+
+
+# The tensor-core core (bf16, hd a multiple of 16) at L whose query and
+# key tails are 1, 15 and 16 rows past a 16-row tile, or none; K1 reads
+# q, k and v from packed rows (stride 3C), B8 from separate ones (stride C).
+MMA_L = (1, 16, 17, 50, 64, 65, 145, 257)
+
+
+def bf16_bar(got, want):
+    """TOL per element, and at most 2% of the elements differing at all:
+    a misplaced rounding of the probabilities moves 30-50% of them."""
+    assert_close(got, want, TOL[torch.bfloat16])
+    share = float((got != want).float().mean())
+    assert share <= chip_smoke.BF16_MAX_SHARE, share
+
+
+@pytest.mark.parametrize("peak", [1.0, 8.0], ids=["soft", "peaked"])
+@pytest.mark.parametrize("hd", (16, 32, 64))
+@pytest.mark.parametrize("l", MMA_L)
+def test_mma_core_packed_attention(device, l, hd, peak):
+    """B8 on the tensor-core core; `peaked` scales q by 8 (logits of std
+    ~16, most probabilities 0 or nearly 1)."""
+    assert attn_core(torch.bfloat16, hd) == "mma"
+    gen = torch.Generator().manual_seed(7 * l + hd)
+    q, k, v = (randn(gen, (3, l, 2, hd), std, torch.bfloat16, device)
+               for std in (2.0 * peak * hd**-0.5, 1.0, 1.0))
+    before = packed_attention.launches
+    got = packed_attention(q, k, v)
+    assert packed_attention.launches == before + 1
+    bf16_bar(got, packed_attention_reference(q, k, v))
+
+
+@pytest.mark.parametrize("peak", [1.0, 8.0], ids=["soft", "peaked"])
+@pytest.mark.parametrize("hd", (16, 32, 64))
+@pytest.mark.parametrize("l", MMA_L)
+def test_mma_core_attn_proj(device, l, hd, peak):
+    """K1 on the tensor-core core (stride 3C); `peaked` scales q by 8."""
+    assert attn_core(torch.bfloat16, hd) == "mma"
+    c, h = WIDTHS[hd]
+    gen = torch.Generator().manual_seed(5 * l + hd)
+    x = randn(gen, (2, l, c), 0.05, torch.bfloat16, device)
+    qkv = randn(gen, (2, l, 3 * c), 1.5, torch.bfloat16, device)
+    qkv[..., :c] *= peak
+    pw = randn(gen, (c, c), c**-0.5, torch.bfloat16, device)
+    pb = randn(gen, (c,), 0.1, torch.float32, device)
+    before = attn_proj_residual.launches
+    got = attn_proj_residual(x, qkv, pw, pb, h)
+    assert attn_proj_residual.launches == before + 1
+    bf16_bar(got, attn_proj_residual_reference(x, qkv, pw, pb, h))
+
+
+def test_mma_core_at_and_past_its_largest_l(device):
+    """736 tokens at hd 64 fill (2 * 736 + 128) rows of 72 bf16 = 230,400
+    bytes; 737 would take 235,008, past the 232,448 a block can have."""
+    gen = torch.Generator().manual_seed(736)
+    q, k, v = (randn(gen, (1, 736, 1, 64), 0.25, torch.bfloat16, device) for _ in range(3))
+    bf16_bar(packed_attention(q, k, v), packed_attention_reference(q, k, v))
+    q = torch.zeros(1, 737, 1, 64, device=device, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match=r"\(mma\).*shared memory"):
+        packed_attention(q, q, q)
+    x = torch.zeros(1, 737, 64, device=device, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match=r"\(mma\).*shared memory"):
+        attn_proj_residual(x, torch.zeros(1, 737, 192, device=device, dtype=torch.bfloat16),
+                           torch.zeros(64, 64, device=device, dtype=torch.bfloat16),
+                           torch.zeros(64, device=device), 1)
+
+
+def test_mma_core_refuses_operands_off_16_bytes(device):
+    """Contiguous views one element into a buffer: the core's 16-byte
+    copies cannot take them, so the launch fails and the wrapper raises."""
+    n = 2 * 17 * 2 * 64
+    buf = torch.zeros(n + 1, device=device, dtype=torch.bfloat16)
+    q = buf[1:].view(2, 17, 2, 64)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        packed_attention(q, q, q)
 
 
 RAGGED_L = (17, 50, 145, 257)

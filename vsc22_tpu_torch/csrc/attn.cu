@@ -8,9 +8,10 @@
 //
 // What bounds it on the H100: at the main-path shapes (CLIP [128,257,16,64],
 // ViT [128,145,12,64]) the function is bytes-bound on paper (q, k, v in,
-// out, ~4 LC per frame against ~4 L^2 C FLOPs); this version runs the
-// CUDA-core dot products of the shared attention core (attn_core.cuh), so
-// shared-memory bandwidth bounds it in practice.
+// out, ~4 LC per frame against ~4 L^2 C FLOPs). In bf16 it runs the
+// tensor-core core of attn_core.cuh (mma.sync), bound by the warp-level
+// tensor-core rate and the f32 softmax; in f32 the FFMA core, bound by
+// shared-memory bandwidth of CUDA-core dot products.
 //
 // Design: one launch of the shared core with row stride C = H*hd for q, k,
 // v and out, and scale 1. The TPU kernel's token-lane transposes and

@@ -15,8 +15,8 @@
 // after the product; then K1's attention, projection and residual.
 //
 // What bounds them on the H100: at the main-path shapes (ViT L=145, CLIP
-// L=257, hd=64) the attention core (attn_core.cuh) is bound by
-// shared-memory bandwidth of CUDA-core dot products; the projection (and
+// L=257, hd=64) the attention core (attn_core.cuh) runs on tensor cores in
+// bf16 and on CUDA-core dot products in f32; the projection (and
 // B9's QKV product, 3x its FLOPs) is a dense [B*L, C] x [C, n*C] product,
 // bound by FMA throughput on CUDA cores in this version (no tensor cores).
 //
@@ -28,7 +28,8 @@
 //     reading q, k and v from the packed rows (stride 3C) -> attn [B, L, C];
 //  2. the shared tiled GEMM with a bias + f32 residual epilogue:
 //     out = T(x + (attn W^T + b)).
-// Later work: keep P.V on chip into the projection, and tensor cores.
+// Later work: keep P.V on chip into the projection, and tensor cores for
+// the GEMMs.
 #include "attn_core.cuh"
 
 namespace vsc22 {

@@ -17,7 +17,8 @@
 //
 // What bounds it on the H100: the four dense products (QKV, proj, fc1,
 // fc2: 2*rows*(4C^2 + 2CF) FLOPs) on CUDA-core FFMA in this version; the
-// attention core is bound by shared-memory bandwidth (attn_core.cuh).
+// attention core (attn_core.cuh) runs on tensor cores in bf16 and on
+// CUDA-core dot products in f32.
 //
 // Design: the TPU kernel kept a frame's whole block in VMEM (~100 MB);
 // an SM has 227 KB, so this first version is five launches whose
@@ -30,7 +31,7 @@
 //  4. the GEMM with LN2 fused into its A-tile load, fc1 bias and the
 //     activation -> hidden [M, F];
 //  5. the GEMM with the fc2 bias + f32 residual epilogue -> out [M, C].
-// Later work: keep the block on chip, and tensor cores.
+// Later work: keep the block on chip, and tensor cores for the GEMMs.
 #include "attn_core.cuh"
 
 namespace vsc22 {

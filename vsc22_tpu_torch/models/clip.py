@@ -27,6 +27,7 @@ from vsc22_tpu_torch.models.layers import (
     Linear,
     PatchEmbed,
     layer_norm,
+    linear_f32_bias,
 )
 from vsc22_tpu_torch.ops.attn_proj import attn_proj_residual, ln_attn_proj_residual
 from vsc22_tpu_torch.ops.mlp import ln_mlp_residual, ln_rows
@@ -89,7 +90,7 @@ class CLIPBlock(nn.Module):
                 self.heads, _CLIP_LN_EPS,
             )
         else:
-            qkv = self.attn.qkv(_ln_two_pass(x, self.ln_1, dt))
+            qkv = linear_f32_bias(_ln_two_pass(x, self.ln_1, dt), self.attn.qkv)
             x = attn_proj_residual(x.to(dt), qkv, proj_w, proj_b, self.heads)
         return ln_mlp_residual(
             x.reshape(b * l, c), self.ln_2.weight, self.ln_2.bias,

@@ -42,6 +42,23 @@ class Linear(nn.Module):
         return F.linear(x.to(w.dtype), w, None if self.bias is None else self.bias.to(w.dtype))
 
 
+def linear_f32_bias(x, lin: Linear):
+    """x W^T + b as the JAX ViT and CLIP blocks compute their QKV
+    (`jnp.dot(..., preferred_element_type=f32) + qkv_b`): the product of
+    operands in W's dtype accumulated in f32, the f32 bias added, and one
+    rounding to W's dtype. `Linear.forward` instead rounds the bias to W's
+    dtype first, as a flax Dense does."""
+    w = lin.weight
+    if w.dtype == torch.float32:
+        return lin(x)
+    x2 = x.to(w.dtype).reshape(-1, x.shape[-1])
+    if x2.device.type == "cpu":
+        acc = x2.float() @ w.float().t()  # every product exact in f32
+    else:
+        acc = torch.mm(x2, w.t(), out_dtype=torch.float32)
+    return (acc + lin.bias).to(w.dtype).reshape(*x.shape[:-1], w.shape[0])
+
+
 class LayerNorm(nn.Module):
     """Scale and bias of a LayerNorm (float32); the math is in the callers."""
 
@@ -214,7 +231,7 @@ class TransformerBlock(nn.Module):
         b, l, c = x.shape
         dt = self.dtype
         y = layer_norm(x, self.norm1, 1e-6, dt)
-        qkv = self.attn.qkv(y)
+        qkv = linear_f32_bias(y, self.attn.qkv)
         x = attn_proj_residual(
             x.to(dt), qkv, self.attn.proj.weight, self.attn.proj.bias, self.num_heads
         )

@@ -4,9 +4,10 @@
 
 Counterpart of `vsc22_tpu/ops/pallas_attn.py` `packed_attention` and its
 dispatcher `attention`; the CUDA kernel is `csrc/attn.cu`, one launch of
-the attention core that K1, B9 and B10 share (`csrc/attn_core.cuh`).
-Logits and the softmax in f32; probabilities and the output in q's dtype
-(float32 or bfloat16).
+the attention core that K1, B9 and B10 share (`csrc/attn_core.cuh`:
+tensor cores for bfloat16, CUDA-core dot products for float32, as
+`attn_core` says). Logits and the softmax in f32; probabilities and the
+output in q's dtype (float32 or bfloat16).
 """
 
 from __future__ import annotations
@@ -19,22 +20,50 @@ _ARGTYPES = [build.PTR] * 4 + [build.INT] * 5 + [build.PTR]
 
 # Dynamic shared memory a block may opt in to on sm_90 (227 KB).
 SMEM_PER_BLOCK = 232_448
+# The tensor-core core: at most 8 warps of 16 query rows per block, head
+# dims up to 128.
+MMA_MAX_WARPS = 8
+MMA_MAX_HD = 128
 
 
-def attn_smem_bytes(l: int, hd: int, itemsize: int) -> int:
-    """Shared memory of one block of the attention core: K^T and V of one
-    head for all L tokens, and per-warp q and probability rows (8 warps).
-    Mirrors `attn_smem_bytes` in `csrc/attn_core.cuh`."""
+def attn_core(dtype: torch.dtype, hd: int) -> str:
+    """The attention core a launch takes: "mma" (tensor cores) for bfloat16
+    with hd a multiple of 16 up to 128, "ffma" (CUDA-core dot products) for
+    float32 and every other hd. Mirrors `attn_core_is_mma` in
+    `csrc/attn_core.cuh`."""
+    mma = dtype == torch.bfloat16 and 16 <= hd <= MMA_MAX_HD and hd % 16 == 0
+    return "mma" if mma else "ffma"
+
+
+def attn_mma_warps(l: int) -> int:
+    """Warps (of 16 query rows) per block of the tensor-core core: the
+    ceil(L/16) row tiles spread evenly over the fewest blocks of at most 8.
+    Mirrors `attn_mma_warps` in `csrc/attn_core.cuh`."""
+    tiles = -(-l // 16)
+    blocks = -(-tiles // MMA_MAX_WARPS)
+    return -(-tiles // blocks)
+
+
+def attn_smem_bytes(l: int, hd: int, dtype: torch.dtype) -> int:
+    """Shared memory of one block of the attention core that takes (dtype,
+    hd). mma: K and V of one head (L rounded up to 16 rows) and the block's
+    16 * `attn_mma_warps(L)` Q rows, bf16 at a row pitch of hd + 8; ffma:
+    K^T and V of one head for all L tokens, and per-warp q and probability
+    rows in f32 (8 warps). Mirrors `attn_mma_smem_bytes` and
+    `attn_smem_bytes` in `csrc/attn_core.cuh`."""
+    if attn_core(dtype, hd) == "mma":
+        return (2 * (-(-l // 16) * 16) + 16 * attn_mma_warps(l)) * (hd + 8) * 2
+    itemsize = torch.empty((), dtype=dtype).element_size()
     return 2 * l * hd * itemsize + 8 * (hd + l) * 4
 
 
 def check_attn_smem(l: int, hd: int, dtype: torch.dtype) -> None:
     """Raise if the attention core cannot hold a head of L tokens."""
-    need = attn_smem_bytes(l, hd, torch.empty((), dtype=dtype).element_size())
+    need = attn_smem_bytes(l, hd, dtype)
     if need > SMEM_PER_BLOCK:
         raise RuntimeError(
-            f"attention core: L={l}, hd={hd} in {dtype} needs {need} bytes of shared "
-            f"memory per block, more than the {SMEM_PER_BLOCK} a block can have"
+            f"attention core ({attn_core(dtype, hd)}): L={l}, hd={hd} in {dtype} needs {need} "
+            f"bytes of shared memory per block, more than the {SMEM_PER_BLOCK} a block can have"
         )
 
 

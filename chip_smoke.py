@@ -272,9 +272,11 @@ def agreement(got: torch.Tensor, want: torch.Tensor, tol, block: bool = False,
 
 
 def compare(name, kernel_fn, plain_fn, tol=F32_TOL, reps=10, block=False, work=None,
-            dtype=torch.float32, library_fn=None):
+            dtype=torch.float32, library_fn=None, products_fn=None):
     """Hold kernel_fn() against plain_fn() and time both (and library_fn(),
-    one PyTorch call computing the same function, where there is one)."""
+    one PyTorch call computing the same function, where there is one; and
+    products_fn(), the kernel's dense products as cuBLAS calls, a yardstick
+    for its GEMM loop that computes only part of the function)."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -284,9 +286,13 @@ def compare(name, kernel_fn, plain_fn, tol=F32_TOL, reps=10, block=False, work=N
     ms = cuda_ms(kernel_fn, reps)
     plain_ms = cuda_ms(plain_fn, reps)
     library_ms = cuda_ms(library_fn, reps) if library_fn is not None else None
+    products_ms = cuda_ms(products_fn, reps) if products_fn is not None else None
     res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                **bound(*work, dtype))
     lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
+    if products_ms is not None:
+        res["products_cublas_ms"] = products_ms
+        lib += f", its products as cuBLAS calls {products_ms:.3f} ms"
     print(f"  {name}: max_abs_err {err:.3e} ({words}) {'ok' if ok else 'FAIL'}; "
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, bound {res['bound_ms']:.3f} ms "
           f"({res['bound_by']})", flush=True)
@@ -423,6 +429,42 @@ SWIN_STAGES = {1: (64, 16, 128, 4), 2: (32, 16, 256, 8), 3: (16, 16, 512, 16),
                4: (8, 8, 1024, 32)}
 
 
+def window_words(dt, n, hd, round_qk=False) -> str:
+    """Which window-attention core B6 (or B1's attention, `round_qk`) takes
+    at (dtype, N, hd), and how it takes each product."""
+    from vsc22_tpu_torch.ops.window_attn import window_core
+
+    if window_core(n, hd) == "ffma":
+        return "ffma window core"
+    if dt != torch.bfloat16:
+        return "mma window core: q̂k̂ 3xTF32, P·V 3xTF32"
+    if round_qk:
+        return "mma window core: q̂k̂ bf16, P·V FMA chains in key order"
+    return "mma window core: qk bf16 on the raw q, k, then the f32 norms, P·V bf16"
+
+
+def block_words(args, h) -> str:
+    """B1's attention core and the loop of each of its four products."""
+    from vsc22_tpu_torch.ops.swin_block import routes
+
+    r = routes(*(args[i] for i in (0, 1, 3, 7, 9)), h)
+    x = args[0]
+    prods = "/".join(r[k] for k in ("qkv", "proj", "fc1", "fc2"))
+    return (f"{window_words(x.dtype, x.shape[1], x.shape[2] // h, round_qk=True)}; "
+            f"products qkv/proj/fc1/fc2 {prods}")
+
+
+def products_yardstick(args):
+    """B1's four products as cuBLAS calls (`torch.mm`, no bias) on operands
+    of B1's shapes and dtype, prepared outside the timed call: x W_qkv^T,
+    a W_proj^T, x1 W_fc1^T, hidden W_fc2^T."""
+    x, qkv_w, proj_w, fc1_w, fc2_w = (args[i] for i in (0, 1, 3, 7, 9))
+    a = x.reshape(-1, x.shape[-1])
+    hidden = torch.randn((a.shape[0], fc1_w.shape[0]), device=a.device).to(a.dtype)
+    return lambda: (torch.mm(a, qkv_w.t()), torch.mm(a, proj_w.t()), torch.mm(a, fc1_w.t()),
+                    torch.mm(hidden, fc2_w.t()))
+
+
 def window_tables(gen, h, n, mask, device):
     """rpb = 16 sigmoid(N(0, 1)) and scale = exp(N(2, 0.3^2)) (the learned
     logit scale starts at ln 10), f32 on the card, beside the given mask."""
@@ -479,10 +521,12 @@ def check_swin_kernels(device) -> dict:
                 )
                 case = f"stage{stage}{' shifted' if shifted else ''}"
                 results[("swin_block", case, dname(dt))] = compare(
-                    f"swin_block {case} {dname(dt)} [{w},{n},{c}] h={h} nW={nw}",
+                    f"swin_block {case} {dname(dt)} [{w},{n},{c}] h={h} nW={nw} "
+                    f"({block_words(args, h)})",
                     lambda: swin_block.swin_block(*args),
                     lambda: swin_block.swin_block_reference(*args),
                     block=True, work=work_swin_block(w, n, c, h, f, nw, isz), dtype=dt,
+                    products_fn=products_yardstick(args) if dt == torch.bfloat16 else None,
                 )
                 del args
             if stage not in (1, 4):
@@ -493,7 +537,8 @@ def check_swin_kernels(device) -> dict:
             q, k, v = (randn(gen, (w, h, n, hd), 1.0, dt, device) for _ in range(3))
             args = (q, k, v, *window_tables(gen, h, n, mask, device), nw)
             results[("window_attention", f"stage{stage}", dname(dt))] = compare(
-                f"window_attention stage{stage} {dname(dt)} [{w},{h},{n},{hd}] nW={nw}",
+                f"window_attention stage{stage} {dname(dt)} [{w},{h},{n},{hd}] nW={nw} "
+                f"({window_words(dt, n, hd)})",
                 lambda: window_attn.window_attention(*args),
                 lambda: window_attn.window_attention_reference(*args),
                 work=work_window_attn(w, h, n, hd, nw, isz), dtype=dt,
@@ -786,15 +831,30 @@ def profile_pass(run) -> None:
     print(f"  profiled pass: wall {wall:.3f} s, device kernel time {device_s:.3f} s, "
           f"device idle {1 - device_s / wall:.1%} of the wall (under the profiler)", flush=True)
     top = sorted(rows, reverse=True)
-    # the 15 largest, then the attention cores of K1 wherever they rank
-    cores = [r for r in top[15:] if "attn_core" in r[2]]
-    for us, calls, key in top[:15] + cores:
+    # the 15 largest, then the hand kernels' families wherever they rank
+    ours = [r for r in top[15:] if any(f in r[2] for f in KERNEL_FAMILIES)]
+    for us, calls, key in top[:15] + ours:
         print(f"    {us / 1e6:8.3f} s {us / 1e6 / device_s:6.1%} {calls:7d} calls  {key[:110]}",
               flush=True)
-    core_us = sum(r[0] for r in rows if "attn_core" in r[2])
-    print(f"    attention cores (attn_core_mma_kernel: bf16 tensor cores; attn_core_kernel: "
-          f"FFMA) {core_us / 1e6:.3f} s, {core_us / 1e6 / device_s:.1%} of device time",
-          flush=True)
+    for family, words in KERNEL_FAMILIES.items():
+        picked = [r for r in rows if family + "<" in r[2] or r[2].startswith(family)]
+        fam_us = sum(r[0] for r in picked)
+        print(f"    {family} ({words}): {fam_us / 1e6:.3f} s, "
+              f"{fam_us / 1e6 / device_s:.1%} of device time, {sum(r[1] for r in picked)} calls",
+              flush=True)
+
+
+# Kernel names the profiler pass sums by (demangled names start with the
+# return type, so the name is matched before its template arguments).
+KERNEL_FAMILIES = {
+    "gemm_mma_kernel": "B1's proj, fc1 and fc2 on bf16 tensor cores",
+    "gemm128_bias_kernel": "B1's QKV on the 128x128 FFMA tile",
+    "gemm_bias_act_kernel": "FFMA GEMM tile of K1, K2 and f32 or off-rule products",
+    "window_attn_mma_kernel": "window-attention core on tensor cores",
+    "window_attn_kernel": "FFMA window-attention core",
+    "attn_core_mma_kernel": "bf16 attention core of K1, B8-B10",
+    "attn_core_kernel": "FFMA attention core",
+}
 
 
 # --- phase 4: the SwinV2 block paths ----------------------------------------
@@ -1359,6 +1419,8 @@ def main() -> int:
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], case=f"{tag} {dn}",
+            **({"products_cublas_ms": r["products_cublas_ms"]}
+               if "products_cublas_ms" in r else {}),
         ))
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

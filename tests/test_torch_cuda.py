@@ -32,10 +32,15 @@ from vsc22_tpu_torch.ops.mlp import (
     ln_mlp_residual_reference,
 )
 from vsc22_tpu_torch.ops.sim import row_max_gemm, row_max_gemm_reference
-from vsc22_tpu_torch.ops.swin_block import swin_block, swin_block_reference
+from vsc22_tpu_torch.models.swinv2 import _shift_attn_mask
+from vsc22_tpu_torch.ops.swin_block import routes, swin_block, swin_block_reference
 from vsc22_tpu_torch.ops.topk import extract_topk, extract_topk_reference
 from vsc22_tpu_torch.ops.vit_block import vit_block, vit_block_reference
-from vsc22_tpu_torch.ops.window_attn import window_attention, window_attention_reference
+from vsc22_tpu_torch.ops.window_attn import (
+    window_attention,
+    window_attention_reference,
+    window_core,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -379,7 +384,10 @@ def test_window_attention_ragged(device, dtype, w, h, n, hd, nw):
     before = window_attention.launches
     got = window_attention(*args)
     assert window_attention.launches == before + 1
-    assert_close(got, window_attention_reference(*args), TOL[dtype])
+    want = window_attention_reference(*args)
+    assert_close(got, want, TOL[dtype])
+    if dtype == torch.bfloat16:
+        bf16_bar(got, want)
 
 
 def test_window_attention_raises_past_shared_memory(device):
@@ -388,6 +396,161 @@ def test_window_attention_raises_past_shared_memory(device):
     with pytest.raises(RuntimeError):
         window_attention(q, q, q, torch.zeros(1, 1024, 1024, device=device),
                          torch.ones(1, device=device), torch.zeros(1, 1024, 1024, device=device), 1)
+
+
+# The SwinV2-Base stages: (resolution, window, C, heads). Stages 1 and 2
+# also run shifted, with the model's own -100 shift mask.
+BASE_STAGES = {1: (64, 16, 128, 4), 2: (32, 16, 256, 8), 3: (16, 16, 512, 16), 4: (8, 8, 1024, 32)}
+STAGE_CASES = [(st, sh) for st in BASE_STAGES for sh in ((False, True) if st < 3 else (False,))]
+# B1's items per stage: 4096 token rows at least. On few windows cuBLAS
+# sums the plain version's f32 products in another order, and even a B1
+# whose products are FFMA chains (equal to cuBLAS's sums on more rows)
+# then differs from it in 6-10% of its bf16 outputs at stages 3 and 4 on
+# 2 items, ~0.4% on 32 and more (scripts/torch_swin_probe.py --sizes).
+B1_ITEMS = {1: 2, 2: 4, 3: 16, 4: 64}
+
+
+def stage_tables(gen, stage, shifted, peak, device):
+    """rpb, scale and mask of a stage; `peak` multiplies the logit scale
+    (q * 8 would do nothing under the L2 normalisation), up to the model's
+    clamp at 100."""
+    res, window, c, h = BASE_STAGES[stage]
+    n, per_item = window * window, (res // window) ** 2
+    mask = (_shift_attn_mask(res, res, window, window // 2) if shifted
+            else torch.zeros(1, n, n).numpy())
+    rpb = (16 * torch.sigmoid(torch.randn((h, n, n), generator=gen))).to(device)
+    scale = (torch.exp(2 + 0.3 * torch.randn((h,), generator=gen)) * peak).clamp(max=100.0)
+    return rpb, scale.to(device), torch.as_tensor(mask).to(device), (per_item if shifted else 1)
+
+
+@pytest.mark.parametrize("peak", [1.0, 8.0], ids=["soft", "peaked"])
+@pytest.mark.parametrize("stage,shifted", STAGE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_at_the_swinv2_base_stages(device, dtype, stage, shifted, peak):
+    """B6 on the tensor-core core, two items of each stage; a q row and a
+    k row all zero (q̂ = 0 through the 1e-12)."""
+    res, window, c, h = BASE_STAGES[stage]
+    n, hd = window * window, c // h
+    assert window_core(n, hd) == "mma"
+    gen = torch.Generator().manual_seed(10 * stage + shifted)
+    rpb, scale, mask, nw = stage_tables(gen, stage, shifted, peak, device)
+    w = 2 * nw
+    q, k, v = (randn(gen, (w, h, n, hd), 1.0, dtype, device) for _ in range(3))
+    q[0, 0, 3] = 0.0
+    k[w - 1, h - 1, 5] = 0.0
+    args = (q, k, v, rpb, scale, mask, nw)
+    got = window_attention(*args)
+    want = window_attention_reference(*args)
+    if dtype == torch.bfloat16:
+        bf16_bar(got, want)
+    else:
+        # At logit scales of 60-100 one f32 rounding of q̂ . k̂ in another
+        # order moves a logit by ~1e-5: peaked f32 cases are held to
+        # chip_smoke's f32 bar, soft ones to TOL.
+        assert_close(got, want, TOL[dtype] if peak == 1.0 else chip_smoke.F32_TOL)
+
+
+@pytest.mark.parametrize("hd", (16, 20, 32))
+@pytest.mark.parametrize("n", (16, 36, 64, 256))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_token_counts_and_head_dims(device, dtype, n, hd):
+    """N 16, 36, 64 and 256 at hd 16 and 32 (tensor cores) and 20 (FFMA),
+    with a -100 mask on 20% of the pairs and on two whole rows but their
+    diagonal."""
+    gen = torch.Generator().manual_seed(n + hd)
+    h, nw = 3, 2
+    q, k, v = (randn(gen, (2 * nw, h, n, hd), 1.0, dtype, device) for _ in range(3))
+    rpb, scale, mask = window_tables(gen, h, n, nw, device)
+    mask[:, :2] = -100.0
+    mask[:, 0, 0] = mask[:, 1, 1] = 0.0
+    args = (q, k, v, rpb, scale, mask, nw)
+    got = window_attention(*args)
+    want = window_attention_reference(*args)
+    assert_close(got, want, TOL[dtype])
+    if dtype == torch.bfloat16:
+        bf16_bar(got, want)
+
+
+def test_window_core_refuses_operands_off_16_bytes(device):
+    """A contiguous view one element into a buffer: the tensor-core core's
+    vector loads cannot take it, so the launch fails and the wrapper raises."""
+    w, h, n, hd = 2, 2, 64, 32
+    buf = torch.zeros(w * h * n * hd + 1, device=device, dtype=torch.bfloat16)
+    q = buf[1:].view(w, h, n, hd)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        window_attention(q, q, q, torch.zeros(h, n, n, device=device),
+                         torch.ones(h, device=device), torch.zeros(1, n, n, device=device), 1)
+
+
+def swin_args(gen, w, n, c, h, dtype, device, tables):
+    f = 4 * c
+    qkv_b = randn(gen, (3 * c,), 0.05, torch.float32, device)
+    qkv_b[c : 2 * c] = 0.0  # the zero k bias of the contract
+    vec = lambda m, std: randn(gen, (m,), std, torch.float32, device)
+    return (
+        randn(gen, (w, n, c), 1.0, dtype, device),
+        randn(gen, (3 * c, c), c**-0.5, dtype, device), qkv_b,
+        randn(gen, (c, c), c**-0.5, dtype, device), vec(c, 0.05), 1 + vec(c, 0.1), vec(c, 0.1),
+        randn(gen, (f, c), c**-0.5, dtype, device), vec(f, 0.05),
+        randn(gen, (c, f), f**-0.5, dtype, device), vec(c, 0.05), 1 + vec(c, 0.1), vec(c, 0.1),
+        *tables,
+    )
+
+
+def assert_block_bar(got, want):
+    torch.cuda.synchronize()
+    ok, err, share, words = chip_smoke.agreement(got, want, chip_smoke.F32_TOL, block=True)
+    assert ok, (err, words)
+
+
+@pytest.mark.parametrize("peak", [1.0, 8.0], ids=["soft", "peaked"])
+@pytest.mark.parametrize("stage,shifted", STAGE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swin_block_at_the_swinv2_base_stages(device, dtype, stage, shifted, peak):
+    """B1 at each stage (`B1_ITEMS`): the attention on the tensor-core core,
+    proj, fc1 and fc2 on tensor cores in bf16, QKV on an FFMA tile."""
+    res, window, c, h = BASE_STAGES[stage]
+    n = window * window
+    gen = torch.Generator().manual_seed(20 * stage + shifted)
+    rpb, scale, mask, nw = stage_tables(gen, stage, shifted, peak, device)
+    w = B1_ITEMS[stage] * (res // window) ** 2
+    args = swin_args(gen, w, n, c, h, dtype, device, (rpb, scale, mask, h, nw))
+    bf16 = dtype == torch.bfloat16
+    mma = "mma" if bf16 else "ffma"
+    assert routes(*(args[i] for i in (0, 1, 3, 7, 9)), h) == dict(
+        core="mma", qkv="ffma128" if bf16 else "ffma", proj=mma, fc1=mma, fc2=mma)
+    assert_block_bar(swin_block(*args), swin_block_reference(*args))
+
+
+# (W, N, C, H): B1's products at tails in M (W N off 128 rows), N (3C, C
+# and 4C off 128 columns) and K (C and 4C off the 32-deep slice: 40, 136;
+# under one slice: 24).
+GEMM_TAILS = [(5, 36, 136, 4), (3, 64, 96, 3), (7, 16, 40, 2), (2, 16, 24, 1)]
+
+
+@pytest.mark.parametrize("w,n,c,h", GEMM_TAILS)
+def test_swin_block_product_tails(device, w, n, c, h):
+    gen = torch.Generator().manual_seed(w * n * c)
+    tables = (*window_tables(gen, h, n, 1, device), h, 1)
+    args = swin_args(gen, w, n, c, h, torch.bfloat16, device, tables)
+    assert routes(*(args[i] for i in (0, 1, 3, 7, 9)), h)["fc2"] == "mma"
+    assert_block_bar(swin_block(*args), swin_block_reference(*args))
+
+
+def test_swin_block_misaligned_x(device):
+    """x one element into a buffer: QKV's FFMA tile and the residual reads
+    take it as they take any row-major operand; the block still agrees
+    with its plain version."""
+    w, n, c, h = 4, 64, 128, 4
+    gen = torch.Generator().manual_seed(3)
+    tables = (*window_tables(gen, h, n, 1, device), h, 1)
+    args = list(swin_args(gen, w, n, c, h, torch.bfloat16, device, tables))
+    buf = torch.zeros(w * n * c + 1, device=device, dtype=torch.bfloat16)
+    x = buf[1:].view(w, n, c)
+    x.copy_(args[0])
+    args[0] = x
+    assert routes(*(args[i] for i in (0, 1, 3, 7, 9)), h)["qkv"] == "ffma128"
+    assert_block_bar(swin_block(*args), swin_block_reference(*args))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

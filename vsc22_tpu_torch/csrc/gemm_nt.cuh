@@ -14,8 +14,29 @@
 // FFMA rate of `mainloop` on the H100 (B5 runs on it; `mainloop`'s users
 // are to move to it).
 //
-// This is the simple, exact first version: CUDA-core FFMA, no tensor
-// cores, no cp.async/TMA pipelining. wgmma with a TMA ring is later work.
+// Both are CUDA-core FFMA loops, exact f32 products, no cp.async/TMA
+// pipelining.
+//
+// `gemm128_bias_kernel` puts an f32 bias epilogue on `mainloop128` for
+// bf16 (and f32) operands; B1 takes it for the products whose f32 sums
+// must keep the plain version's order (swin_block.cu).
+//
+// `gemm_mma_kernel` is the same NT product for bf16 operands on the tensor
+// cores, with the epilogues of `gemm_bias_act_kernel` (f32 bias, optional
+// activation, output in bf16 or f32); for now only B1 (swin_block.cu)
+// launches it, by the rule of `gemm_is_mma` (mirrored in
+// ops/swin_block.py `gemm_route`): bf16, K % 8 == 0 and 16-byte-aligned
+// A and W. Every other shape keeps `mainloop`. Design: a 128x128 block
+// tile over 8 warps (2 x 4, each 64 x 32), K in 32-deep slices through a
+// ring of 3 shared-memory stages filled by 16-byte cp.async (ragged M, N
+// and K zero-filled: no byte is read there), rows at a pitch of 40 bf16
+// so that ldmatrix is free of bank conflicts, mma.sync m16n8k16 with f32
+// accumulators. As in attn_core.cuh, each mma starts from zero and its
+// 16-term partial sum joins the f32 sums by a round-to-nearest add: the
+// tensor core's own accumulate does not round to nearest, and chained
+// over K it drifts from the plain version's f32 sums (B1's x1 is rounded
+// inside the block and feeds LN2, as B10's is, PERF.md). wgmma with a TMA
+// ring is later work.
 #pragma once
 
 #include <cmath>
@@ -24,6 +45,8 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "mma.cuh"
 
 namespace vsc22 {
 
@@ -191,6 +214,15 @@ __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   v[2] = raw.z;
   v[3] = raw.w;
 }
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  v[0] = lo.x;
+  v[1] = lo.y;
+  v[2] = hi.x;
+  v[3] = hi.y;
+}
 
 // Row `row` (< rows), k .. k + 3 of a [rows, K] operand, zero past K. With
 // K % 4 == 0 and an aligned base every such group is aligned and whole, and
@@ -351,6 +383,164 @@ inline void launch_gemm(const T* A, const T* W, const float* bias,
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
   gemm_bias_act_kernel<T, ACT, LN, TO><<<grid, kThreads, 0, stream>>>(
       A, W, bias, res, out, M, N, K, ln_g, ln_b, eps, scaled_cols, col_scale);
+}
+
+// out[m][n] = sum_k A[m][k] W[n][k] + bias[n] in f32 on `mainloop128`:
+// each sum an FMA chain over k in order from 0, as the plain version's
+// f32 product sums. B1 takes it for its bf16 QKV product (swin_block.cu).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    gemm128_bias_kernel(const T* __restrict__ A, const T* __restrict__ W,
+                        const float* __restrict__ bias, float* __restrict__ out, int M, int N,
+                        int K) {
+  __shared__ Tile128Smem s;
+  const int m0 = blockIdx.x * kT128, n0 = blockIdx.y * kT128;
+  float acc[8][8];
+  mainloop128(A, W, m0, n0, M, N, K, s, acc);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + tile128_index(ty, i);
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + tile128_index(tx, j);
+      if (n < N) out[(size_t)m * N + n] = acc[i][j] + bias[n];
+    }
+  }
+}
+
+template <typename T>
+inline int launch_gemm128_bias(const T* A, const T* W, const float* bias, float* out, int M,
+                               int N, int K, cudaStream_t stream) {
+  const dim3 grid((M + kT128 - 1) / kT128, (N + kT128 - 1) / kT128);
+  gemm128_bias_kernel<T><<<grid, kThreads, 0, stream>>>(A, W, bias, out, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+// ---- the bf16 tensor-core product ------------------------------------------
+
+constexpr int kMmaBM = 128;      // output rows per block
+constexpr int kMmaBN = 128;      // output cols per block
+constexpr int kMmaBK = 32;       // K slice per stage
+constexpr int kMmaStages = 3;    // cp.async ring depth
+constexpr int kMmaPitch = kMmaBK + 8;  // smem row pitch, bf16 elements (80 bytes)
+constexpr int kMmaThreads = 256;
+constexpr size_t kGemmMmaSmem =
+    (size_t)kMmaStages * (kMmaBM + kMmaBN) * kMmaPitch * sizeof(__nv_bfloat16);
+
+// Which product a bf16 launch takes (ops/swin_block.py `gemm_route`).
+inline bool gemm_is_mma(int K, const void* a, const void* w) {
+  return K % 8 == 0 && aligned16(a) && aligned16(w);
+}
+
+// One stage: rows m0.. of A and n0.. of W, k0 .. k0 + 32, as 16-byte
+// chunks (K % 8 == 0, so a chunk is all inside K or all outside).
+__device__ __forceinline__ void gemm_mma_load(__nv_bfloat16* sa, __nv_bfloat16* sb,
+                                              const __nv_bfloat16* __restrict__ A,
+                                              const __nv_bfloat16* __restrict__ W, int m0,
+                                              int n0, int k0, int M, int N, int K) {
+#pragma unroll
+  for (int e = threadIdx.x; e < kMmaBM * kMmaBK / 8; e += kMmaThreads) {
+    const int r = e / (kMmaBK / 8), c = (e % (kMmaBK / 8)) * 8;
+    const int gk = k0 + c;
+    const bool a_in = gk < K && m0 + r < M;
+    const bool b_in = gk < K && n0 + r < N;
+    cp_async16_zfill(sa + r * kMmaPitch + c, a_in ? A + (size_t)(m0 + r) * K + gk : A, a_in);
+    cp_async16_zfill(sb + r * kMmaPitch + c, b_in ? W + (size_t)(n0 + r) * K + gk : W, b_in);
+  }
+}
+
+// out[m][n] = TO(act(sum_k A[m][k] W[n][k] + bias[n])), A [M, K] and W
+// [N, K] bf16, row-major, 16-byte aligned, K % 8 == 0.
+template <int ACT, typename TO>
+__global__ void __launch_bounds__(kMmaThreads)
+    gemm_mma_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W,
+                    const float* __restrict__ bias, TO* __restrict__ out, int M, int N, int K) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sa = reinterpret_cast<bf16*>(smem_raw);         // [stages][BM][pitch]
+  bf16* sb = sa + (size_t)kMmaStages * kMmaBM * kMmaPitch;  // [stages][BN][pitch]
+  const int m0 = blockIdx.x * kMmaBM, n0 = blockIdx.y * kMmaBN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+  const int ktiles = (K + kMmaBK - 1) / kMmaBK;
+
+  float acc[4][4][4] = {};
+#pragma unroll
+  for (int st = 0; st < kMmaStages - 1; ++st) {
+    if (st < ktiles)
+      gemm_mma_load(sa + (size_t)st * kMmaBM * kMmaPitch, sb + (size_t)st * kMmaBN * kMmaPitch,
+                    A, W, m0, n0, st * kMmaBK, M, N, K);
+    cp_async_commit();
+  }
+  // ldmatrix rows: A (rows 0-15, k 0-7 | 8-15) -> a0..a3 of an m16 tile;
+  // W (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
+  // -> b0, b1 of two n8 tiles.
+  const int mi = lane >> 3;
+  const int a_off = (wm + (lane & 15)) * kMmaPitch + (lane >> 4) * 8;
+  const int b_off = (wn + (mi >> 1) * 8 + (lane & 7)) * kMmaPitch + (mi & 1) * 8;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<kMmaStages - 2>();
+    __syncthreads();  // stage kt landed; stage kt - 1 is read out
+    const int next = kt + kMmaStages - 1;
+    if (next < ktiles) {
+      const int st = next % kMmaStages;
+      gemm_mma_load(sa + (size_t)st * kMmaBM * kMmaPitch, sb + (size_t)st * kMmaBN * kMmaPitch,
+                    A, W, m0, n0, next * kMmaBK, M, N, K);
+    }
+    cp_async_commit();
+    const bf16* a = sa + (size_t)(kt % kMmaStages) * kMmaBM * kMmaPitch + a_off;
+    const bf16* b = sb + (size_t)(kt % kMmaStages) * kMmaBN * kMmaPitch + b_off;
+#pragma unroll
+    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
+      uint32_t af[4][4], bfr[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) ldmatrix_x4(af[mt], a + mt * 16 * kMmaPitch + kk * 16);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) ldmatrix_x4(bfr[np], b + np * 16 * kMmaPitch + kk * 16);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          float t[4] = {};
+          mma_bf16(t, af[mt], bfr[nt >> 1][(nt & 1) * 2], bfr[nt >> 1][(nt & 1) * 2 + 1]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = __fadd_rn(acc[mt][nt][i], t[i]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm + mt * 16 + g + 8 * half;
+      if (m >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int n = n0 + wn + nt * 8 + c2 + u;
+          if (n < N)
+            out[(size_t)m * N + n] =
+                from_f32<TO>(activate<ACT>(acc[mt][nt][2 * half + u] + bias[n]));
+        }
+    }
+}
+
+template <int ACT, typename TO>
+inline int launch_gemm_mma(const __nv_bfloat16* A, const __nv_bfloat16* W, const float* bias,
+                           TO* out, int M, int N, int K, cudaStream_t stream) {
+  auto kernel = gemm_mma_kernel<ACT, TO>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kGemmMmaSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((M + kMmaBM - 1) / kMmaBM, (N + kMmaBN - 1) / kMmaBN);
+  kernel<<<grid, kMmaThreads, kGemmMmaSmem, stream>>>(A, W, bias, out, M, N, K);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace vsc22

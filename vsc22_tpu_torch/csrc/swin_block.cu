@@ -15,24 +15,39 @@
 //
 // What bounds it on the H100: the four dense products, 24*M*C^2 FLOPs for
 // M = windows * N tokens (stage 3 of SwinV2-Base at a 128-frame chunk:
-// 206 GFLOP of its 223). In this version they run on CUDA cores with FFMA,
-// so FMA throughput bounds it, not memory.
+// 206 GFLOP of its 223), so the bf16 tensor-core rate; what bounds this
+// design is the half of those FLOPs that runs on FFMA (below).
 //
 // Design: the TPU kernel keeps a group of windows, all weights and every
 // intermediate in ~48 MB of VMEM; an SM has 227 KB of shared memory. This
-// first version is seven launches, and the intermediates make round trips
+// version is seven launches, and the intermediates make round trips
 // through device memory:
-//  1. QKV: the shared tiled GEMM (gemm_nt.cuh) with an f32 bias, f32 out
-//     [M, 3C];
+//  1. QKV: the product of gemm_nt.cuh with an f32 bias, f32 out [M, 3C];
 //  2. the attention core of window_attn.cuh (ROUND_QK) reading q, k, v in
 //     place from that [M, 3C] buffer, out [M, C] in T;
-//  3. proj: the GEMM + bias, f32 out [M, C];
+//  3. proj: the product + bias, f32 out [M, C];
 //  4. ln_residual: x1 = T(x + LN1(proj)), one warp per row;
-//  5. fc1: the GEMM + bias + GELU, hidden [M, F] in T;
-//  6. fc2: the GEMM + bias, f32 out [M, C];
+//  5. fc1: the product + bias + GELU, hidden [M, F] in T;
+//  6. fc2: the product + bias, f32 out [M, C];
 //  7. ln_residual: out = T(x1 + LN2(fc2)).
-// Later work: tensor cores (wgmma) for the products, the LNs as GEMM
-// epilogues over whole rows, and the hidden kept on chip.
+// The products, in bf16: proj, fc1 and fc2 take the tensor-core loop
+// (`gemm_mma_kernel`) where `gemm_is_mma` allows it (K % 8 == 0,
+// 16-byte-aligned operands), else the FFMA tile; QKV takes the 128x128
+// FFMA tile (`gemm128_bias_kernel`), whose f32 sums are FMA chains over k
+// in order, as the plain version's (cuBLAS's f32 GEMM) are, so that they
+// agree bit for bit. Why: the QKV sums are rounded to bf16 as q̂, k̂ and v,
+// and each such rounding that goes the other way is carried by every
+// later rounding of the block (attention, x1, the hidden, the output)
+// into many outputs; the attention core sums P V in order for B1 for the
+// same reason (window_attn.cuh). With all four products and P V on tensor
+// cores, 6.4840% and 8.8011% of the bf16 outputs at the stage 3 and 4
+// shapes differed from the plain version (limit 2%), while each step
+// alone moved under 0.05% (scripts/torch_swin_probe.py --steps, NVIDIA
+// H100 80GB HBM3, 700.00 W); PERF.md has the shares of this design. f32
+// keeps the 64x64 FFMA tile for all four. The attention core takes
+// tensor cores at every SwinV2-Base stage (window_attn.cuh).
+// Later work: the LNs as GEMM epilogues over whole rows, the hidden kept
+// on chip, one launch instead of seven, wgmma with TMA.
 #include "window_attn.cuh"
 
 namespace vsc22 {
@@ -72,6 +87,32 @@ int launch_ln_residual(const T* res, const float* y, const float* g, const float
   return (int)cudaGetLastError();
 }
 
+// out = TO(act(A W^T + bias)): the bf16 tensor-core product where
+// `gemm_is_mma` allows it, the FFMA tile otherwise.
+template <typename T, int ACT, typename TO>
+int product(const T* A, const T* W, const float* bias, TO* out, int M, int N, int K,
+            cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if (gemm_is_mma(K, A, W)) return launch_gemm_mma<ACT, TO>(A, W, bias, out, M, N, K, stream);
+  }
+  launch_gemm<T, ACT, false, TO>(A, W, bias, nullptr, out, M, N, K, nullptr, nullptr, 0.0f,
+                                 stream);
+  return (int)cudaGetLastError();
+}
+
+// out = A W^T + bias in f32, each sum an FMA chain over k in order, as the
+// plain version's f32 product sums: the 128x128 FFMA tile in bf16, the
+// 64x64 one in f32.
+template <typename T>
+int sequential_product(const T* A, const T* W, const float* bias, float* out, int M, int N,
+                       int K, cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    return launch_gemm128_bias<T>(A, W, bias, out, M, N, K, stream);
+  launch_gemm<T, kActNone, false, float>(A, W, bias, nullptr, out, M, N, K, nullptr, nullptr,
+                                         0.0f, stream);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int swin_block(const void* x_, const void* qkv_w, const float* qkv_b, const void* proj_w,
                const float* proj_b, const float* ln1_s, const float* ln1_b, const void* fc1_w,
@@ -87,9 +128,9 @@ int swin_block(const void* x_, const void* qkv_w, const float* qkv_b, const void
   const int M = W * N, hd = C / H;
   int rc;
 
-  launch_gemm<T, kActNone, false, float>(x, static_cast<const T*>(qkv_w), qkv_b, nullptr, qkv,
-                                         M, 3 * C, C, nullptr, nullptr, 0.0f, stream);
-  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+  if ((rc = sequential_product<T>(x, static_cast<const T*>(qkv_w), qkv_b, qkv, M, 3 * C, C,
+                                   stream)) != 0)
+    return rc;
 
   const WinLayout in{(long long)N * 3 * C, hd, 3LL * C};
   const WinLayout ol{(long long)N * C, hd, C};
@@ -97,17 +138,17 @@ int swin_block(const void* x_, const void* qkv_w, const float* qkv_b, const void
                                           nW > 1 ? mask : nullptr, W, H, nW, N, hd, stream);
   if (rc != 0) return rc;
 
-  launch_gemm<T, kActNone, false, float>(attn, static_cast<const T*>(proj_w), proj_b, nullptr, y,
-                                         M, C, C, nullptr, nullptr, 0.0f, stream);
-  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+  if ((rc = product<T, kActNone, float>(attn, static_cast<const T*>(proj_w), proj_b, y, M, C, C,
+                                        stream)) != 0)
+    return rc;
   if ((rc = launch_ln_residual<T>(x, y, ln1_s, ln1_b, x1, M, C, stream)) != 0) return rc;
 
-  launch_gemm<T, kActGelu, false>(x1, static_cast<const T*>(fc1_w), fc1_b, nullptr, hidden, M, F,
-                                  C, nullptr, nullptr, 0.0f, stream);
-  if ((rc = (int)cudaGetLastError()) != 0) return rc;
-  launch_gemm<T, kActNone, false, float>(hidden, static_cast<const T*>(fc2_w), fc2_b, nullptr, y,
-                                         M, C, F, nullptr, nullptr, 0.0f, stream);
-  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+  if ((rc = product<T, kActGelu, T>(x1, static_cast<const T*>(fc1_w), fc1_b, hidden, M, F, C,
+                                     stream)) != 0)
+    return rc;
+  if ((rc = product<T, kActNone, float>(hidden, static_cast<const T*>(fc2_w), fc2_b, y, M, C, F,
+                                         stream)) != 0)
+    return rc;
   return launch_ln_residual<T>(x1, y, ln2_s, ln2_b, out, M, C, stream);
 }
 

@@ -37,17 +37,27 @@ class Linear(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        """In the weight's dtype, as a flax Dense with that `dtype`."""
-        w = self.weight
-        return F.linear(x.to(w.dtype), w, None if self.bias is None else self.bias.to(w.dtype))
+        """A flax `nn.Dense` whose `dtype` is the weight's (see `dense`)."""
+        return dense(x, self.weight, self.bias)
+
+
+def dense(x, weight, bias=None):
+    """x W^T + b as a flax `nn.Dense(dtype=W's dtype)` computes it
+    (`y = dot(x, kernel); y += bias`, both in that dtype): in float32 one
+    product plus the bias; in bfloat16 the product rounded to bf16, then the
+    bias rounded to bf16 and added in bf16, a second rounding."""
+    x = x.to(weight.dtype)
+    if bias is None or weight.dtype == torch.float32:
+        return F.linear(x, weight, bias)
+    return F.linear(x, weight) + bias.to(weight.dtype)
 
 
 def linear_f32_bias(x, lin: Linear):
     """x W^T + b as the JAX ViT and CLIP blocks compute their QKV
     (`jnp.dot(..., preferred_element_type=f32) + qkv_b`): the product of
     operands in W's dtype accumulated in f32, the f32 bias added, and one
-    rounding to W's dtype. `Linear.forward` instead rounds the bias to W's
-    dtype first, as a flax Dense does."""
+    rounding to W's dtype. `Linear.forward` (`dense`) instead rounds the
+    product, then adds the bias rounded to W's dtype, as a flax Dense does."""
     w = lin.weight
     if w.dtype == torch.float32:
         return lin(x)
@@ -158,8 +168,7 @@ class PatchEmbed(nn.Module):
         x = images.to(self.weight.dtype).reshape(b, h // p, p, w // p, p, c)
         x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, (h // p) * (w // p), p * p * c)
         wt = self.weight.permute(0, 2, 3, 1).reshape(self.weight.shape[0], -1)
-        bias = None if self.bias is None else self.bias.to(wt.dtype)
-        return F.linear(x, wt, bias)
+        return dense(x, wt, self.bias)  # a flax Conv adds its bias as a Dense does
 
 
 class AttentionParams(nn.Module):

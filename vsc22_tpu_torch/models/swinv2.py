@@ -39,6 +39,7 @@ from vsc22_tpu_torch.models.layers import (
     MlpParams,
     PatchEmbed,
     _normal_,
+    dense,
     gem_pool,
     layer_norm,
 )
@@ -158,13 +159,6 @@ def _vmem_estimate(g: int, n: int, c: int, f: int, h: int, itemsize: int) -> int
     return x_out + weights + rpb + mask + temps + kp + scratch
 
 
-def _dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], dtype) -> torch.Tensor:
-    """A flax Dense with `dtype`: the product rounded to dtype, then the
-    bias (cast to dtype) added in dtype."""
-    y = x.to(dtype) @ w.to(dtype).t()
-    return y if b is None else y + b.to(dtype)
-
-
 class WindowAttention(nn.Module):
     """The `attn` parameters of a SwinV2 block (JAX `WindowAttention` /
     `_WindowAttnParams`: same tree), the bias and scale they give, and the
@@ -220,12 +214,12 @@ class WindowAttention(nn.Module):
         dt = self.dtype
         b_, n, c = x.shape
         h = self.num_heads
-        qkv = _dense(x, self.qkv_weight, self.qkv_bias(), dt)
+        qkv = dense(x, self.qkv_weight, self.qkv_bias())
         q, k, v = qkv.reshape(b_, n, 3, h, c // h).permute(2, 0, 3, 1, 4).contiguous()
         rpb, scale = self.bias_and_scale()
         out = window_attention(q, k, v, rpb, scale, mask, num_shift_windows)
         out = out.permute(0, 2, 1, 3).reshape(b_, n, c).to(dt)
-        return _dense(out, self.proj.weight, self.proj.bias, dt)
+        return self.proj(out)
 
 
 class SwinBlock(nn.Module):
@@ -315,7 +309,7 @@ class PatchMerging(nn.Module):
         xs = x.reshape(b, r, r, c)
         parts = [xs[:, 0::2, 0::2], xs[:, 1::2, 0::2], xs[:, 0::2, 1::2], xs[:, 1::2, 1::2]]
         xs = torch.cat(parts, dim=-1).reshape(b, (r // 2) ** 2, 4 * c)
-        xs = _dense(xs, self.reduction.weight, None, self.dtype)
+        xs = self.reduction(xs)
         return layer_norm(xs, self.norm, _LN_EPS, self.dtype)
 
 

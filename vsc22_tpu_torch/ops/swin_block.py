@@ -21,6 +21,11 @@ q and k stay f32 after the QKV product, v is rounded to the dtype; q̂ and
 k̂ are rounded after the L2 normalisation; softmax in f32, probabilities
 and the attention output rounded; proj + LN1 in f32 (two-pass variance),
 x1 rounded; the GELU hidden rounded; fc2 + LN2 in f32, the output rounded.
+
+In bfloat16, proj, fc1 and fc2 take the tensor-core loop by `gemm_route`,
+and QKV keeps the plain version's order of summation on an FFMA tile
+(`routes` names the loop of each product and the attention core of
+`ops/window_attn.window_core` for a call).
 """
 
 from __future__ import annotations
@@ -29,9 +34,41 @@ import torch
 import torch.nn.functional as F
 
 from vsc22_tpu_torch.kernels import build
+from vsc22_tpu_torch.ops.window_attn import check_window_smem, window_core
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm default
 _ARGTYPES = [build.PTR] * 22 + [build.INT] * 7 + [build.PTR]
+
+
+# Shared memory of a block of the tensor-core product: 3 stages of a 128-row
+# A slice and a 128-row W slice, 32 deep, at a pitch of 40 bf16.
+GEMM_MMA_SMEM = 3 * (128 + 128) * 40 * 2
+
+
+def gemm_route(dtype: torch.dtype, k: int, *operands: torch.Tensor) -> str:
+    """The loop one of B1's products takes: "mma" (bf16 tensor cores) for
+    bfloat16 with K % 8 == 0 and 16-byte-aligned operands, "ffma" (the f32
+    CUDA-core tile) otherwise. Mirrors `gemm_is_mma` in
+    `csrc/gemm_nt.cuh`."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in operands)
+    return "mma" if dtype == torch.bfloat16 and k % 8 == 0 and aligned else "ffma"
+
+
+def routes(x, qkv_w, proj_w, fc1_w, fc2_w, num_heads: int) -> dict:
+    """What a B1 launch on these operands runs: the attention core and the
+    loop of each product. QKV always keeps the plain version's order of
+    summation, an FMA chain over k (in bf16 on the 128x128 FFMA tile,
+    "ffma128"); proj, fc1 and fc2 take `gemm_route` (they read the
+    wrapper's own buffers, which are aligned). Mirrors `swin_block` in
+    `csrc/swin_block.cu`."""
+    dt = x.dtype
+    _, n, c = x.shape
+    f = fc1_w.shape[0]
+    return dict(
+        core=window_core(n, c // num_heads), qkv="ffma128" if dt == torch.bfloat16 else "ffma",
+        proj=gemm_route(dt, c, proj_w), fc1=gemm_route(dt, c, fc1_w),
+        fc2=gemm_route(dt, f, fc2_w),
+    )
 
 
 def _layernorm_f32(x, scale, bias):
@@ -95,6 +132,7 @@ def swin_block(x, qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b, fc1_w, fc1_b,
         ("rpb", rpb, f32, (h, n, n)), ("scale", scale, f32, (h,)), ("mask", mask, f32, (nw, n, n)),
     ):
         build.check_cuda(name, t, device, dtype, shape)
+    check_window_smem(n, c // h, x.dtype, round_qk=True)
     m = w * n
     qkv = torch.empty((m, 3 * c), dtype=f32, device=device)
     attn = torch.empty_like(x)

@@ -13,6 +13,13 @@ bfloat16), W = batch * nW windows, window-major per item. rpb [H, N, N]
 (16 * sigmoid(CPB)), scale [H] (exp(min(logit_scale, ln 100))) and mask
 [nW, N, N] are float32. Rounding as the Pallas kernel: q̂ and k̂ stay f32,
 the probabilities are rounded to v's dtype, the output to q's.
+
+Two cores compute it (`window_core`): tensor cores at hd 16 or 32 and N <=
+256, every SwinV2-Base stage, and CUDA-core dot products at every other
+shape. On tensor cores q̂ and k̂ are never rounded: in bfloat16 q k^T is an
+exact bf16 product of the raw q and k, and each logit is scaled by the two
+f32 norms after; in float32 both products are 3xTF32 (each operand split
+into two tf32 parts, about 2^-22 of each product kept).
 """
 
 from __future__ import annotations
@@ -22,6 +29,63 @@ import torch
 from vsc22_tpu_torch.kernels import build
 
 _ARGTYPES = [build.PTR] * 7 + [build.INT] * 6 + [build.PTR]
+
+# Dynamic shared memory a block may opt in to on sm_90 (227 KB).
+SMEM_PER_BLOCK = 232_448
+# The tensor-core core: hd 16 or 32, at most 256 tokens a window (a warp's
+# [16, N] logits stay in registers), at most 8 warps of 16 query rows a block.
+MMA_HEAD_DIMS = (16, 32)
+MMA_MAX_N = 256
+MMA_MAX_WARPS = 8
+
+
+def window_core(n: int, hd: int) -> str:
+    """The core a launch of B6, or B1's attention, takes: "mma" (tensor
+    cores) at hd 16 or 32 and N <= 256, "ffma" (CUDA-core dot products) at
+    every other shape, in both dtypes. Mirrors `window_core_is_mma` in
+    `csrc/window_attn.cuh`."""
+    return "mma" if hd in MMA_HEAD_DIMS and 1 <= n <= MMA_MAX_N else "ffma"
+
+
+def window_mma_warps(n: int) -> int:
+    """Warps (of 16 query rows) per block of the tensor-core core: the
+    ceil(N/16) row tiles spread evenly over the fewest blocks of at most 8.
+    Mirrors `window_mma_warps` in `csrc/window_attn.cuh`."""
+    tiles = -(-n // 16)
+    blocks = -(-tiles // MMA_MAX_WARPS)
+    return -(-tiles // blocks)
+
+
+def window_smem_bytes(n: int, hd: int, dtype: torch.dtype, round_qk: bool = False) -> int:
+    """Shared memory of one block of the core that takes (N, hd). mma: the
+    f32 bias tile (16 * `window_mma_warps(N)` rows at a pitch of N rounded
+    up to 32, plus 8), then k and v of one window (N rounded up to 16
+    rows), each bf16 at a pitch of hd + 8 in bfloat16 (k̂ rounded for B1,
+    `round_qk`; raw k for B6, beside its f32 norms) and f32 at hd + 4 in
+    float32. ffma: k̂ (transposed, N + 1 columns) and v of one head, and
+    per-warp q and probability rows, f32 (8 warps). Mirrors
+    `window_mma_smem_bytes` and `window_attn_smem_bytes`."""
+    if window_core(n, hd) == "mma":
+        rows = -(-n // 16) * 16
+        bias = 16 * window_mma_warps(n) * ((-(-n // 32) * 32) + 8) * 4
+        bf16_row, f32_row = (hd + 8) * 2, (hd + 4) * 4
+        if dtype != torch.bfloat16:
+            return bias + 2 * rows * f32_row
+        if round_qk:  # B1: k̂ in bf16, v (bf16 values) in f32
+            return bias + rows * (bf16_row + f32_row)
+        return bias + 4 * rows * bf16_row + rows * 4  # B6: two buffers of k, v; k's norms
+    return (hd * (n + 1) + n * hd + 8 * (hd + n)) * 4
+
+
+def check_window_smem(n: int, hd: int, dtype: torch.dtype, round_qk: bool = False) -> None:
+    """Raise if the window core cannot hold a window of N tokens."""
+    need = window_smem_bytes(n, hd, dtype, round_qk)
+    if need > SMEM_PER_BLOCK:
+        raise RuntimeError(
+            f"window attention core ({window_core(n, hd)}): N={n}, hd={hd} in {dtype} needs "
+            f"{need} bytes of shared memory per block, more than the {SMEM_PER_BLOCK} a block "
+            "can have"
+        )
 
 
 def window_attention_reference(q, k, v, rpb, scale, mask, num_shift_windows: int):
@@ -54,6 +118,7 @@ def window_attention(q, k, v, rpb, scale, mask, num_shift_windows: int):
     build.check_cuda("rpb", rpb, device, torch.float32, (h, n, n))
     build.check_cuda("scale", scale, device, torch.float32, (h,))
     build.check_cuda("mask", mask, device, torch.float32, (nw, n, n))
+    check_window_smem(n, hd, q.dtype)
     out = torch.empty_like(q)
     build.call(
         "window_attn", "vsc22_window_attention", _ARGTYPES,

@@ -10,7 +10,10 @@ result line):
      nvcc per source, all started together;
   2. each kernel against its plain PyTorch version on the card, in float32
      (TF32 off) and bfloat16: K1 and K2 at a full 128-frame chunk of each
-     model (ViT-B/32, CLIP ViT-L/14); B1 at all four SwinV2-Base stage
+     model (ViT-B/32, CLIP ViT-L/14), each naming the loop of its products
+     (bf16: the tensor-core loop, which must be taken), with their products
+     as cuBLAS calls beside, and K2's LN-rows kernel alone (bit for bit);
+     B1 at all four SwinV2-Base stage
      shapes of a 128-frame chunk, shifted and unshifted where the stage has
      both; B6 and B7 at the stage 1 and stage 4 shapes; B5 at the search's
      shape (a 4096-row query tile against 1.28M refs; f16, f32, and D 511).
@@ -30,8 +33,10 @@ result line):
      over 24 synthetic 32-frame 360x640 videos, checking finite 512-d rows,
      that the models ran full 128-frame chunks, and that every kernel's
      launch count grew by what the models' depths require; the pass's stage
-     split and, in one more pass under torch.profiler, its device time by
-     kernel (the attention cores named); then K3 against its plain
+     split (every K1 and K2 call on the tensor-core loop, by `routes`) and,
+     in one more pass under torch.profiler, its device time by kernel (the
+     attention cores named; no launch of the FFMA GEMM tile, one LN-rows
+     launch per K2); then K3 against its plain
      version on the operands score-norm gave it in the warm-up pass;
   4. the SwinV2 path cross-check: one SwinV2-Base member in float32 on 16
      frames, with the default block dispatch (B1, and B6 + B7 in stage 4)
@@ -194,6 +199,12 @@ def work_mlp(m, c, hidden, isz, ln=True):
     return 4 * m * c * hidden, (2 * m * c + 2 * c * hidden) * isz + 4 * (hidden + c * (3 if ln else 1))
 
 
+def work_ln_rows(m, c, isz):
+    """K2's LN-rows kernel: ~8 f32/f64 operations per element; x in, LN
+    out; scale and bias f32."""
+    return 8 * m * c, 2 * m * c * isz + 8 * c
+
+
 def work_window_attn(w, h, n, hd, nw, isz):
     """B6: q k^T and P v per (window, head); q, k, v in, out; rpb, mask."""
     return 4 * w * h * n * n * hd, 4 * w * h * n * hd * isz + 4 * (h * n * n + nw * n * n + h)
@@ -323,8 +334,26 @@ def core_words(dt, hd) -> str:
     return f"{attn_core(dt, hd)} attention core"
 
 
+def k1_routes(x, pw, h) -> tuple:
+    """(K1's routes, in words): its attention core and projection loop."""
+    from vsc22_tpu_torch.ops.attn_proj import routes
+
+    r = routes(x, pw, h)
+    return r, f"{r['core']} attention core, projection {r['proj']}"
+
+
+def k2_routes(rows, w1, w2) -> tuple:
+    """(K2's routes, in words): where its LN is computed, fc1's and fc2's loop."""
+    from vsc22_tpu_torch.ops.mlp import routes
+
+    r = routes(rows, w1, w2)
+    return r, f"LN {r['ln']}, fc1/fc2 {r['fc1']}/{r['fc2']}"
+
+
 def check_kernels(device) -> dict:
-    """K1 and K2 at the shapes of a full 128-frame chunk of each model."""
+    """K1 and K2 at the shapes of a full 128-frame chunk of each model; in
+    bf16 every product must take the tensor-core loop, and K2's LN-rows
+    kernel alone must equal its plain version bit for bit."""
     from vsc22_tpu_torch.ops import attn_proj, mlp
 
     gen = torch.Generator().manual_seed(0)
@@ -333,18 +362,24 @@ def check_kernels(device) -> dict:
         b, l, c, hidden = s["b"], s["l"], s["c"], s["hidden"]
         for dt in (torch.float32, torch.bfloat16):
             isz = torch.empty((), dtype=dt).element_size()
+            bf16 = dt == torch.bfloat16
             # A small residual and peaky softmax, so attention errors show.
             x = randn(gen, (b, l, c), 0.05, dt, device)
             qkv = randn(gen, (b, l, 3 * c), 1.5, dt, device)
             pw = randn(gen, (c, c), c**-0.5, dt, device)
             pb = randn(gen, (c,), 0.1, torch.float32, device)
-            results[("attn_proj_residual", tag, dname(dt))] = compare(
-                f"attn_proj_residual {tag} {dname(dt)} [{b},{l},{c}] h={s['h']} "
-                f"({core_words(dt, c // s['h'])})",
+            r1, words = k1_routes(x, pw, s["h"])
+            check(r1["proj"] == ("mma" if bf16 else "ffma"), f"K1 {tag}: projection {r1}")
+            attn_rows = randn(gen, (b * l, c), 1.0, dt, device) if bf16 else None
+            res = compare(
+                f"attn_proj_residual {tag} {dname(dt)} [{b},{l},{c}] h={s['h']} ({words})",
                 lambda: attn_proj.attn_proj_residual(x, qkv, pw, pb, s["h"]),
                 lambda: attn_proj.attn_proj_residual_reference(x, qkv, pw, pb, s["h"]),
                 work=work_attn_proj(b, l, c, s["h"], isz), dtype=dt,
+                products_fn=(lambda: torch.mm(attn_rows, pw.t())) if bf16 else None,
             )
+            results[("attn_proj_residual", tag, dname(dt))] = dict(res, routes=r1)
+            del x, qkv, attn_rows
             rows = randn(gen, (b * l, c), 1.0, dt, device)
             ln_s = 1 + randn(gen, (c,), 0.1, torch.float32, device)
             ln_b = randn(gen, (c,), 0.1, torch.float32, device)
@@ -353,14 +388,33 @@ def check_kernels(device) -> dict:
             w2 = randn(gen, (c, hidden), hidden**-0.5, dt, device)
             b2 = randn(gen, (c,), 0.1, torch.float32, device)
             args = (rows, ln_s, ln_b, w1, b1, w2, b2, s["act"], s["eps"])
-            results[("ln_mlp_residual", tag, dname(dt))] = compare(
-                f"ln_mlp_residual {tag} {dname(dt)} [{b * l},{c}] hidden={hidden} {s['act']}",
+            r2, words = k2_routes(rows, w1, w2)
+            want = dict(ln="rows", fc1="mma", fc2="mma") if bf16 else dict(
+                ln="prologue", fc1="ffma", fc2="ffma")
+            check(r2 == want, f"K2 {tag}: routes {r2}")
+            hid = randn(gen, (b * l, hidden), 1.0, dt, device) if bf16 else None
+            res = compare(
+                f"ln_mlp_residual {tag} {dname(dt)} [{b * l},{c}] hidden={hidden} {s['act']} "
+                f"({words})",
                 lambda: mlp.ln_mlp_residual(*args),
                 lambda: mlp.ln_mlp_residual_reference(*args),
                 work=work_mlp(b * l, c, hidden, isz), dtype=dt,
+                products_fn=(lambda: (torch.mm(rows, w1.t()), torch.mm(hid, w2.t())))
+                if bf16 else None,
             )
-            del x, qkv, rows, w1, w2
-    torch.cuda.empty_cache()
+            results[("ln_mlp_residual", tag, dname(dt))] = dict(res, routes=r2)
+            if bf16:
+                ln = compare(
+                    f"ln_rows_kernel {tag} bf16 [{b * l},{c}] (K2's LN before fc1, "
+                    "bit for bit)",
+                    lambda: mlp.layernorm_rows(rows, ln_s, ln_b, s["eps"]),
+                    lambda: mlp.ln_rows(rows.float(), ln_s, ln_b, s["eps"]).to(dt),
+                    work=work_ln_rows(b * l, c, isz), dtype=torch.float32,
+                )
+                check(ln["max_abs_err"] == 0.0, f"ln_rows_kernel {tag}: not bit for bit")
+                results[("ln_mlp_residual", tag, "bf16")]["ln_rows_ms"] = ln["ms"]
+            del rows, w1, w2, hid
+            torch.cuda.empty_cache()
     return results
 
 
@@ -769,6 +823,36 @@ def capture_row_max_operands(run) -> list:
     return seen
 
 
+@contextlib.contextmanager
+def k1_k2_routes():
+    """Every K1 and K2 call the models make while the block runs, as
+    (kernel, width C, routes): the CLIP and ViT blocks' calls, spied on
+    where `models/clip.py` and `models/layers.py` make them."""
+    from vsc22_tpu_torch.models import clip, layers
+    from vsc22_tpu_torch.ops import attn_proj, mlp
+
+    seen = []
+
+    def spy(real, name, routes):
+        def call(*args, **kwargs):
+            seen.append((name, int(args[0].shape[-1]), routes(*args)))
+            return real(*args, **kwargs)
+        return call
+
+    k1 = lambda x, qkv, pw, pb, h: attn_proj.routes(x, pw, h)
+    k2 = lambda x, ln_s, ln_b, w1, b1, w2, *rest: mlp.routes(x, w1, w2)
+    targets = [(m, n) for m in (clip, layers) for n in ("attn_proj_residual", "ln_mlp_residual")]
+    saved = [(m, n, getattr(m, n)) for m, n in targets]
+    for m, n, real in saved:
+        setattr(m, n, spy(real, "K1" if n == "attn_proj_residual" else "K2",
+                          k1 if n == "attn_proj_residual" else k2))
+    try:
+        yield seen
+    finally:
+        for m, n, real in saved:
+            setattr(m, n, real)
+
+
 def stage_split(pipe, run) -> dict:
     """Seconds per pipeline stage over run(), host clock with a device sync
     at both edges of each stage (so the stages do not overlap, as they do
@@ -811,11 +895,11 @@ def stage_split(pipe, run) -> dict:
     return split
 
 
-def profile_pass(run) -> None:
+def profile_pass(run) -> dict:
     """run() under torch.profiler: device time by kernel (device events
     only, so no kernel counts twice under the op that launched it), its
     share of all device time, calls, and the device's idle share of the
-    wall clock under the profiler."""
+    wall clock under the profiler. Returns {family: (seconds, calls)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -836,20 +920,25 @@ def profile_pass(run) -> None:
     for us, calls, key in top[:15] + ours:
         print(f"    {us / 1e6:8.3f} s {us / 1e6 / device_s:6.1%} {calls:7d} calls  {key[:110]}",
               flush=True)
+    families = {}
     for family, words in KERNEL_FAMILIES.items():
         picked = [r for r in rows if family + "<" in r[2] or r[2].startswith(family)]
         fam_us = sum(r[0] for r in picked)
+        families[family] = (fam_us / 1e6, sum(r[1] for r in picked))
         print(f"    {family} ({words}): {fam_us / 1e6:.3f} s, "
-              f"{fam_us / 1e6 / device_s:.1%} of device time, {sum(r[1] for r in picked)} calls",
+              f"{fam_us / 1e6 / device_s:.1%} of device time, {families[family][1]} calls",
               flush=True)
+    return families
 
 
 # Kernel names the profiler pass sums by (demangled names start with the
 # return type, so the name is matched before its template arguments).
 KERNEL_FAMILIES = {
-    "gemm_mma_kernel": "B1's proj, fc1 and fc2 on bf16 tensor cores",
+    "gemm_mma_kernel": "K1's projection, K2's fc1 and fc2, B1's proj, fc1 and fc2 on bf16 "
+                       "tensor cores",
+    "ln_rows_kernel": "K2's LN rows before fc1 on tensor cores",
     "gemm128_bias_kernel": "B1's QKV on the 128x128 FFMA tile",
-    "gemm_bias_act_kernel": "FFMA GEMM tile of K1, K2 and f32 or off-rule products",
+    "gemm_bias_act_kernel": "FFMA GEMM tile: f32 and off-rule products, B9's QKV, B7, B10",
     "window_attn_mma_kernel": "window-attention core on tensor cores",
     "window_attn_kernel": "FFMA window-attention core",
     "attn_core_mma_kernel": "bf16 attention core of K1, B8-B10",
@@ -1378,10 +1467,28 @@ def main() -> int:
     frames = sum(len(f.feature) for f in feats)
     print(f"  warm pass: {len(videos)} videos in {elapsed:.3f} s = "
           f"{len(videos) / elapsed:.3f} videos/s ({frames} kept frames) on {card}", flush=True)
-    split = stage_split(pipe, lambda: run_slice(pipe, noise, names, videos, device, dev_videos))
+    with k1_k2_routes() as calls:
+        split = stage_split(pipe, lambda: run_slice(pipe, noise, names, videos, device,
+                                                    dev_videos))
     print("  stage split (a third pass, synchronised at each stage edge): "
           + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()), flush=True)
-    profile_pass(lambda: run_slice(pipe, noise, names, videos, device, dev_videos))
+    by_width = {(k, c): sum(1 for n, w, _ in calls if (n, w) == (k, c))
+                for k, c, _ in calls}
+    off_mma = [(k, c, r) for k, c, r in calls if any(v == "ffma" for v in r.values())]
+    print(f"  K1/K2 calls of that pass by width (1024 CLIP, 768 ViT-B/32): {by_width}; "
+          f"off the tensor-core loop: {len(off_mma)}", flush=True)
+    check(sum(by_width.values()) == 2 * per_pass and not off_mma,
+          f"a K1 or K2 call of the bf16 query pass left the tensor-core loop: {off_mma[:3]}")
+    families = profile_pass(lambda: run_slice(pipe, noise, names, videos, device, dev_videos))
+    want_mma = 3 * per_pass + 3 * swin_pass
+    print(f"  profiled launches: gemm_mma_kernel {families['gemm_mma_kernel'][1]} (K1 + 2 K2 + "
+          f"3 B1 = {want_mma}), ln_rows_kernel {families['ln_rows_kernel'][1]} (K2 {per_pass}), "
+          f"gemm_bias_act_kernel {families['gemm_bias_act_kernel'][1]} (0)", flush=True)
+    check(families["gemm_bias_act_kernel"][1] == 0,
+          "the bf16 query pass ran the FFMA GEMM tile (gemm_bias_act_kernel)")
+    check(families["gemm_mma_kernel"][1] == want_mma
+          and families["ln_rows_kernel"][1] == per_pass,
+          "the bf16 query pass's tensor-core and LN-rows launches")
 
     # K3 on the very operands score-norm gave it in the warm-up pass.
     q, r = row_max_calls[0]
@@ -1419,8 +1526,7 @@ def main() -> int:
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], case=f"{tag} {dn}",
-            **({"products_cublas_ms": r["products_cublas_ms"]}
-               if "products_cublas_ms" in r else {}),
+            **{k: r[k] for k in ("products_cublas_ms", "ln_rows_ms", "routes") if k in r},
         ))
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,7 +4,10 @@ other than 64 or 32, window sizes other than 16 and 8, tiny, single-row and
 single-window operands; B5 at every e, ragged blocks and duplicate rows;
 B8, B9 and B10 at L 17, 50, 145 and 257 and hd 16, 32 and 64; the
 tensor-core attention core through B8 and K1 at L 1 to 257, soft and
-peaked, at its shared-memory edge and on misaligned operands).
+peaked, at its shared-memory edge and on misaligned operands; K1's
+projection and K2's products on the tensor-core loop at ragged rows, and
+K2's LN-rows kernel bit for bit; B1's and f32 K1's outputs bit for bit as
+pinned before).
 
 Needs a CUDA device; skips elsewhere. The shared conftest imports JAX,
 which the GPU host lacks, so run it there without it:
@@ -18,7 +21,9 @@ import pytest
 import torch
 
 import chip_smoke
+from scripts.torch_gemm_probe import b1_digest_args
 from vsc22_tpu_torch.ops.attn import attn_core, packed_attention, packed_attention_reference
+from vsc22_tpu_torch.ops import attn_proj, mlp
 from vsc22_tpu_torch.ops.attn_proj import (
     attn_proj_residual,
     attn_proj_residual_reference,
@@ -28,8 +33,10 @@ from vsc22_tpu_torch.ops.attn_proj import (
 from vsc22_tpu_torch.ops.mlp import (
     fused_mlp,
     fused_mlp_reference,
+    layernorm_rows,
     ln_mlp_residual,
     ln_mlp_residual_reference,
+    ln_rows,
 )
 from vsc22_tpu_torch.ops.sim import row_max_gemm, row_max_gemm_reference
 from vsc22_tpu_torch.models.swinv2 import _shift_attn_mask
@@ -93,14 +100,14 @@ def test_attn_proj_raises_past_shared_memory(device):
 
 # sha256 of K1's output bytes on `k1_clip_inputs` (NVIDIA H100 80GB HBM3,
 # torch 2.11.0+cu128, CUDA 12.8). float32: as K1 gave them before its
-# attention core moved into csrc/attn_core.cuh; the f32 FFMA core has not
-# changed since. bfloat16: from the tensor-core core, pinned after that
-# output met the bf16 bar against `attn_proj_residual_reference` (max
-# abs err 2^-7, 0.51% of the elements differing). A redesign that changes
-# K1's arithmetic replaces them.
+# attention core moved into csrc/attn_core.cuh; the f32 FFMA core and
+# projection have not changed since. bfloat16: from the tensor-core core
+# and the projection on the tensor-core loop, pinned after K1 met the bf16
+# bar against `attn_proj_residual_reference` at this shape (chip_smoke
+# phase 2). A redesign that changes K1's arithmetic replaces them.
 K1_DIGESTS = {
     torch.float32: "ddcbd304ca66e841e2f85056383816589a42b85ab424b1e1a257e730a9152a36",
-    torch.bfloat16: "ee653f41359f30d965ff1cab0a2994c25a2466b138e36a8af26fdd421e4d328a",
+    torch.bfloat16: "39b5f631ec9ac4dcf387d5c7f8b094733ad638f62a6123c325f41ee5fef649d8",
 }
 
 
@@ -304,6 +311,75 @@ def test_ln_mlp_ragged(device, dtype, act, eps, rows, c, hidden):
         act, eps,
     )
     assert_close(ln_mlp_residual(*args), ln_mlp_residual_reference(*args), TOL[dtype])
+
+
+def mlp_args(gen, rows, c, hidden, act, eps, dtype, device):
+    return (
+        randn(gen, (rows, c), 1.0, dtype, device),
+        1 + randn(gen, (c,), 0.1, torch.float32, device),
+        randn(gen, (c,), 0.1, torch.float32, device),
+        randn(gen, (hidden, c), c**-0.5, dtype, device),
+        randn(gen, (hidden,), 0.1, torch.float32, device),
+        randn(gen, (c, hidden), hidden**-0.5, dtype, device),
+        randn(gen, (c,), 0.1, torch.float32, device),
+        act, eps,
+    )
+
+
+# Three CLIP frames of rows: 771, off the tensor-core loop's 128-row tile.
+MMA_ROWS = 3 * 257
+
+
+@pytest.mark.parametrize("act,eps", [("gelu", 1e-6), ("quick_gelu", 1e-5)])
+@pytest.mark.parametrize("c", (768, 1024))
+def test_ln_mlp_on_the_mma_loop(device, c, act, eps):
+    """K2 in bf16 at the ViT-B/32 and CLIP widths: the LN-rows kernel, then
+    fc1 and fc2 on the tensor-core loop, within the bf16 bar."""
+    gen = torch.Generator().manual_seed(c + len(act))
+    args = mlp_args(gen, MMA_ROWS, c, 4 * c, act, eps, torch.bfloat16, device)
+    assert mlp.routes(args[0], args[3], args[5]) == dict(ln="rows", fc1="mma", fc2="mma")
+    before = ln_mlp_residual.launches
+    got = ln_mlp_residual(*args)
+    assert ln_mlp_residual.launches == before + 1
+    bf16_bar(got, ln_mlp_residual_reference(*args))
+
+
+@pytest.mark.parametrize("c", (768, 1024))
+def test_ln_mlp_f32_keeps_the_ffma_tile(device, c):
+    gen = torch.Generator().manual_seed(c)
+    args = mlp_args(gen, MMA_ROWS, c, 4 * c, "quick_gelu", 1e-5, torch.float32, device)
+    assert mlp.routes(args[0], args[3], args[5]) == dict(ln="prologue", fc1="ffma", fc2="ffma")
+    assert_close(ln_mlp_residual(*args), ln_mlp_residual_reference(*args), TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c", [(MMA_ROWS, 1024), (MMA_ROWS, 768), (1, 48), (37, 200)])
+def test_ln_rows_kernel_bitwise(device, dtype, rows, c):
+    """K2's LN-rows kernel equals its plain version bit for bit: the f64
+    statistics are the correctly rounded mean and variance, and each
+    operation after them rounds once on both sides."""
+    gen = torch.Generator().manual_seed(rows + c)
+    x = randn(gen, (rows, c), 1.0, dtype, device) + 0.3
+    s = 1 + randn(gen, (c,), 0.1, torch.float32, device)
+    b = randn(gen, (c,), 0.1, torch.float32, device)
+    got = layernorm_rows(x, s, b, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ln_rows(x.float(), s, b, 1e-5).to(dtype))
+
+
+@pytest.mark.parametrize("model", ["vit", "clip"])
+def test_attn_proj_on_the_mma_loop(device, model):
+    """K1 in bf16 at the ViT-B/32 and CLIP shapes (8 frames): the
+    projection on the tensor-core loop, within the bf16 bar."""
+    sh = chip_smoke.BLOCK_SHAPES[model]
+    b, l, c, h = 8, sh["l"], sh["c"], sh["h"]
+    gen = torch.Generator().manual_seed(l)
+    x = randn(gen, (b, l, c), 0.05, torch.bfloat16, device)
+    qkv = randn(gen, (b, l, 3 * c), 1.5, torch.bfloat16, device)
+    pw = randn(gen, (c, c), c**-0.5, torch.bfloat16, device)
+    pb = randn(gen, (c,), 0.1, torch.float32, device)
+    assert attn_proj.routes(x, pw, h) == dict(core="mma", proj="mma")
+    bf16_bar(attn_proj_residual(x, qkv, pw, pb, h), attn_proj_residual_reference(x, qkv, pw, pb, h))
 
 
 @pytest.mark.parametrize("nq,nr,d", [(70, 130, 15), (1, 1, 511), (200, 65, 64)])
@@ -535,6 +611,24 @@ def test_swin_block_product_tails(device, w, n, c, h):
     args = swin_args(gen, w, n, c, h, torch.bfloat16, device, tables)
     assert routes(*(args[i] for i in (0, 1, 3, 7, 9)), h)["fc2"] == "mma"
     assert_block_bar(swin_block(*args), swin_block_reference(*args))
+
+
+# sha256 of B1's bf16 output on `b1_digest_args` (NVIDIA H100 80GB HBM3,
+# torch 2.11.0+cu128, CUDA 12.8), as B1 gave it before `gemm_mma_kernel`
+# took its residual epilogue (`scripts/torch_gemm_probe.py --digests` on
+# both checkouts); B1 never reads that epilogue, so its arithmetic must not
+# move.
+B1_DIGESTS = {
+    3: "723593496c3191f1f6f5662c833bf187f359123f21dafbbb382b29c27a74df45",
+    4: "96251d5dd4ca39e635eef8628c558788e9aca5eaae9745c0dc08a1b4634f9f9a",
+}
+
+
+@pytest.mark.parametrize("stage,items", [(3, 16), (4, 64)])
+def test_swin_block_bitwise_as_before_the_residual_epilogue(device, stage, items):
+    out = swin_block(*b1_digest_args(stage, items, device))
+    torch.cuda.synchronize()
+    assert digest(out) == B1_DIGESTS[stage]
 
 
 def test_swin_block_misaligned_x(device):

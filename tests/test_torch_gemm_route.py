@@ -1,0 +1,132 @@
+"""Which GEMM loop each product of K1 (`attn_proj.routes`) and K2
+(`mlp.routes`) takes, by the shared rule `ops/gemm.gemm_route` that
+mirrors `gemm_is_mma` in `csrc/gemm_nt.cuh` (B1's `swin_block.routes`
+reads the same rule); and K2's LN rows, which the tensor-core path writes
+to a scratch before fc1, against the LN inside the JAX oracle
+`_xla_ln_mlp`. The kernels run only on the card; these checks run
+anywhere."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from vsc22_tpu.ops import pallas_mlp
+from vsc22_tpu_torch.ops import attn_proj, mlp, swin_block
+from vsc22_tpu_torch.ops.gemm import gemm_route
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def zeros(shape, dtype=BF16, offset=0):
+    """A zero tensor of `shape`, `offset` elements into its buffer (an
+    offset of 1 puts a bf16 tensor off 16 bytes)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+def k2_case(c, hidden, dtype=BF16, w1_offset=0, w2_offset=0):
+    x = zeros((6, c), dtype)
+    return mlp.routes(x, zeros((hidden, c), dtype, w1_offset), zeros((c, hidden), dtype, w2_offset))
+
+
+def k1_case(c, heads, dtype=BF16, offset=0):
+    return attn_proj.routes(zeros((2, 5, c), dtype), zeros((c, c), dtype, offset), heads)
+
+
+def b1_case(c, heads, dtype=BF16):
+    f = 4 * c
+    ws = [zeros(s, dtype) for s in ((3 * c, c), (c, c), (f, c), (c, f))]
+    return swin_block.routes(zeros((2, 64, c), dtype), *ws, heads)
+
+
+MMA = dict(ln="rows", fc1="mma", fc2="mma")
+FFMA = dict(ln="prologue", fc1="ffma", fc2="ffma")
+
+ROUTE_CASES = {
+    # K2 at the CLIP and ViT-B/32 widths, bf16: both products on tensor cores.
+    "k2 clip bf16": (lambda: k2_case(1024, 4096), MMA),
+    "k2 vit bf16": (lambda: k2_case(768, 3072), MMA),
+    "k2 clip f32": (lambda: k2_case(1024, 4096, F32), FFMA),
+    # C 100: fc1's K is no whole number of 16-byte rows; fc2's K (400) is.
+    "k2 C 100": (lambda: k2_case(100, 400), dict(ln="prologue", fc1="ffma", fc2="mma")),
+    # hidden 70: fc2's K is off the rule, fc1's (C 64) on it.
+    "k2 hidden 70": (lambda: k2_case(64, 70), dict(ln="rows", fc1="mma", fc2="ffma")),
+    "k2 w1 off 16 bytes": (lambda: k2_case(64, 256, w1_offset=1),
+                           dict(ln="prologue", fc1="ffma", fc2="mma")),
+    "k2 w2 off 16 bytes": (lambda: k2_case(64, 256, w2_offset=1),
+                           dict(ln="rows", fc1="mma", fc2="ffma")),
+    "k1 clip bf16": (lambda: k1_case(1024, 16), dict(core="mma", proj="mma")),
+    "k1 vit bf16": (lambda: k1_case(768, 12), dict(core="mma", proj="mma")),
+    "k1 clip f32": (lambda: k1_case(1024, 16, F32), dict(core="ffma", proj="ffma")),
+    # C 100, 4 heads: hd 25 takes the FFMA core, K 100 the FFMA tile.
+    "k1 C 100": (lambda: k1_case(100, 4), dict(core="ffma", proj="ffma")),
+    "k1 proj_w off 16 bytes": (lambda: k1_case(64, 4, offset=1), dict(core="mma", proj="ffma")),
+    # B1 reads the same rule for proj, fc1 and fc2, as before it moved.
+    "b1 bf16": (lambda: b1_case(128, 4),
+                dict(core="mma", qkv="ffma128", proj="mma", fc1="mma", fc2="mma")),
+    "b1 f32": (lambda: b1_case(128, 4, F32),
+               dict(core="mma", qkv="ffma", proj="ffma", fc1="ffma", fc2="ffma")),
+    "b1 C 36": (lambda: b1_case(36, 2),
+                dict(core="ffma", qkv="ffma128", proj="ffma", fc1="ffma", fc2="mma")),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_routes(case):
+    routes, want = ROUTE_CASES[case]
+    assert routes() == want
+
+
+def test_the_rule_is_one_function():
+    """B1, K1 and K2 read the one `gemm_route`, not copies of it."""
+    assert swin_block.gemm_route is gemm_route
+    assert mlp.gemm_route is gemm_route and attn_proj.gemm_route is gemm_route
+
+
+def jax_ln(x, ln_s, ln_b, eps):
+    """The LN rows `_xla_ln_mlp` computes, in x's dtype: its first product's
+    left operand, read by a spy on the module's `jnp.dot`."""
+    seen = []
+
+    class Spy:
+        def __getattr__(self, name):
+            return getattr(jnp, name)
+
+        def dot(self, a, *args, **kwargs):
+            seen.append(a)
+            return jnp.dot(a, *args, **kwargs)
+
+    real = pallas_mlp.jnp
+    pallas_mlp.jnp = Spy()
+    try:
+        c = x.shape[1]
+        w1 = jnp.zeros((c, 8), x.dtype)
+        w2 = jnp.zeros((8, c), x.dtype)
+        pallas_mlp._xla_ln_mlp(x, ln_s, ln_b, w1, jnp.zeros(8), w2, jnp.zeros(c), "gelu", eps)
+    finally:
+        pallas_mlp.jnp = real
+    return np.array(seen[0].astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows,c,eps", [(64, 128, 1e-5), (37, 48, 1e-6), (5, 200, 1e-5)])
+def test_ln_rows_match_the_jax_oracle_ln(dtype, rows, c, eps):
+    """`layernorm_rows` on the CPU (`ln_rows` rounded to the dtype, the
+    plain version of the LN-rows kernel) against `_xla_ln_mlp`'s LN. bf16:
+    chip_smoke's bar (2^-7 + 2 ulps, at most 2% of the elements differing;
+    the f32 means differ by order only); f32: 1e-5."""
+    rng = np.random.default_rng(rows + c)
+    x = (rng.standard_normal((rows, c)) + 0.3).astype(np.float32)
+    ln_s = (1 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    ln_b = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    got = mlp.layernorm_rows(torch.from_numpy(x).to(tdt), torch.from_numpy(ln_s),
+                             torch.from_numpy(ln_b), eps)
+    assert got.dtype == tdt
+    want = jax_ln(jnp.asarray(x).astype(getattr(jnp, dtype)), jnp.asarray(ln_s),
+                  jnp.asarray(ln_b), eps)
+    want = torch.from_numpy(want).to(tdt)
+    ok, err, share, words = chip_smoke.agreement(got, want, (1e-5, 0.0))
+    assert ok, (err, words)

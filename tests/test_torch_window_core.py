@@ -8,7 +8,8 @@ anywhere."""
 import pytest
 import torch
 
-from vsc22_tpu_torch.ops.swin_block import GEMM_MMA_SMEM, gemm_route, routes
+from vsc22_tpu_torch.ops.gemm import GEMM_MMA_SMEM, gemm_route
+from vsc22_tpu_torch.ops.swin_block import routes
 from vsc22_tpu_torch.ops.window_attn import (
     SMEM_PER_BLOCK,
     check_window_smem,

@@ -16,20 +16,25 @@
 //
 // What bounds them on the H100: at the main-path shapes (ViT L=145, CLIP
 // L=257, hd=64) the attention core (attn_core.cuh) runs on tensor cores in
-// bf16 and on CUDA-core dot products in f32; the projection (and
-// B9's QKV product, 3x its FLOPs) is a dense [B*L, C] x [C, n*C] product,
-// bound by FMA throughput on CUDA cores in this version (no tensor cores).
+// bf16 and on CUDA-core dot products in f32; the projection (and B9's QKV
+// product, 3x its FLOPs) is a dense [B*L, C] x [C, n*C] product, bound by
+// the bf16 tensor-core rate in bf16 and the FMA rate in f32.
 //
 // Design: K1 is two launches, B9 three:
-//  0. (B9) the shared tiled GEMM (gemm_nt.cuh) with LN1 fused into its
+//  0. (B9) the FFMA tiled GEMM (gemm_nt.cuh) with LN1 fused into its
 //     A-tile load and the QKV bias in its epilogue -> qkv [B, L, 3C] in the
 //     working dtype (a scratch in device memory);
 //  1. the shared attention core, one block per (query tile, head, frame),
 //     reading q, k and v from the packed rows (stride 3C) -> attn [B, L, C];
-//  2. the shared tiled GEMM with a bias + f32 residual epilogue:
-//     out = T(x + (attn W^T + b)).
-// Later work: keep P.V on chip into the projection, and tensor cores for
-// the GEMMs.
+//  2. the projection with a bias + f32 residual epilogue:
+//     out = T(x + (attn W^T + b)). In bf16 it takes the tensor-core loop
+//     `gemm_mma_kernel` where `gemm_is_mma` allows it (C % 8 == 0 and an
+//     aligned W; attn is the wrapper's own buffer): its sums feed only the
+//     output rounding, after the f32 residual. Else the FFMA tile.
+// B9's QKV stays on the FFMA tile: its sums are rounded to bf16 as q, k
+// and v, early in the block, where a summation order other than the plain
+// version's flips many outputs (ROADMAP, "Order of summation"). Later
+// work: keep P.V on chip into the projection.
 #include "attn_core.cuh"
 
 namespace vsc22 {
@@ -43,9 +48,16 @@ int attn_proj_residual(const void* x, const void* qkv, const void* proj_w, const
   int err = launch_attn_core<T>(q, q + C, q + 2 * C, 3 * C, static_cast<T*>(attn), C, B, L, H, hd,
                                 1.0f / sqrtf((float)hd), stream);
   if (err != 0) return err;
-  launch_gemm<T, kActNone, false>(static_cast<const T*>(attn), static_cast<const T*>(proj_w),
-                                  proj_b, static_cast<const T*>(x), static_cast<T*>(out),
-                                  B * L, C, C, nullptr, nullptr, 0.0f, stream);
+  const T* a = static_cast<const T*>(attn);
+  const T* w = static_cast<const T*>(proj_w);
+  const T* xt = static_cast<const T*>(x);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if (gemm_is_mma(C, a, w))
+      return launch_gemm_mma<kActNone, T, true>(a, w, proj_b, static_cast<T*>(out), B * L, C, C,
+                                                stream, xt);
+  }
+  launch_gemm<T, kActNone, false>(a, w, proj_b, xt, static_cast<T*>(out), B * L, C, C, nullptr,
+                                  nullptr, 0.0f, stream);
   return (int)cudaGetLastError();
 }
 

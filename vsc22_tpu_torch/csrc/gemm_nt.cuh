@@ -23,10 +23,12 @@
 //
 // `gemm_mma_kernel` is the same NT product for bf16 operands on the tensor
 // cores, with the epilogues of `gemm_bias_act_kernel` (f32 bias, optional
-// activation, output in bf16 or f32); for now only B1 (swin_block.cu)
-// launches it, by the rule of `gemm_is_mma` (mirrored in
-// ops/swin_block.py `gemm_route`): bf16, K % 8 == 0 and 16-byte-aligned
-// A and W. Every other shape keeps `mainloop`. Design: a 128x128 block
+// activation, optional bf16 residual added in f32, output in bf16 or f32).
+// B1's proj, fc1 and fc2 (swin_block.cu), K1's projection (and so B9's,
+// attn_proj.cu) and K2's fc1 and fc2 (ln_mlp.cu) launch it, by the rule of
+// `gemm_is_mma` (mirrored in ops/gemm.py `gemm_route`): bf16, K % 8 == 0
+// and 16-byte-aligned A and W. Every other shape, f32, B7 and B10 keep
+// `mainloop`. Design: a 128x128 block
 // tile over 8 warps (2 x 4, each 64 x 32), K in 32-deep slices through a
 // ring of 3 shared-memory stages filled by 16-byte cp.async (ragged M, N
 // and K zero-filled: no byte is read there), rows at a pitch of 40 bf16
@@ -115,18 +117,41 @@ template <typename T> struct RowLoader {
   }
 };
 
+// The LayerNorm statistics of one row of K elements, by one warp: the mean
+// and the two-pass variance accumulated in f64 and rounded to f32 (so they
+// are the correctly rounded values, whatever the summation order; the
+// plain versions compute them so too), rstd = rsqrtf(var + eps). Every
+// lane gets both.
+template <typename T>
+__device__ __forceinline__ void ln_row_stats(const T* __restrict__ row, int K, float eps,
+                                             int lane, float& mean, float& rstd) {
+  double sum = 0.0;
+  for (int k = lane; k < K; k += 32) sum += (double)to_f32(row[k]);
+  mean = (float)(warp_sum(sum) / K);
+  double sq = 0.0;
+  for (int k = lane; k < K; k += 32) {
+    const double d = (double)(to_f32(row[k]) - mean);
+    sq += d * d;
+  }
+  const float var = (float)(warp_sum(sq) / K);
+  rstd = rsqrtf(var + eps);
+}
+
+// ((v - mean) * rstd) * g + b with one f32 rounding per operation (no
+// contraction), as the plain versions' separate tensor operations round.
+__device__ __forceinline__ float ln_apply(float v, float mean, float rstd, float g, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(v - mean, rstd), g), b);
+}
+
 // LayerNorm(x) rounded to T, from per-row statistics held in shared memory
-// for the block's rows m0 .. m0 + kBM: ((x - mean) * rstd) * g + b with
-// one f32 rounding per operation (no contraction), as the plain versions'
-// separate tensor operations round.
+// for the block's rows m0 .. m0 + kBM.
 template <typename T> struct LnLoader {
   const T* x;
   int k_dim, m0;
   const float *mean, *rstd, *g, *b;
   __device__ __forceinline__ float operator()(int r, int k) const {
     const float v = to_f32(x[(size_t)r * k_dim + k]);
-    return round_to<T>(
-        __fadd_rn(__fmul_rn(__fmul_rn(v - mean[r - m0], rstd[r - m0]), g[k]), b[k]));
+    return round_to<T>(ln_apply(v, mean[r - m0], rstd[r - m0], g[k], b[k]));
   }
 };
 
@@ -303,10 +328,8 @@ __device__ __forceinline__ void mainloop128(const T* __restrict__ a, const T* __
 }
 
 // out[m][n] = TO( res[m][n] + act(sum_k A'[m][k] W[n][k] + bias[n]) ), where
-// A' is A, or LayerNorm(A) rounded to T when LN: the row mean and the
-// two-pass variance accumulated in f64 and rounded to f32 (so they are the
-// correctly rounded values, whatever the summation order; the plain
-// versions compute them so too), then LnLoader. The residual
+// A' is A, or LayerNorm(A) rounded to T when LN (`ln_row_stats`, then
+// LnLoader). The residual
 // is optional (res == nullptr). The output type TO is T, or float where a
 // caller keeps the f32 sum for an epilogue of its own. Columns n <
 // scaled_cols are multiplied by col_scale in f32 before the rounding (B10
@@ -328,19 +351,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = warp; r < kBM; r += kThreads / 32) {
       const int gm = m0 + r;
       float mean = 0.0f, rstd = 0.0f;
-      if (gm < M) {
-        const T* row = A + (size_t)gm * K;
-        double sum = 0.0;
-        for (int k = lane; k < K; k += 32) sum += (double)to_f32(row[k]);
-        mean = (float)(warp_sum(sum) / K);
-        double sq = 0.0;
-        for (int k = lane; k < K; k += 32) {
-          const double d = (double)(to_f32(row[k]) - mean);
-          sq += d * d;
-        }
-        const float var = (float)(warp_sum(sq) / K);
-        rstd = rsqrtf(var + eps);
-      }
+      if (gm < M) ln_row_stats(A + (size_t)gm * K, K, eps, lane, mean, rstd);
       if (lane == 0) {
         mean_s[r] = mean;
         rstd_s[r] = rstd;
@@ -429,7 +440,7 @@ constexpr int kMmaThreads = 256;
 constexpr size_t kGemmMmaSmem =
     (size_t)kMmaStages * (kMmaBM + kMmaBN) * kMmaPitch * sizeof(__nv_bfloat16);
 
-// Which product a bf16 launch takes (ops/swin_block.py `gemm_route`).
+// Which product a bf16 launch takes (ops/gemm.py `gemm_route`).
 inline bool gemm_is_mma(int K, const void* a, const void* w) {
   return K % 8 == 0 && aligned16(a) && aligned16(w);
 }
@@ -452,11 +463,14 @@ __device__ __forceinline__ void gemm_mma_load(__nv_bfloat16* sa, __nv_bfloat16* 
 }
 
 // out[m][n] = TO(act(sum_k A[m][k] W[n][k] + bias[n])), A [M, K] and W
-// [N, K] bf16, row-major, 16-byte aligned, K % 8 == 0.
-template <int ACT, typename TO>
+// [N, K] bf16, row-major, 16-byte aligned, K % 8 == 0. With RES, the bf16
+// residual res[m][n] is added in f32 before the rounding to TO, as in
+// `gemm_bias_act_kernel`: out = TO(res + act(sum + bias)).
+template <int ACT, typename TO, bool RES = false>
 __global__ void __launch_bounds__(kMmaThreads)
     gemm_mma_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W,
-                    const float* __restrict__ bias, TO* __restrict__ out, int M, int N, int K) {
+                    const float* __restrict__ bias, const __nv_bfloat16* __restrict__ res,
+                    TO* __restrict__ out, int M, int N, int K) {
   using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sa = reinterpret_cast<bf16*>(smem_raw);         // [stages][BM][pitch]
@@ -524,22 +538,26 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int n = n0 + wn + nt * 8 + c2 + u;
-          if (n < N)
-            out[(size_t)m * N + n] =
-                from_f32<TO>(activate<ACT>(acc[mt][nt][2 * half + u] + bias[n]));
+          if (n >= N) continue;
+          const size_t o = (size_t)m * N + n;
+          float v = activate<ACT>(acc[mt][nt][2 * half + u] + bias[n]);
+          if constexpr (RES) v = to_f32(res[o]) + v;
+          out[o] = from_f32<TO>(v);
         }
     }
 }
 
-template <int ACT, typename TO>
+// `res` is read only with RES (then [M, N] bf16, row-major).
+template <int ACT, typename TO, bool RES = false>
 inline int launch_gemm_mma(const __nv_bfloat16* A, const __nv_bfloat16* W, const float* bias,
-                           TO* out, int M, int N, int K, cudaStream_t stream) {
-  auto kernel = gemm_mma_kernel<ACT, TO>;
+                           TO* out, int M, int N, int K, cudaStream_t stream,
+                           const __nv_bfloat16* res = nullptr) {
+  auto kernel = gemm_mma_kernel<ACT, TO, RES>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kGemmMmaSmem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((M + kMmaBM - 1) / kMmaBM, (N + kMmaBN - 1) / kMmaBN);
-  kernel<<<grid, kMmaThreads, kGemmMmaSmem, stream>>>(A, W, bias, out, M, N, K);
+  kernel<<<grid, kMmaThreads, kGemmMmaSmem, stream>>>(A, W, bias, res, out, M, N, K);
   return (int)cudaGetLastError();
 }
 

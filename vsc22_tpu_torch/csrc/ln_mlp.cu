@@ -10,47 +10,113 @@
 // (its pallas_call at :155; dispatcher `ln_mlp_residual` :195): LayerNorm
 // statistics accumulated in f64 and rounded to f32, LN output rounded to
 // the working dtype, hidden and output accumulated in f32, hidden rounded
-// to the working dtype after the activation, residual added in f32. act is exact GELU (erff; the oracle
-// is `_xla_ln_mlp`, not the TPU kernel's polynomial erf) or QuickGELU
-// x * sigmoid(1.702 x).
+// to the working dtype after the activation, residual added in f32. act is
+// exact GELU (erff; the oracle is `_xla_ln_mlp`, not the TPU kernel's
+// polynomial erf) or QuickGELU x * sigmoid(1.702 x).
 //
 // What bounds it on the H100: two dense products of 2*rows*C*hidden FLOPs
-// each (ViT: C=768, hidden=3072; CLIP: C=1024, hidden=4096). In this
-// version they run on CUDA cores with FFMA, so FMA throughput bounds it, not
-// memory.
+// each (ViT: C=768, hidden=3072; CLIP: C=1024, hidden=4096), so the bf16
+// tensor-core rate in bf16 and the FMA rate in f32.
 //
 // Design: the TPU kernel kept a row tile's whole hidden (up to 4096 wide,
 // f32) in VMEM; 227 KB of shared memory cannot hold that for a useful row
-// tile, so this first version is two launches of the shared tiled GEMM
-// (gemm_nt.cuh) and the hidden makes one round trip through device memory
-// in the working dtype:
-//  (a) LN fused into the A-tile load (per-block two-pass row stats)
-//      + fc1 + b1 + activation -> hidden [rows, hidden];
-//  (b) fc2 + b2 + f32 residual -> out [rows, C].
-// Keeping the hidden on chip (split-K over hidden tiles with the fc2
-// accumulator in registers) is later work. Any C, hidden and rows are
-// taken: ragged tiles are masked.
+// tile, so the hidden makes one round trip through device memory in the
+// working dtype, between two product launches (gemm_nt.cuh). In bf16, where
+// `gemm_is_mma` allows it (K % 8 == 0, aligned weights), both products run
+// on the tensor-core loop `gemm_mma_kernel`, which streams raw bf16 tiles
+// and has no LN prologue, so K2 is three launches:
+//  (a) `ln_rows_kernel`: LN(x) rounded to bf16 -> a scratch ln [rows, C],
+//      one warp per row, the statistics of `ln_row_stats` (f64, rounded to
+//      f32) and `ln_apply`, as the FFMA tile's LN prologue computes them;
+//  (b) fc1 + b1 + activation on the mma loop -> hidden [rows, hidden];
+//  (c) fc2 + b2 + the f32 residual x on the mma loop -> out [rows, C].
+// Both sums feed one rounding each: fc1's the hidden, after which no LN
+// follows inside K2; fc2's the output, after the f32 residual (B1's fc2
+// holds the bf16 bar on the same loop). Otherwise (f32, or a bf16 product
+// off the rule) a product keeps the 64x64 FFMA tile, with LN fused into
+// fc1's A-tile load (per-block two-pass row stats). B7, which runs only in
+// f32 on the main path (the SwinV2 module path), keeps the FFMA tile for
+// both products. Fusing the LN into an
+// ldmatrix-fed tile and keeping the hidden on chip are later work. Any C,
+// hidden and rows are taken: ragged tiles are masked.
+#include <type_traits>
+
 #include "gemm_nt.cuh"
 
 namespace vsc22 {
 
+constexpr int kLnRowWarps = 8;
+
+// out[m] = T(LN(x[m])) over rows of C: one warp per row.
+template <typename T>
+__global__ void __launch_bounds__(kLnRowWarps * 32)
+    ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ g,
+                   const float* __restrict__ b, T* __restrict__ out, int M, int C, float eps) {
+  const int lane = threadIdx.x % 32;
+  const size_t row = (size_t)blockIdx.x * kLnRowWarps + threadIdx.x / 32;
+  if (row >= (size_t)M) return;
+  const T* xr = x + row * C;
+  float mean, rstd;
+  ln_row_stats(xr, C, eps, lane, mean, rstd);
+  T* orow = out + row * C;
+  for (int c = lane; c < C; c += 32)
+    orow[c] = from_f32<T>(ln_apply(to_f32(xr[c]), mean, rstd, g[c], b[c]));
+}
+
+template <typename T>
+int launch_ln_rows(const T* x, const float* g, const float* b, T* out, int M, int C, float eps,
+                   cudaStream_t stream) {
+  const int blocks = (M + kLnRowWarps - 1) / kLnRowWarps;
+  ln_rows_kernel<T><<<blocks, kLnRowWarps * 32, 0, stream>>>(x, g, b, out, M, C, eps);
+  return (int)cudaGetLastError();
+}
+
+// hidden = T(act(LN(x) W1^T + b1)): (a) and (b) above where `gemm_is_mma`
+// allows it in bf16, else the FFMA tile with the LN fused into its A-tile
+// load. `ln` is a scratch [M, C] in T (bf16 only).
+template <typename T, int ACT>
+int ln_fc1(const T* x, const float* ln_g, const float* ln_b, const T* w1, const float* b1, T* ln,
+           T* hidden, int M, int C, int Hd, float eps, cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if (gemm_is_mma(C, ln, w1)) {
+      const int rc = launch_ln_rows(x, ln_g, ln_b, ln, M, C, eps, stream);
+      if (rc != 0) return rc;
+      return launch_gemm_mma<ACT, T>(ln, w1, b1, hidden, M, Hd, C, stream);
+    }
+  }
+  launch_gemm<T, ACT, true>(x, w1, b1, nullptr, hidden, M, Hd, C, ln_g, ln_b, eps, stream);
+  return (int)cudaGetLastError();
+}
+
+// out = T(x + hidden W2^T + b2), on the mma loop where `gemm_is_mma` allows
+// it in bf16, else the FFMA tile.
+template <typename T>
+int fc2_residual(const T* hidden, const T* w2, const float* b2, const T* x, T* out, int M, int C,
+                 int Hd, cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if (gemm_is_mma(Hd, hidden, w2))
+      return launch_gemm_mma<kActNone, T, true>(hidden, w2, b2, out, M, C, Hd, stream, x);
+  }
+  launch_gemm<T, kActNone, false>(hidden, w2, b2, x, out, M, C, Hd, nullptr, nullptr, 0.0f,
+                                  stream);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int ln_mlp_residual(const void* x, const float* ln_g, const float* ln_b, const void* w1,
-                    const float* b1, const void* w2, const float* b2, void* hidden, void* out,
-                    int M, int C, int Hd, int act, float eps, cudaStream_t stream) {
+                    const float* b1, const void* w2, const float* b2, void* ln, void* hidden,
+                    void* out, int M, int C, int Hd, int act, float eps, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
+  const T* w1t = static_cast<const T*>(w1);
+  T* lt = static_cast<T*>(ln);
   T* ht = static_cast<T*>(hidden);
-  if (act == kActQuickGelu)
-    launch_gemm<T, kActQuickGelu, true>(xt, static_cast<const T*>(w1), b1, nullptr, ht, M, Hd,
-                                        C, ln_g, ln_b, eps, stream);
-  else
-    launch_gemm<T, kActGelu, true>(xt, static_cast<const T*>(w1), b1, nullptr, ht, M, Hd, C,
-                                   ln_g, ln_b, eps, stream);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  launch_gemm<T, kActNone, false>(ht, static_cast<const T*>(w2), b2, xt, static_cast<T*>(out),
-                                  M, C, Hd, nullptr, nullptr, 0.0f, stream);
-  return (int)cudaGetLastError();
+  const int rc =
+      act == kActQuickGelu
+          ? ln_fc1<T, kActQuickGelu>(xt, ln_g, ln_b, w1t, b1, lt, ht, M, C, Hd, eps, stream)
+          : ln_fc1<T, kActGelu>(xt, ln_g, ln_b, w1t, b1, lt, ht, M, C, Hd, eps, stream);
+  if (rc != 0) return rc;
+  return fc2_residual<T>(ht, static_cast<const T*>(w2), b2, xt, static_cast<T*>(out), M, C, Hd,
+                         stream);
 }
 
 template <typename T>
@@ -69,17 +135,30 @@ int fused_mlp(const void* x, const void* w1, const float* b1, const void* w2, co
 }  // namespace vsc22
 
 // x, out: [M, C]; w1: [Hd, C] and w2: [C, Hd] in Linear layout (out, in);
-// ln_g, ln_b, b1, b2: f32; hidden: scratch [M, Hd]. act: 1 GELU, 2 QuickGELU.
+// ln_g, ln_b, b1, b2: f32; ln: scratch [M, C] (bf16; unused in f32);
+// hidden: scratch [M, Hd]. act: 1 GELU, 2 QuickGELU.
 extern "C" int vsc22_ln_mlp_residual(const void* x, const float* ln_g, const float* ln_b,
                                      const void* w1, const float* b1, const void* w2,
-                                     const float* b2, void* hidden, void* out, int M, int C,
-                                     int Hd, int act, float eps, int dtype, void* stream) {
+                                     const float* b2, void* ln, void* hidden, void* out, int M,
+                                     int C, int Hd, int act, float eps, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == vsc22::kBF16)
-    return vsc22::ln_mlp_residual<__nv_bfloat16>(x, ln_g, ln_b, w1, b1, w2, b2, hidden, out, M,
-                                                 C, Hd, act, eps, s);
-  return vsc22::ln_mlp_residual<float>(x, ln_g, ln_b, w1, b1, w2, b2, hidden, out, M, C, Hd,
+    return vsc22::ln_mlp_residual<__nv_bfloat16>(x, ln_g, ln_b, w1, b1, w2, b2, ln, hidden, out,
+                                                 M, C, Hd, act, eps, s);
+  return vsc22::ln_mlp_residual<float>(x, ln_g, ln_b, w1, b1, w2, b2, ln, hidden, out, M, C, Hd,
                                        act, eps, s);
+}
+
+// K2's LN-rows kernel alone: out = T(LN(x)) over rows of C. x, out [M, C];
+// g, b f32 [C].
+extern "C" int vsc22_ln_rows(const void* x, const float* g, const float* b, void* out, int M,
+                             int C, float eps, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == vsc22::kBF16)
+    return vsc22::launch_ln_rows(static_cast<const __nv_bfloat16*>(x), g, b,
+                                 static_cast<__nv_bfloat16*>(out), M, C, eps, s);
+  return vsc22::launch_ln_rows(static_cast<const float*>(x), g, b, static_cast<float*>(out), M, C,
+                               eps, s);
 }
 
 // B7. x, out: [M, C]; w1: [Hd, C] and w2: [C, Hd] in Linear layout; b1, b2:

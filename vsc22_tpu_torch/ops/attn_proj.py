@@ -12,6 +12,9 @@ statistics, `mlp.ln_rows`). Counterparts of `vsc22_tpu/ops/pallas_attn_proj.py`
 `qkv_w` [3C, C] and `proj_w` [C, C] are in PyTorch's Linear layout [out,
 in]; LN params and biases are f32. x, qkv and the weights share the
 working dtype (float32 or bfloat16).
+
+In bfloat16 the projection of K1, and so of B9, takes the tensor-core loop
+by `gemm_route`; B9's QKV product keeps the FFMA tile (`routes`).
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from vsc22_tpu_torch.kernels import build
-from vsc22_tpu_torch.ops.attn import check_attn_smem
+from vsc22_tpu_torch.ops.attn import attn_core, check_attn_smem
+from vsc22_tpu_torch.ops.gemm import gemm_route
 from vsc22_tpu_torch.ops.mlp import ln_rows
 
 _ARGTYPES = [build.PTR] * 6 + [build.INT] * 5 + [build.PTR]
@@ -38,6 +42,16 @@ def attn_proj_residual_reference(x, qkv, proj_w, proj_b, num_heads: int):
     attn = torch.einsum("bhlm,bmhd->blhd", probs, v).to(dt).reshape(b, l, c)
     proj = attn.float() @ proj_w.to(dt).float().t() + proj_b.float()
     return (x.float() + proj).to(dt)
+
+
+def routes(x, proj_w, num_heads: int) -> dict:
+    """What a K1 launch on these operands runs (and B9's after its QKV,
+    which always takes the FFMA tile): the attention core and the loop of
+    the projection (`gemm_route`; it reads the wrapper's own attention
+    buffer, which is aligned). Mirrors `attn_proj_residual` in
+    `csrc/attn_proj.cu`."""
+    c = x.shape[-1]
+    return dict(core=attn_core(x.dtype, c // num_heads), proj=gemm_route(x.dtype, c, proj_w))
 
 
 def _check_heads(c: int, num_heads: int) -> None:

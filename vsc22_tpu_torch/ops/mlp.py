@@ -11,6 +11,11 @@ Counterparts of `vsc22_tpu/ops/pallas_mlp.py` `ln_mlp_residual` (its
 `w1` [hidden, C] and `w2` [C, hidden] are in PyTorch's Linear layout
 [out, in]; LN scale/bias and the fc biases are f32. x, w1 and w2 share the
 working dtype (float32 or bfloat16).
+
+In bfloat16, K2's fc1 and fc2 take the tensor-core loop by `gemm_route`,
+fc1 reading LN(x) from a scratch that `ln_rows_kernel` writes first
+(`layernorm_rows` launches that kernel alone); `routes` names the loop of
+each product for a call. B7 and f32 keep the FFMA tile.
 """
 
 from __future__ import annotations
@@ -19,11 +24,13 @@ import torch
 import torch.nn.functional as F
 
 from vsc22_tpu_torch.kernels import build
+from vsc22_tpu_torch.ops.gemm import gemm_route
 
 _ACT_CODES = {"gelu": 1, "quick_gelu": 2}
 _ARGTYPES = (
-    [build.PTR] * 9 + [build.INT] * 4 + [build.FLOAT, build.INT, build.PTR]
+    [build.PTR] * 10 + [build.INT] * 4 + [build.FLOAT, build.INT, build.PTR]
 )
+_LN_ROWS_ARGTYPES = [build.PTR] * 4 + [build.INT] * 2 + [build.FLOAT, build.INT, build.PTR]
 _MLP_ARGTYPES = [build.PTR] * 7 + [build.INT] * 4 + [build.PTR]
 
 
@@ -46,6 +53,41 @@ def ln_rows(xf, scale, bias, eps: float):
     d = xf - mean
     var = d.double().square().mean(-1, keepdim=True).float()
     return d * torch.rsqrt(var + eps) * scale.float() + bias.float()
+
+
+def layernorm_rows(x, scale, bias, eps: float):
+    """LN(x) over the last axis of [M, C] rows, rounded to x's dtype: K2's
+    `ln_rows_kernel` alone on a CUDA tensor, `ln_rows` on a CPU tensor."""
+    if x.device.type == "cpu":
+        return ln_rows(x.float(), scale, bias, eps).to(x.dtype)
+    device = build.require_cuda(x)
+    code = build.working_dtype(x)
+    m, c = x.shape
+    build.check_cuda("x", x, device, x.dtype, (m, c))
+    build.check_cuda("scale", scale, device, torch.float32, (c,))
+    build.check_cuda("bias", bias, device, torch.float32, (c,))
+    out = torch.empty_like(x)
+    build.call("ln_mlp", "vsc22_ln_rows", _LN_ROWS_ARGTYPES, x.data_ptr(), scale.data_ptr(),
+               bias.data_ptr(), out.data_ptr(), m, c, eps, code, build.stream_ptr(device))
+    layernorm_rows.launches += 1
+    return out
+
+
+layernorm_rows.launches = 0
+
+
+def routes(x, w1, w2) -> dict:
+    """What a K2 launch on these operands runs: the loop of fc1 and fc2
+    (`gemm_route`; fc1 reads the wrapper's own LN scratch and fc2 its own
+    hidden, which are aligned) and where the LN is computed: "rows" (the
+    LN-rows kernel, before fc1 on the tensor-core loop) or "prologue" (fused
+    into the FFMA tile's A-tile load). Mirrors `ln_mlp_residual` in
+    `csrc/ln_mlp.cu`."""
+    dt = x.dtype
+    c, hidden = x.shape[-1], w1.shape[0]
+    fc1 = gemm_route(dt, c, w1)
+    return dict(ln="rows" if fc1 == "mma" else "prologue", fc1=fc1,
+                fc2=gemm_route(dt, hidden, w2))
 
 
 def ln_mlp_residual_reference(x, ln_s, ln_b, w1, b1, w2, b2,
@@ -78,13 +120,14 @@ def ln_mlp_residual(x, ln_s, ln_b, w1, b1, w2, b2,
     build.check_cuda("b1", b1, device, torch.float32, (hidden,))
     build.check_cuda("w2", w2, device, x.dtype, (c, hidden))
     build.check_cuda("b2", b2, device, torch.float32, (c,))
+    ln = torch.empty_like(x) if x.dtype == torch.bfloat16 else None
     h = torch.empty((m, hidden), dtype=x.dtype, device=device)
     out = torch.empty_like(x)
     build.call(
         "ln_mlp", "vsc22_ln_mlp_residual", _ARGTYPES,
         x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), h.data_ptr(),
-        out.data_ptr(), m, c, hidden, _ACT_CODES[activation], eps, code,
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), None if ln is None else ln.data_ptr(),
+        h.data_ptr(), out.data_ptr(), m, c, hidden, _ACT_CODES[activation], eps, code,
         build.stream_ptr(device),
     )
     ln_mlp_residual.launches += 1

@@ -34,24 +34,11 @@ import torch
 import torch.nn.functional as F
 
 from vsc22_tpu_torch.kernels import build
+from vsc22_tpu_torch.ops.gemm import gemm_route
 from vsc22_tpu_torch.ops.window_attn import check_window_smem, window_core
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm default
 _ARGTYPES = [build.PTR] * 22 + [build.INT] * 7 + [build.PTR]
-
-
-# Shared memory of a block of the tensor-core product: 3 stages of a 128-row
-# A slice and a 128-row W slice, 32 deep, at a pitch of 40 bf16.
-GEMM_MMA_SMEM = 3 * (128 + 128) * 40 * 2
-
-
-def gemm_route(dtype: torch.dtype, k: int, *operands: torch.Tensor) -> str:
-    """The loop one of B1's products takes: "mma" (bf16 tensor cores) for
-    bfloat16 with K % 8 == 0 and 16-byte-aligned operands, "ffma" (the f32
-    CUDA-core tile) otherwise. Mirrors `gemm_is_mma` in
-    `csrc/gemm_nt.cuh`."""
-    aligned = all(t.data_ptr() % 16 == 0 for t in operands)
-    return "mma" if dtype == torch.bfloat16 and k % 8 == 0 and aligned else "ffma"
 
 
 def routes(x, qkv_w, proj_w, fc1_w, fc2_w, num_heads: int) -> dict:

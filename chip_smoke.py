@@ -16,7 +16,11 @@ result line):
      B1 at all four SwinV2-Base stage
      shapes of a 128-frame chunk, shifted and unshifted where the stage has
      both; B6 and B7 at the stage 1 and stage 4 shapes; B5 at the search's
-     shape (a 4096-row query tile against 1.28M refs; f16, f32, and D 511).
+     shape (a 4096-row query tile against 1.28M refs; f16 on the
+     tensor-core route, f32 and f16 D 511 on the FFMA route, each naming
+     its route), and K3 at a 4096-row slice of the eval's score-norm shape
+     (against 128,000 noise frames, D 511), both with their products as
+     chunked cuBLAS calls beside.
      Max error and the share of elements that differ, against the stated
      bounds; median
      kernel, plain and (where one PyTorch call computes the function)
@@ -37,7 +41,8 @@ result line):
      in one more pass under torch.profiler, its device time by kernel (the
      attention cores named; no launch of the FFMA GEMM tile, one LN-rows
      launch per K2); then K3 against its plain
-     version on the operands score-norm gave it in the warm-up pass;
+     version on the operands score-norm gave it in the warm-up pass (its
+     bound at the f16 peak: its products are f16 x f16);
   4. the SwinV2 path cross-check: one SwinV2-Base member in float32 on 16
      frames, with the default block dispatch (B1, and B6 + B7 in stage 4)
      and with `fused_block=False` (B6 + B7 everywhere): the L2-normalised
@@ -48,9 +53,10 @@ result line):
      score-norm, the exact global budget search of 1200 hits per query
      (B5), the top 25 candidates, TN localization of the top 5 in a process
      pool, candidate µAP > 0.95; B5's launches cover every 4096-row query
-     tile; for 256 sampled query rows `row_topk` on B5 equals the exact
-     per-tile path; then the search alone at all 10,000 query videos. Every
-     stage's wall time is printed;
+     tile, all on the tensor-core route; for 256 sampled query rows
+     `row_topk` on B5 equals the exact per-tile path; then the search alone
+     at all 10,000 query videos, again all on the tensor-core route. Every
+     stage's wall time is printed, and the K3 call inside each score-norm;
   6. the CLIP block variants: the VED gate's CLIP ViT-L/14 at full width
      and depth in the JAX `CLIPBlock`'s three configurations (default K1 +
      K2, `use_half_block` on B9 + K2, `use_block_kernel` on B10): CLS
@@ -641,11 +647,28 @@ def unit_rows(gen, n, d, device):
     return x / x.norm(dim=1, keepdim=True)
 
 
+def mm_chunks(q, r, chunk=131_072):
+    """The products q r^T as cuBLAS calls in q's type (TF32 off), over
+    `chunk`-row slices of r into one reused output: the product part of
+    B5 and K3 as a library would compute it, a yardstick for their loop."""
+    out = torch.empty((q.shape[0], min(chunk, r.shape[0])), dtype=q.dtype, device=q.device)
+
+    def run():
+        for c0 in range(0, r.shape[0], chunk):
+            c1 = min(r.shape[0], c0 + chunk)
+            torch.mm(q, r[c0:c1].t(), out=out[:, : c1 - c0])
+        return out
+
+    return run
+
+
 def check_topk_kernel(device) -> dict:
     """B5 at the main-path shape: one 4096-row query tile against the
     1.28M-row reference corpus (40,000 videos x 32 frames), 512-d, the
     tail past num_valid masked, e 4 over 1024-column blocks, k 128; in
-    f16 (the eval's transfer type), f32, and f16 at D 511."""
+    f16 (the eval's transfer type: the tensor-core route), f32, and f16 at
+    D 511 (both the FFMA route). Each case names its route and times its
+    products as chunked cuBLAS calls in its own type beside it."""
     from vsc22_tpu_torch.ops import topk
 
     gen = torch.Generator(device=device).manual_seed(3)
@@ -656,6 +679,9 @@ def check_topk_kernel(device) -> dict:
         q = q32[:, :d].to(dt).contiguous()
         r = r32[:, :d].to(dt).contiguous()
         kw = dict(e=e, tile_r=tile_r)
+        route = topk.topk_route(dt, d, q, r)
+        check(route == ("mma" if (dt, d) == (torch.float16, 512) else "ffma"),
+              f"extract_topk {dname(dt)} D{d}: route {route}")
         got = topk.extract_topk(q, r, nv, k=k, **kw)
         want = topk.extract_topk_reference(q, r, nv, k=k + 1, **kw)
         torch.cuda.synchronize()
@@ -663,16 +689,20 @@ def check_topk_kernel(device) -> dict:
         del got, want
         ms = cuda_ms(lambda: topk.extract_topk(q, r, nv, k=k, **kw), reps)
         plain_ms = cuda_ms(lambda: topk.extract_topk_reference(q, r, nv, k=k, **kw), reps)
+        products_ms = cuda_ms(mm_chunks(q, r), reps)
+        torch.cuda.empty_cache()
         res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                   products_cublas_ms=products_ms, loop=route,
                    **bound(*work_extract_topk(nq, nr, nv, d, k, q.element_size()), dt))
         tag = "f16" if dt == torch.float16 else "f32"
-        # the design's own floor: every product an f32 FFMA
+        # the FFMA route's own floor: every product an f32 FFMA
         ffma_ms = 1e3 * 2 * nq * nv * d / PEAK_FLOPS[torch.float32]
         print(f"  extract_topk {tag} [{nq},{d}]x[{nr},{d}] num_valid {nv} e={e} tile_r={tile_r} "
-              f"k={k}: max_abs_err {err:.3e} (tol {TOPK_TOL:g}), {differ} rows with another "
-              f"column set (near ties only) {'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, bound {res['bound_ms']:.3f} ms ({res['bound_by']}), "
-              f"FFMA floor {ffma_ms:.3f} ms", flush=True)
+              f"k={k}, route {route}: max_abs_err {err:.3e} (tol {TOPK_TOL:g}), {differ} rows "
+              f"with another column set (near ties only) {'ok' if ok else 'FAIL'}; kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, its products as cuBLAS calls "
+              f"{products_ms:.3f} ms, bound {res['bound_ms']:.3f} ms ({res['bound_by']}), FFMA "
+              f"floor {ffma_ms:.3f} ms", flush=True)
         check(ok, f"extract_topk {tag} D{d}: kernel disagrees with its plain version "
                   f"(max_abs_err {err}, {differ} rows)")
         results[("extract_topk", f"D{d}", tag)] = res
@@ -680,6 +710,38 @@ def check_topk_kernel(device) -> dict:
     del q32, r32
     torch.cuda.empty_cache()
     return results
+
+
+def check_row_max(name, q, r, reps=10) -> dict:
+    """K3 against its plain version, with its products as f16 cuBLAS calls
+    beside (on f16 copies made outside the timed call) and the bound at the
+    f16 peak: its products are f16 x f16, whatever type it is handed."""
+    from vsc22_tpu_torch.ops.sim import row_max_gemm, row_max_gemm_reference, row_max_grid
+
+    nq, nr, d = q.shape[0], r.shape[0], q.shape[1]
+    tiles, splits = row_max_grid(nq, nr)
+    qh, rh = q.half(), r.half()
+    res = compare(
+        f"row_max_gemm {name} [{nq},{d}]x[{nr},{d}], grid {tiles} query tiles x {splits} ref "
+        "splits",
+        lambda: row_max_gemm(q, r), lambda: row_max_gemm_reference(q, r), ROW_MAX_TOL,
+        reps=reps, work=work_row_max(nq, nr, d), dtype=torch.float16,
+        products_fn=mm_chunks(qh, rh))
+    del qh, rh
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_row_max_kernel(device) -> dict:
+    """K3 at a 4096-row slice of the eval's score-norm shape (32,000 query
+    frames against the 128,000 noise frames, D 511 after the deleted
+    dimension): the plain version's [Nq, Nr] product stays at 2 GB."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    q, r = unit_rows(gen, 4096, 511, device), unit_rows(gen, 128_000, 511, device)
+    res = check_row_max("eval score-norm slice f32", q, r, reps=5)
+    del q, r
+    torch.cuda.empty_cache()
+    return {("row_max_gemm", "eval4096", "f32"): res}
 
 
 # --- phase 3: the slice ----------------------------------------------------
@@ -755,6 +817,8 @@ def run_slice(pipe, noise, names, videos, device, dev_videos=None, batch=24):
 def zero_counts(wrappers) -> None:
     for w in wrappers:
         w.launches = 0
+        for route in getattr(w, "route_launches", {}):
+            w.route_launches[route] = 0
 
 
 def counts(wrappers) -> dict:
@@ -922,10 +986,11 @@ def profile_pass(run) -> dict:
               flush=True)
     families = {}
     for family, words in KERNEL_FAMILIES.items():
-        picked = [r for r in rows if family + "<" in r[2] or r[2].startswith(family)]
+        picked = [r for r in rows if family + "<" in r[2] or family + "(" in r[2]
+                  or r[2].startswith(family)]
         fam_us = sum(r[0] for r in picked)
         families[family] = (fam_us / 1e6, sum(r[1] for r in picked))
-        print(f"    {family} ({words}): {fam_us / 1e6:.3f} s, "
+        print(f"    {family} ({words}): {fam_us / 1e3:.3f} ms, "
               f"{fam_us / 1e6 / device_s:.1%} of device time, {families[family][1]} calls",
               flush=True)
     return families
@@ -943,6 +1008,7 @@ KERNEL_FAMILIES = {
     "window_attn_kernel": "FFMA window-attention core",
     "attn_core_mma_kernel": "bf16 attention core of K1, B8-B10",
     "attn_core_kernel": "FFMA attention core",
+    "row_max_mma_kernel": "K3 (score-norm's row max) on f16 tensor cores",
 }
 
 
@@ -1154,6 +1220,7 @@ def run_eval(device, wrappers, card: str) -> dict:
     from vsc22_tpu_torch.core.types import CandidatePair
     from vsc22_tpu_torch.ops.topk import extract_topk
     from vsc22_tpu_torch.pipelines.descriptor_eval import localize_and_verify, search
+    from vsc22_tpu_torch.retrieval import score_norm
     from vsc22_tpu_torch.retrieval.score_norm import (
         _min_variance_dim,
         query_score_normalize,
@@ -1174,13 +1241,22 @@ def run_eval(device, wrappers, card: str) -> dict:
     gt_pairs = [CandidatePair(query_id=q, ref_id=r, score=1.0) for q, r, *_ in gt]
     low_var = _min_variance_dim(noise)
 
+    k3 = [(score_norm, "row_max_gemm", "K3")]  # the call inside each score-norm
     zero_counts(wrappers)
-    sn_q, sn_refs = timed_stage(stages, "score_norm", lambda: (
-        query_score_normalize(eval_q, noise, low_var_dim=low_var, beta=1.2, nk=1, device=device),
-        ref_score_normalize(refs, noise, beta=1.2, nk=1)))
+    with call_times(k3) as k3_times:
+        sn_q, sn_refs = timed_stage(stages, "score_norm", lambda: (
+            query_score_normalize(eval_q, noise, low_var_dim=low_var, beta=1.2, nk=1,
+                                  device=device),
+            ref_score_normalize(refs, noise, beta=1.2, nk=1)))
+    print(f"    split: K3 (one call, {sum(len(q.feature) for q in eval_q)} x "
+          f"{sum(len(n.feature) for n in noise)} rows, synchronised at both "
+          f"edges) {k3_times['K3']:.3f} s", flush=True)
     candidates, _ = timed_stage(stages, "search_1200_per_query", lambda: search_split(
         lambda: search(sn_q, sn_refs, transfer_dtype=np.float16, device=device)))
     b5_search = extract_topk.launches
+    check(extract_topk.route_launches == {"mma": b5_search, "ffma": 0},
+          f"eval: B5 launches by route {extract_topk.route_launches}, not all on the "
+          "tensor-core route")
     with call_times([(BaseVtaModel, "forward_sim", "alignment")]) as tn_times:
         matches = timed_stage(stages, "tn_localization", lambda: localize_and_verify(
             sn_q, sn_refs, candidates, score_normalization=True, concurrency=concurrency))
@@ -1198,7 +1274,8 @@ def run_eval(device, wrappers, card: str) -> dict:
           f"{sum(len(r.feature) for r in sn_refs)} rows): {len(candidates)} candidates, "
           f"{len(matches)} matches ({len(located)} of {len(gt)} planted pairs localized), "
           f"candidate µAP {ap:.4f} (bar 0.95); launches {launches} (B5 >= {tiles}, the "
-          f"4096-row query tiles of the first row_topk)", flush=True)
+          f"4096-row query tiles of the first row_topk; all on the tensor-core route)",
+          flush=True)
     check(0 < len(candidates) <= 25 * n_eval, f"eval: {len(candidates)} candidates")
     check(all(np.isfinite(c.score) for c in candidates), "eval: non-finite candidate scores")
     check(ap > 0.95, f"eval: candidate µAP {ap:.4f} <= 0.95 on the planted copies")
@@ -1208,19 +1285,27 @@ def run_eval(device, wrappers, card: str) -> dict:
     check_b5_against_exact(sn_q, sn_refs, device)
 
     n_all = len(queries)
-    sn_all = timed_stage(stages, f"score_norm ({n_all} queries)", lambda: query_score_normalize(
-        queries, noise, low_var_dim=low_var, beta=1.2, nk=1, device=device))
+    with call_times(k3) as k3_times:
+        sn_all = timed_stage(stages, f"score_norm ({n_all} queries)",
+                             lambda: query_score_normalize(queries, noise, low_var_dim=low_var,
+                                                           beta=1.2, nk=1, device=device))
+    print(f"    split: K3 (one call, {sum(len(q.feature) for q in queries)} x "
+          f"{sum(len(n.feature) for n in noise)} rows, synchronised at both "
+          f"edges) {k3_times['K3']:.3f} s", flush=True)
     zero_counts(wrappers)
     full, _ = timed_stage(stages, f"search_1200_per_query ({n_all} x {len(refs)})",
                           lambda: search_split(lambda: search(
                               sn_all, sn_refs, transfer_dtype=np.float16, device=device)))
     full_launches = extract_topk.launches
+    check(extract_topk.route_launches == {"mma": full_launches, "ffma": 0},
+          f"full search: B5 launches by route {extract_topk.route_launches}, not all on the "
+          "tensor-core route")
     full_rows = sum(len(q.feature) for q in sn_all)
     full_ap = average_precision(gt_pairs, full).ap
     print(f"  search alone at {n_all} x {len(refs)} videos ({full_rows} x "
           f"{sum(len(r.feature) for r in sn_refs)} rows, global_k {1200 * n_all}): "
-          f"{len(full)} candidates, candidate µAP {full_ap:.4f}, B5 launches {full_launches}",
-          flush=True)
+          f"{len(full)} candidates, candidate µAP {full_ap:.4f}, B5 launches {full_launches}, "
+          "all on the tensor-core route", flush=True)
     check(full_launches >= -(-full_rows // QUERY_TILE), "full search: too few B5 launches")
     check(0 < len(full) <= 25 * n_all and full_ap > 0.95, "full search: bad candidates")
     print(f"  stage walls on {card}: " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()),
@@ -1383,7 +1468,7 @@ def main() -> int:
     from vsc22_tpu_torch.ops.attn import packed_attention
     from vsc22_tpu_torch.ops.attn_proj import attn_proj_residual, ln_attn_proj_residual
     from vsc22_tpu_torch.ops.mlp import fused_mlp, ln_mlp_residual
-    from vsc22_tpu_torch.ops.sim import row_max_gemm, row_max_gemm_reference
+    from vsc22_tpu_torch.ops.sim import row_max_gemm
     from vsc22_tpu_torch.ops.swin_block import swin_block
     from vsc22_tpu_torch.ops.topk import extract_topk
     from vsc22_tpu_torch.ops.vit_block import vit_block
@@ -1414,6 +1499,7 @@ def main() -> int:
     kres = check_kernels(device)
     kres.update(check_swin_kernels(device))
     kres.update(check_topk_kernel(device))
+    kres.update(check_row_max_kernel(device))
     kres.update(check_block_kernels(device))
 
     print(f"phase 3: the slice ({card})", flush=True)
@@ -1492,13 +1578,8 @@ def main() -> int:
 
     # K3 on the very operands score-norm gave it in the warm-up pass.
     q, r = row_max_calls[0]
-    kres[("row_max_gemm", "score_norm", "f32")] = compare(
-        f"row_max_gemm score_norm f32 [{q.shape[0]},{q.shape[1]}]x[{r.shape[0]},{r.shape[1]}] "
-        "(the pass's own operands)",
-        lambda: row_max_gemm(q, r),
-        lambda: row_max_gemm_reference(q, r),
-        ROW_MAX_TOL, work=work_row_max(q.shape[0], r.shape[0], q.shape[1]),
-    )
+    kres[("row_max_gemm", "score_norm", "f32")] = check_row_max(
+        "score_norm f32 (the pass's own operands)", q, r)
     ved = pipe.ved  # phase 6 runs the VED gate again, on each CLIP block path
     del pipe, models, row_max_calls, q, r
     torch.cuda.empty_cache()
@@ -1526,7 +1607,8 @@ def main() -> int:
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], case=f"{tag} {dn}",
-            **{k: r[k] for k in ("products_cublas_ms", "ln_rows_ms", "routes") if k in r},
+            **{k: r[k] for k in ("products_cublas_ms", "ln_rows_ms", "routes", "loop")
+               if k in r},
         ))
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,7 +7,10 @@ tensor-core attention core through B8 and K1 at L 1 to 257, soft and
 peaked, at its shared-memory edge and on misaligned operands; K1's
 projection and K2's products on the tensor-core loop at ragged rows, and
 K2's LN-rows kernel bit for bit; B1's and f32 K1's outputs bit for bit as
-pinned before).
+pinned before; B5's product loop for every case, and its FFMA route's
+outputs bit for bit as pinned before the tensor-core route; K3's split
+grid with the max in the last split, all-negative and zero maxima, and D
+padded to a multiple of 16).
 
 Needs a CUDA device; skips elsewhere. The shared conftest imports JAX,
 which the GPU host lacks, so run it there without it:
@@ -22,6 +25,7 @@ import torch
 
 import chip_smoke
 from scripts.torch_gemm_probe import b1_digest_args
+from scripts.torch_topk_probe import b5_digest
 from vsc22_tpu_torch.ops.attn import attn_core, packed_attention, packed_attention_reference
 from vsc22_tpu_torch.ops import attn_proj, mlp
 from vsc22_tpu_torch.ops.attn_proj import (
@@ -38,10 +42,10 @@ from vsc22_tpu_torch.ops.mlp import (
     ln_mlp_residual_reference,
     ln_rows,
 )
-from vsc22_tpu_torch.ops.sim import row_max_gemm, row_max_gemm_reference
+from vsc22_tpu_torch.ops.sim import row_max_gemm, row_max_gemm_reference, row_max_grid
 from vsc22_tpu_torch.models.swinv2 import _shift_attn_mask
 from vsc22_tpu_torch.ops.swin_block import routes, swin_block, swin_block_reference
-from vsc22_tpu_torch.ops.topk import extract_topk, extract_topk_reference
+from vsc22_tpu_torch.ops.topk import extract_topk, extract_topk_reference, topk_route
 from vsc22_tpu_torch.ops.vit_block import vit_block, vit_block_reference
 from vsc22_tpu_torch.ops.window_attn import (
     window_attention,
@@ -382,12 +386,67 @@ def test_attn_proj_on_the_mma_loop(device, model):
     bf16_bar(attn_proj_residual(x, qkv, pw, pb, h), attn_proj_residual_reference(x, qkv, pw, pb, h))
 
 
-@pytest.mark.parametrize("nq,nr,d", [(70, 130, 15), (1, 1, 511), (200, 65, 64)])
+# (27, 2000): the query pass's shape, one query tile over 264 ref splits;
+# D 15 and 511 reach the kernel padded with zeros to 16 and 512.
+@pytest.mark.parametrize("nq,nr,d", [(70, 130, 15), (1, 1, 511), (200, 65, 64), (27, 2000, 511),
+                                     (27, 2000, 15)])
 def test_row_max_ragged(device, nq, nr, d):
     gen = torch.Generator().manual_seed(nq + nr + d)
     q = randn(gen, (nq, d), 1.0, torch.float32, device)
     r = randn(gen, (nr, d), 1.0, torch.float32, device)
     assert_close(row_max_gemm(q, r), row_max_gemm_reference(q, r), (1e-5 * d, 0.0))
+
+
+def unit(x):
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def k3_last_split(gen):
+    """One query row against 100,000 refs whose best match, the query
+    itself, is the last ref: it lies in the last of the grid's splits."""
+    q = unit(torch.randn((1, 511), generator=gen))
+    r = unit(torch.randn((100_000, 511), generator=gen))
+    r[-1] = q[0]
+    tiles, splits = row_max_grid(1, 100_000)
+    assert (tiles, splits) == (1, 264) and (splits - 1) * 100_000 // splits <= 99_999
+    return q, r
+
+
+def k3_all_negative(gen):
+    """Positive queries against negative refs: every score is below 0."""
+    return (unit(torch.randn((300, 64), generator=gen).abs()),
+            -unit(torch.randn((2000, 64), generator=gen).abs()))
+
+
+def k3_zero_max(gen):
+    """Each row's max is 0 (of either sign): the first refs share no
+    dimension with the queries (their products are +0.0 or -0.0, as the
+    ref entries are negative or positive), the rest score below 0."""
+    q = torch.zeros((5, 32))
+    q[:, :16] = torch.randn((5, 16), generator=gen).abs() + 0.1
+    r = -(torch.randn((600, 32), generator=gen).abs() + 0.1)
+    r[:4, :16] = 0.0
+    r[1:3, 16:] *= -1.0
+    return q, r
+
+
+K3_EDGES = {"max in the last split": k3_last_split, "all negative": k3_all_negative,
+            "zero max": k3_zero_max}
+
+
+@pytest.mark.parametrize("case", K3_EDGES)
+def test_row_max_split_grid_edges(device, case):
+    q, r = K3_EDGES[case](torch.Generator().manual_seed(9))
+    q, r = q.to(device), r.to(device)
+    before = row_max_gemm.launches
+    got = row_max_gemm(q, r)
+    assert row_max_gemm.launches == before + 1
+    want = row_max_gemm_reference(q, r)
+    assert_close(got, want, (1e-5, 0.0))
+    if case == "all negative":
+        assert (got < 0).all()
+    if case == "zero max":
+        assert (got == 0).all() and (want == 0).all()
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(device):
@@ -680,9 +739,12 @@ def test_extract_topk_ragged(device, dtype, nq, nr, d, nv, e, tile_r, k):
     # entries of variance 1/D, so the scores are O(1) at every D
     q = randn(gen, (nq, d), d**-0.5, dtype, device)
     r = randn(gen, (nr, d), d**-0.5, dtype, device)
-    before = extract_topk.launches
+    route = "mma" if dtype == torch.float16 and d % 8 == 0 else "ffma"
+    assert topk_route(dtype, d, q, r) == route
+    before, on_route = extract_topk.launches, extract_topk.route_launches[route]
     got = extract_topk(q, r, nv, e=e, tile_r=tile_r, k=k)
     assert extract_topk.launches == before + 1
+    assert extract_topk.route_launches[route] == on_route + 1
     want = extract_topk_reference(q, r, nv, e=e, tile_r=tile_r, k=k + 1)
     torch.cuda.synchronize()
     ok, err, differ = chip_smoke.topk_agreement(got, want)
@@ -707,6 +769,7 @@ def test_extract_topk_duplicate_rows_lowest_column_wins(device, dtype, e):
     r[dup] = 3.0
     r[2000:2050] = r[1999]  # a run of equal rows across a block edge
     q, r = q.to(dtype).to(device), r.to(dtype).to(device)
+    assert topk_route(dtype, d, q, r) == ("mma" if dtype == torch.float16 else "ffma")
     got = extract_topk(q, r, nr, e=e, tile_r=tile_r, k=12)
     want = extract_topk_reference(q, r, nr, e=e, tile_r=tile_r, k=12)
     torch.cuda.synchronize()
@@ -728,6 +791,7 @@ def test_extract_topk_operands_off_the_vector_alignment(device, dtype):
     qb = randn(gen, (nq * d + 1,), d**-0.5, dtype, device)
     rb = randn(gen, (nr * d + 1,), d**-0.5, dtype, device)
     q, r = qb[1:].view(nq, d), rb[1:].view(nr, d)
+    assert topk_route(dtype, d, q, r) == "ffma"
     got = extract_topk(q, r, nr, e=4, tile_r=256, k=10)
     want = extract_topk_reference(q, r, nr, e=4, tile_r=256, k=11)
     torch.cuda.synchronize()
@@ -744,3 +808,16 @@ def test_extract_topk_rejects_what_the_kernel_does_not_take(device):
         extract_topk(q, torch.zeros(16, 8), 16, e=2, tile_r=8, k=2)
     with pytest.raises(ValueError):  # e past the template range
         extract_topk(q, torch.zeros(16, 8, device=device), 16, e=9, tile_r=16, k=2)
+
+
+# sha256 of B5's outputs on `b5_digest_args`, from the kernel before the
+# tensor-core route was added: the FFMA route must not have moved.
+B5_FFMA_DIGESTS = {
+    ("f32", 512): "9ba03624b7671b000a3f6f0b1a831154d654b48cf6d6007814e647b400b0bda1",
+    ("f16", 511): "8440a6636e967d58333f43f6c09a4502c664d4ea9034f88d924f940cb572ffbf",
+}
+
+
+@pytest.mark.parametrize("dt,d", list(B5_FFMA_DIGESTS))
+def test_extract_topk_ffma_route_bitwise_as_before(device, dt, d):
+    assert b5_digest(dt, d, device) == B5_FFMA_DIGESTS[(dt, d)]

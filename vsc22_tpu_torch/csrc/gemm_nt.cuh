@@ -39,6 +39,13 @@
 // over K it drifts from the plain version's f32 sums (B1's x1 is rounded
 // inside the block and feeds LN2, as B10's is, PERF.md). wgmma with a TMA
 // ring is later work.
+//
+// Its loop is `mma_nt_tile<T>`, one 128x128 tile into accumulator
+// fragments, for bf16 or f16 operands. The retrieval kernels run it in f16
+// with epilogues of their own that reduce each row on the fly: B5's top-e
+// per block (extract_topk.cu) and K3's row max (row_max.cu). f16 x f16
+// products are exact in f32, so with the round-to-nearest add above their
+// sums differ from an f32 FFMA chain's only by the order of the adds.
 #pragma once
 
 #include <cmath>
@@ -447,10 +454,10 @@ inline bool gemm_is_mma(int K, const void* a, const void* w) {
 
 // One stage: rows m0.. of A and n0.. of W, k0 .. k0 + 32, as 16-byte
 // chunks (K % 8 == 0, so a chunk is all inside K or all outside).
-__device__ __forceinline__ void gemm_mma_load(__nv_bfloat16* sa, __nv_bfloat16* sb,
-                                              const __nv_bfloat16* __restrict__ A,
-                                              const __nv_bfloat16* __restrict__ W, int m0,
-                                              int n0, int k0, int M, int N, int K) {
+template <typename T>
+__device__ __forceinline__ void gemm_mma_load(T* sa, T* sb, const T* __restrict__ A,
+                                              const T* __restrict__ W, int m0, int n0, int k0,
+                                              int M, int N, int K) {
 #pragma unroll
   for (int e = threadIdx.x; e < kMmaBM * kMmaBK / 8; e += kMmaThreads) {
     const int r = e / (kMmaBK / 8), c = (e % (kMmaBK / 8)) * 8;
@@ -462,25 +469,29 @@ __device__ __forceinline__ void gemm_mma_load(__nv_bfloat16* sa, __nv_bfloat16* 
   }
 }
 
-// out[m][n] = TO(act(sum_k A[m][k] W[n][k] + bias[n])), A [M, K] and W
-// [N, K] bf16, row-major, 16-byte aligned, K % 8 == 0. With RES, the bf16
-// residual res[m][n] is added in f32 before the rounding to TO, as in
-// `gemm_bias_act_kernel`: out = TO(res + act(sum + bias)).
-template <int ACT, typename TO, bool RES = false>
-__global__ void __launch_bounds__(kMmaThreads)
-    gemm_mma_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W,
-                    const float* __restrict__ bias, const __nv_bfloat16* __restrict__ res,
-                    TO* __restrict__ out, int M, int N, int K) {
-  using bf16 = __nv_bfloat16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sa = reinterpret_cast<bf16*>(smem_raw);         // [stages][BM][pitch]
-  bf16* sb = sa + (size_t)kMmaStages * kMmaBM * kMmaPitch;  // [stages][BN][pitch]
-  const int m0 = blockIdx.x * kMmaBM, n0 = blockIdx.y * kMmaBN;
+// acc = the 128x128 tile at (m0, n0) of sum_k A[m][k] W[n][k], for A [M, K]
+// and W [N, K] of T (bf16 or f16), row-major, 16-byte aligned, K % 8 == 0;
+// rows past M or N are zero-filled and never read. `ring` is the block's
+// kGemmMmaSmem bytes. Warp w holds rows (w / 4) * 64 .. + 64 and columns
+// (w % 4) * 32 .. + 32 of the tile: acc[mt][nt] is the m16n8 accumulator
+// tile at row offset mt * 16 and column offset nt * 8 (mma.cuh's fragment
+// layout). Ends past a barrier, so `ring` may be reused at once.
+template <typename T>
+__device__ __forceinline__ void mma_nt_tile(const T* __restrict__ A, const T* __restrict__ W,
+                                            int m0, int n0, int M, int N, int K, T* ring,
+                                            float (&acc)[4][4][4]) {
+  T* sa = ring;                                          // [stages][BM][pitch]
+  T* sb = ring + (size_t)kMmaStages * kMmaBM * kMmaPitch;  // [stages][BN][pitch]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
   const int ktiles = (K + kMmaBK - 1) / kMmaBK;
 
-  float acc[4][4][4] = {};
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
 #pragma unroll
   for (int st = 0; st < kMmaStages - 1; ++st) {
     if (st < ktiles)
@@ -504,8 +515,8 @@ __global__ void __launch_bounds__(kMmaThreads)
                     A, W, m0, n0, next * kMmaBK, M, N, K);
     }
     cp_async_commit();
-    const bf16* a = sa + (size_t)(kt % kMmaStages) * kMmaBM * kMmaPitch + a_off;
-    const bf16* b = sb + (size_t)(kt % kMmaStages) * kMmaBN * kMmaPitch + b_off;
+    const T* a = sa + (size_t)(kt % kMmaStages) * kMmaBM * kMmaPitch + a_off;
+    const T* b = sb + (size_t)(kt % kMmaStages) * kMmaBN * kMmaPitch + b_off;
 #pragma unroll
     for (int kk = 0; kk < kMmaBK / 16; ++kk) {
       uint32_t af[4][4], bfr[2][4];
@@ -518,13 +529,32 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
           float t[4] = {};
-          mma_bf16(t, af[mt], bfr[nt >> 1][(nt & 1) * 2], bfr[nt >> 1][(nt & 1) * 2 + 1]);
+          mma_16x8x16(t, af[mt], bfr[nt >> 1][(nt & 1) * 2], bfr[nt >> 1][(nt & 1) * 2 + 1],
+                      T{});
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[mt][nt][i] = __fadd_rn(acc[mt][nt][i], t[i]);
         }
     }
   }
   cp_async_wait<0>();
+  __syncthreads();
+}
+
+// out[m][n] = TO(act(sum_k A[m][k] W[n][k] + bias[n])), A [M, K] and W
+// [N, K] bf16, row-major, 16-byte aligned, K % 8 == 0. With RES, the bf16
+// residual res[m][n] is added in f32 before the rounding to TO, as in
+// `gemm_bias_act_kernel`: out = TO(res + act(sum + bias)).
+template <int ACT, typename TO, bool RES = false>
+__global__ void __launch_bounds__(kMmaThreads)
+    gemm_mma_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W,
+                    const float* __restrict__ bias, const __nv_bfloat16* __restrict__ res,
+                    TO* __restrict__ out, int M, int N, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m0 = blockIdx.x * kMmaBM, n0 = blockIdx.y * kMmaBN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+  float acc[4][4][4];
+  mma_nt_tile(A, W, m0, n0, M, N, K, reinterpret_cast<__nv_bfloat16*>(smem_raw), acc);
 
   const int g = lane >> 2, c2 = 2 * (lane & 3);
 #pragma unroll

@@ -1,12 +1,12 @@
 // Warp-level tensor-core building blocks shared by the hand kernels
 // (attn_core.cuh, window_attn.cuh, gemm_nt.cuh): shared-memory addresses,
-// 16-byte cp.async copies, ldmatrix, mma.sync (bf16 m16n8k16 and tf32
+// 16-byte cp.async copies, ldmatrix, mma.sync (bf16 and f16 m16n8k16, tf32
 // m16n8k8) and the bf16 / tf32 packing of f32 values.
 //
 // Fragment layouts (PTX ISA, warp-level mma): lane = 4 g + t. An f32
 // accumulator tile m16n8 gives a thread rows g and g + 8 at columns 2t and
 // 2t + 1: d[0], d[1] on row g, d[2], d[3] on row g + 8.
-//  - bf16 m16n8k16: A regs (row g, k 2t..2t+1), (g + 8, 2t..), (g, 2t+8..),
+//  - bf16 and f16 m16n8k16: A regs (row g, k 2t..2t+1), (g + 8, 2t..), (g, 2t+8..),
 //    (g + 8, 2t+8..); B regs (k 2t..2t+1, col g), (k 2t+8.., col g).
 //  - tf32 m16n8k8: A (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4);
 //    B (k t, col g), (k t + 4, col g).
@@ -15,6 +15,7 @@
 #include <cstdint>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 namespace vsc22 {
 
@@ -66,6 +67,26 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b: one m16n8k16 tile, f16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The m16n8k16 product of the operands' type, for loops templated on it.
+__device__ __forceinline__ void mma_16x8x16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1, __nv_bfloat16) {
+  mma_bf16(d, a, b0, b1);
+}
+__device__ __forceinline__ void mma_16x8x16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1, __half) {
+  mma_f16(d, a, b0, b1);
 }
 
 // d += a b: one m16n8k8 tile, tf32 operands (f32 bit patterns with the low

@@ -3,7 +3,10 @@
 Counterpart of `vsc22_tpu/ops/pallas_sim.py` `row_max_gemm`; the CUDA
 kernel is `csrc/row_max.cu`. Operands are rounded to f16 (as the JAX
 wrapper ships them) and the products are accumulated in f32, without ever
-materialising the [Nq, Nr] similarity matrix.
+materialising the [Nq, Nr] similarity matrix. The kernel runs on the f16
+tensor-core tile of `csrc/gemm_nt.cuh`, over the grid of `row_max_grid`;
+its first pass rounds both operands to f16 into scratch copies whose D is
+padded with zeros to `padded_width(D)`.
 """
 
 from __future__ import annotations
@@ -12,7 +15,28 @@ import torch
 
 from vsc22_tpu_torch.kernels import build
 
-_ARGTYPES = [build.PTR] * 3 + [build.INT] * 3 + [build.PTR]
+_ARGTYPES = [build.PTR] * 4 + [build.INT] * 5 + [build.PTR]
+# Rows of a query tile (the kernel's block tile), and the fewest blocks
+# the grid should hold: two per SM of an H100 (132 SMs).
+QUERY_TILE = 128
+MIN_BLOCKS = 2 * 132
+D_MULTIPLE = 16  # the kernel's D: whole 16-byte loads, whole k16 mma steps
+
+
+def row_max_grid(nq: int, nr: int) -> tuple:
+    """(query_tiles, ref_splits) of K3's grid: 128-row query tiles, and the
+    refs cut into that many contiguous, balanced chunks (split s holds refs
+    s * nr // splits .. (s + 1) * nr // splits), as few as give the grid
+    MIN_BLOCKS blocks, and never more than nr, so no chunk is empty."""
+    tiles = -(-nq // QUERY_TILE)
+    return tiles, max(1, min(nr, -(-MIN_BLOCKS // max(tiles, 1))))
+
+
+def padded_width(d: int) -> int:
+    """D of the kernel's f16 operand copies: d rounded up to a multiple of
+    D_MULTIPLE. The zero columns add exact zeros to every product sum, so
+    the row maxima are those of the unpadded operands."""
+    return -(-d // D_MULTIPLE) * D_MULTIPLE
 
 
 def row_max_gemm_reference(queries, refs):
@@ -33,16 +57,19 @@ def row_max_gemm(queries, refs):
     device = build.require_cuda(queries)
     if refs.device != device:
         raise ValueError(f"refs on {refs.device}, queries on {device}")
-    q = queries.to(torch.float16).contiguous()
-    r = refs.to(torch.float16).contiguous()
-    nq, d = q.shape
+    nq, (nr, d) = queries.shape[0], refs.shape
     out = torch.empty(nq, dtype=torch.float32, device=device)
     if nq == 0:
         return out
+    q, r = queries.float().contiguous(), refs.float().contiguous()
+    dp = padded_width(d)
+    # the f16 copies of both operands, in one allocation: at the query
+    # pass's shape each allocation costs the host as much as a launch
+    scratch = torch.empty((nq + nr) * dp, dtype=torch.float16, device=device)
     build.call(
         "row_max", "vsc22_row_max", _ARGTYPES,
-        q.data_ptr(), r.data_ptr(), out.data_ptr(), nq, r.shape[0], d,
-        build.stream_ptr(device),
+        q.data_ptr(), r.data_ptr(), scratch.data_ptr(), out.data_ptr(), nq, nr, d, dp,
+        row_max_grid(nq, nr)[1], build.stream_ptr(device),
     )
     row_max_gemm.launches += 1
     return out

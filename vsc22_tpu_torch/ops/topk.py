@@ -12,7 +12,10 @@ entry the extraction did not surface, which is the certificate
 `retrieval.search.SimilaritySearcher.row_topk` rescans on.
 
 Operands are taken as the searcher holds them, f16 or f32, and multiplied
-in f32 (TF32 off): the JAX kernel's bf16 hi/lo split is not needed.
+in f32 (TF32 off): the JAX kernel's bf16 hi/lo split is not needed. The
+kernel has two product loops, chosen by the static rule of `topk_route`:
+f16 tensor cores for f16 operands with D % 8 == 0 and 16-byte-aligned
+bases, the f32 FFMA tile otherwise.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ NEG_INF = float(np.finfo(np.float32).min)
 MAX_E = 8  # the kernel's template range
 MAX_BLOCKS = 65535  # grid y
 _F16 = {torch.float32: 0, torch.float16: 1}
-_ARGTYPES = [build.PTR] * 4 + [build.INT] * 8 + [build.PTR]
+_ARGTYPES = [build.PTR] * 4 + [build.INT] * 9 + [build.PTR]
 # The plain version computes this many scores at a time.
 _CHUNK_ELEMS = 1 << 27
 
@@ -43,6 +46,15 @@ def no_tf32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def topk_route(dtype: torch.dtype, d: int, *operands: torch.Tensor) -> str:
+    """The product loop B5 takes: "mma" (f16 tensor cores) for float16
+    with D % 8 == 0 and 16-byte-aligned operands, "ffma" (the f32 CUDA-core
+    tile) otherwise. The wrapper passes it to the kernel, which refuses
+    "mma" off the rule (`topk_is_mma` in `csrc/extract_topk.cu`)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in operands)
+    return "mma" if dtype == torch.float16 and d % 8 == 0 and aligned else "ffma"
 
 
 def _check(queries, refs, num_valid, e, tile_r):
@@ -135,13 +147,17 @@ def extract_topk(queries, refs, num_valid: int, *, e: int, tile_r: int, k: int):
     s = torch.empty((nb, e, nq), dtype=torch.float32, device=device)
     i = torch.empty((nb, e, nq), dtype=torch.int32, device=device)
     if nq > 0:
+        route = topk_route(q.dtype, d, q, r)
         build.call(
             "extract_topk", "vsc22_extract_topk", _ARGTYPES,
             q.data_ptr(), r.data_ptr(), s.data_ptr(), i.data_ptr(), nq, nr, d, int(num_valid),
-            tile_r, e, nb, _F16[q.dtype], build.stream_ptr(device),
+            tile_r, e, nb, _F16[q.dtype], int(route == "mma"), build.stream_ptr(device),
         )
         extract_topk.launches += 1
+        extract_topk.route_launches[route] += 1
     return merge_blocks(s, i, k)
 
 
 extract_topk.launches = 0
+# Launches by product loop, for runs that check which loop a path took.
+extract_topk.route_launches = {"mma": 0, "ffma": 0}

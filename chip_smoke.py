@@ -25,9 +25,12 @@ result line):
      bounds; median
      kernel, plain and (where one PyTorch call computes the function)
      library times, and the least time the card could take (the bound);
-     B8, B9 and B10 at a full 128-frame chunk of each model, f32 and bf16;
-     each attention case names the core it took (bf16: tensor cores; f32:
-     FFMA);
+     B8, B9 and B10 at a full 128-frame chunk of each model, f32 and bf16,
+     B9 and B10 naming where their LNs are computed and the loop of each
+     product (bf16: the tensor-core loop, or the 128x128 FFMA tile where
+     the module keeps the plain version's order; checked), with their
+     products as cuBLAS calls beside; each attention case names the core it
+     took (bf16: tensor cores; f32: FFMA);
   3. the slice end to end: first on a small input (tiny ViT + three tiny
      SwinV2 members on the module path, i.e. B6 and B7), the port on the
      card against the port's plain path on the CPU (same weights, float32);
@@ -434,11 +437,51 @@ def block_params(gen, c, f, dt, device) -> dict:
                 fc2_w=w(c, f), fc2_b=vec(c, 0.05))
 
 
+def block_routes(x, p, h, whole: bool) -> tuple:
+    """(B10's routes if `whole`, else B9's, in words): where each LN is
+    computed, the attention core and the loop of each product. In bf16 the
+    LNs must be LN-rows launches, QKV (and B10's proj) the 128x128 FFMA
+    tile in the plain version's order ("ffma128"), the other products the
+    tensor-core loop ("mma"); in f32 the 64x64 FFMA tile, LNs in its
+    prologue."""
+    from vsc22_tpu_torch.ops import attn_proj, vit_block
+
+    bf16 = x.dtype == torch.bfloat16
+    ln = "rows" if bf16 else "prologue"
+    ordered, mma = ("ffma128", "mma") if bf16 else ("ffma", "ffma")
+    if whole:
+        r = vit_block.routes(x, p["fc1_w"], p["fc2_w"], h)
+        want = dict(ln1=ln, qkv=ordered, proj=ordered, ln2=ln, fc1=mma, fc2=mma)
+        names = ("qkv", "proj", "fc1", "fc2")
+    else:
+        r = attn_proj.routes(x, p["proj_w"], h, half_block=True)
+        want = dict(ln=ln, qkv=ordered, proj=mma)
+        names = ("qkv", "proj")
+    check(all(r[k] == v for k, v in want.items()),
+          f"{'B10' if whole else 'B9'}: routes {r}, expected {want}")
+    return r, (f"{r['core']} attention core; products {'/'.join(names)} "
+               + "/".join(r[k] for k in names))
+
+
+def block_products(x, p, whole: bool):
+    """B9's (QKV, proj) or B10's (QKV, proj, fc1, fc2) products as cuBLAS
+    calls (`torch.mm`, no bias) on operands of the kernel's shapes and
+    dtype, prepared outside the timed call."""
+    rows = x.reshape(-1, x.shape[-1])
+    if not whole:
+        return lambda: (torch.mm(rows, p["qkv_w"].t()), torch.mm(rows, p["proj_w"].t()))
+    hid = torch.randn((rows.shape[0], p["fc1_w"].shape[0]), device=x.device).to(x.dtype)
+    return lambda: (torch.mm(rows, p["qkv_w"].t()), torch.mm(rows, p["proj_w"].t()),
+                    torch.mm(rows, p["fc1_w"].t()), torch.mm(hid, p["fc2_w"].t()))
+
+
 def check_block_kernels(device) -> dict:
     """B8, B9 and B10 at the shapes of a full 128-frame chunk of each model
     (B8 there as `MultiHeadAttention` would call it, B9 and B10 as the CLIP
-    block variants and a ViT-width block would), f32 and bf16. B10's bf16
-    atol is B1's: its residual x1 is rounded inside the block."""
+    block variants and a ViT-width block would), f32 and bf16, B9 and B10
+    with the loop of each product and (bf16) their products as cuBLAS
+    calls. B10's bf16 atol is B1's: its residual x1 is rounded inside the
+    block."""
     from vsc22_tpu_torch.ops import attn, attn_proj, vit_block
 
     gen = torch.Generator().manual_seed(4)
@@ -448,6 +491,7 @@ def check_block_kernels(device) -> dict:
         hd = c // h
         for dt in (torch.float32, torch.bfloat16):
             isz = torch.empty((), dtype=dt).element_size()
+            bf16 = dt == torch.bfloat16
             # q carries the softmax scale, as MultiHeadAttention passes it.
             q = randn(gen, (b, l, h, hd), 1.5 * hd**-0.5, dt, device)
             k, v = (randn(gen, (b, l, h, hd), 1.5, dt, device) for _ in range(2))
@@ -464,21 +508,25 @@ def check_block_kernels(device) -> dict:
             p = block_params(gen, c, f, dt, device)
             half = (x, *(p[n] for n in ("ln1_s", "ln1_b", "qkv_w", "qkv_b", "proj_w",
                                         "proj_b")), h, s["eps"])
-            results[("ln_attn_proj_residual", tag, dname(dt))] = compare(
-                f"ln_attn_proj_residual {tag} {dname(dt)} [{b},{l},{c}] h={h} "
-                f"({core_words(dt, hd)})",
+            r9, words = block_routes(x, p, h, whole=False)
+            res = compare(
+                f"ln_attn_proj_residual {tag} {dname(dt)} [{b},{l},{c}] h={h} ({words})",
                 lambda: attn_proj.ln_attn_proj_residual(*half),
                 lambda: attn_proj.ln_attn_proj_residual_reference(*half),
                 work=work_ln_attn_proj(b, l, c, h, isz), dtype=dt,
+                products_fn=block_products(x, p, whole=False) if bf16 else None,
             )
+            results[("ln_attn_proj_residual", tag, dname(dt))] = dict(res, routes=r9)
             whole = (x, *p.values(), h, s["act"], s["eps"])
-            results[("vit_block", tag, dname(dt))] = compare(
-                f"vit_block {tag} {dname(dt)} [{b},{l},{c}] h={h} F={f} {s['act']} "
-                f"({core_words(dt, hd)})",
+            r10, words = block_routes(x, p, h, whole=True)
+            res = compare(
+                f"vit_block {tag} {dname(dt)} [{b},{l},{c}] h={h} F={f} {s['act']} ({words})",
                 lambda: vit_block.vit_block(*whole),
                 lambda: vit_block.vit_block_reference(*whole),
                 block=True, work=work_vit_block(b, l, c, h, f, isz), dtype=dt, reps=5,
+                products_fn=block_products(x, p, whole=True) if bf16 else None,
             )
+            results[("vit_block", tag, dname(dt))] = dict(res, routes=r10)
             del x, p, half, whole
             torch.cuda.empty_cache()
     return results
@@ -999,11 +1047,11 @@ def profile_pass(run) -> dict:
 # Kernel names the profiler pass sums by (demangled names start with the
 # return type, so the name is matched before its template arguments).
 KERNEL_FAMILIES = {
-    "gemm_mma_kernel": "K1's projection, K2's fc1 and fc2, B1's proj, fc1 and fc2 on bf16 "
-                       "tensor cores",
-    "ln_rows_kernel": "K2's LN rows before fc1 on tensor cores",
-    "gemm128_bias_kernel": "B1's QKV on the 128x128 FFMA tile",
-    "gemm_bias_act_kernel": "FFMA GEMM tile: f32 and off-rule products, B9's QKV, B7, B10",
+    "gemm_mma_kernel": "K1's projection (so B9's), K2's fc1 and fc2 (so B10's), B1's proj, "
+                       "fc1 and fc2 on bf16 tensor cores",
+    "ln_rows_kernel": "the LN rows before a bf16 product: K2's, B9's, B10's two",
+    "gemm128_bias_kernel": "B1's, B9's and B10's QKV and B10's proj on the 128x128 FFMA tile",
+    "gemm_bias_act_kernel": "FFMA GEMM tile: f32 and off-rule products, B7",
     "window_attn_mma_kernel": "window-attention core on tensor cores",
     "window_attn_kernel": "FFMA window-attention core",
     "attn_core_mma_kernel": "bf16 attention core of K1, B8-B10",

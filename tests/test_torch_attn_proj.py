@@ -18,7 +18,9 @@ from vsc22_tpu_torch.ops.attn_proj import (
     attn_proj_residual_reference,
     ln_attn_proj_residual,
     ln_attn_proj_residual_reference,
+    qkv_reference,
 )
+from vsc22_tpu_torch.ops.mlp import ln_rows
 
 # f32 on both sides; the sums run in another order.
 ATOL = 1e-5
@@ -148,3 +150,27 @@ def test_half_block_cpu_runs_plain_version_and_other_devices_raise():
     assert ln_attn_proj_residual.launches == before
     with pytest.raises(ValueError):
         ln_attn_proj_residual(*(torch.from_numpy(a[k]).to("meta") for k in a), 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,c,h", [(1, 257, 256, 4), (2, 128, 128, 4)])
+def test_half_block_composed_stages(dtype, b, l, c, h):
+    """B9's plain path as the kernel composes it (LN1 rows, QKV rounded
+    once, K1's plain version) equals `ln_attn_proj_residual_reference` bit
+    for bit at hd 64 and 32, and matches the JAX oracle `_ln_attn_proj_xla`
+    within this file's bars (f32: HALF_ATOL, HALF_RTOL; bf16: 1e-2)."""
+    a = make_half_block(b, l, c, seed=11)
+    t = lambda k: torch.from_numpy(a[k])
+    w = lambda k: torch.from_numpy(np.ascontiguousarray(a[k].T)).to(dtype)
+    x = t("x").to(dtype)
+    ln = ln_rows(x.float(), t("ln_s"), t("ln_b"), 1e-5).to(dtype)
+    got = attn_proj_residual_reference(x, qkv_reference(ln, w("qkv_w"), t("qkv_b")),
+                                       w("proj_w"), t("proj_b"), h)
+    assert torch.equal(got, port_half(a, h, dtype, fn=ln_attn_proj_residual_reference))
+    j = jax_args(a)
+    if dtype == torch.bfloat16:
+        bf = lambda v: v.astype(jnp.bfloat16)
+        j = (bf(j[0]), j[1], j[2], bf(j[3]), j[4], bf(j[5]), j[6])
+    want = np.asarray(_ln_attn_proj_xla(*j, h)).astype(np.float32)
+    tol = (HALF_ATOL, HALF_RTOL) if dtype == torch.float32 else (1e-2, 1e-2)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol[0], rtol=tol[1])

@@ -6,9 +6,11 @@ B8, B9 and B10 at L 17, 50, 145 and 257 and hd 16, 32 and 64; the
 tensor-core attention core through B8 and K1 at L 1 to 257, soft and
 peaked, at its shared-memory edge and on misaligned operands; K1's
 projection and K2's products on the tensor-core loop at ragged rows, and
-K2's LN-rows kernel bit for bit; B1's and f32 K1's outputs bit for bit as
-pinned before; B5's product loop for every case, and its FFMA route's
-outputs bit for bit as pinned before the tensor-core route; K3's split
+K2's LN-rows kernel bit for bit; B9 and B10 on their bf16 loops at the
+ViT-B/32 and CLIP widths, and B10's q-scale epilogue at ragged N and hd 32;
+B1's, f32 K1's and f32 B9's and B10's outputs bit for bit as pinned
+before; B5's product loop for every case, and its FFMA route's outputs bit
+for bit as pinned before the tensor-core route; K3's split
 grid with the max in the last split, all-negative and zero maxima, and D
 padded to a multiple of 16).
 
@@ -24,10 +26,12 @@ import pytest
 import torch
 
 import chip_smoke
-from scripts.torch_gemm_probe import b1_digest_args
+from scripts.torch_gemm_probe import b1_digest_args, block_digests
 from scripts.torch_topk_probe import b5_digest
+from vsc22_tpu_torch.kernels import build
 from vsc22_tpu_torch.ops.attn import attn_core, packed_attention, packed_attention_reference
 from vsc22_tpu_torch.ops import attn_proj, mlp
+from vsc22_tpu_torch.ops import vit_block as vit_block_ops
 from vsc22_tpu_torch.ops.attn_proj import (
     attn_proj_residual,
     attn_proj_residual_reference,
@@ -272,6 +276,92 @@ def test_vit_block_ragged(device, dtype, act, eps, l, hd):
     torch.cuda.synchronize()
     ok, err, share, words = chip_smoke.agreement(got, want, chip_smoke.F32_TOL, block=True)
     assert ok, (err, words)
+
+
+# 16 frames: over 2048 token rows at both widths, where cuBLAS's f32
+# product (the plain version) sums each row in order, as at the main path.
+LOOP_FRAMES = 16
+
+
+def block_case(model, seed, device):
+    sh = chip_smoke.BLOCK_SHAPES[model]
+    gen = torch.Generator().manual_seed(seed)
+    x = randn(gen, (LOOP_FRAMES, sh["l"], sh["c"]), 1.0, torch.bfloat16, device)
+    return sh, x, block_params(gen, sh["c"], sh["hidden"], torch.bfloat16, device)
+
+
+@pytest.mark.parametrize("model", ["vit", "clip"])
+def test_ln_attn_proj_on_the_loops(device, model):
+    """B9 in bf16 at the ViT-B/32 and CLIP widths: LN1 rows, QKV in the
+    plain version's order on the 128x128 FFMA tile, K1 with its projection
+    on the tensor-core loop, within phase 2's bf16 bar."""
+    sh, x, p = block_case(model, 1, device)
+    assert attn_proj.routes(x, p["proj_w"], sh["h"], half_block=True) == dict(
+        core="mma", ln="rows", qkv="ffma128", proj="mma")
+    args = (x, *(p[k] for k in HALF), sh["h"], sh["eps"])
+    got = ln_attn_proj_residual(*args)
+    want = ln_attn_proj_residual_reference(*args)
+    torch.cuda.synchronize()
+    ok, err, share, words = chip_smoke.agreement(got, want, chip_smoke.F32_TOL)
+    assert ok, (err, words)
+
+
+@pytest.mark.parametrize("model", ["vit", "clip"])
+def test_vit_block_on_the_loops(device, model):
+    """B10 in bf16 at the ViT-B/32 and CLIP widths: LN1 and LN2 rows, QKV
+    and proj in the plain version's order on the 128x128 FFMA tile, fc1 and
+    fc2 on the tensor-core loop (K2's stages), within phase 2's block bar."""
+    sh, x, p = block_case(model, 2, device)
+    r = vit_block_ops.routes(x, p["fc1_w"], p["fc2_w"], sh["h"])
+    assert r == dict(ln1="rows", qkv="ffma128", core="mma", proj="ffma128", ln2="rows",
+                     fc1="mma", fc2="mma")
+    args = (x, *p.values(), sh["h"], sh["act"], sh["eps"])
+    got = vit_block(*args)
+    want = vit_block_reference(*args, fold_scale=True)
+    torch.cuda.synchronize()
+    ok, err, share, words = chip_smoke.agreement(got, want, chip_smoke.F32_TOL, block=True)
+    assert ok, (err, words)
+
+
+# (C, heads) at hd 32, the scale 2^-2.5 that is no power of two: 3C = 288
+# and 192 output columns, ragged against the loop's 128-column tile, over
+# 4 x 50 = 200 rows, ragged against its 128-row tile.
+@pytest.mark.parametrize("c,h", [(96, 3), (64, 2)])
+def test_vit_block_q_scale_epilogue(device, c, h):
+    """B10's QKV stage alone, read from the kernel's own scratch: q's
+    columns (acc + b) * hd^-0.5 in f32 and then rounded, k and v rounded,
+    against the plain QKV on the same LN1 rows (bf16 bar); then the whole
+    block against the plain version with that rounding of q."""
+    gen = torch.Generator().manual_seed(c + h)
+    x = randn(gen, (4, 50, c), 1.0, torch.bfloat16, device)
+    p = block_params(gen, c, 4 * c, torch.bfloat16, device)
+    ln, attn, x1, out = (torch.empty_like(x) for _ in range(4))
+    qkv = torch.empty((4, 50, 3 * c), dtype=torch.bfloat16, device=device)
+    hidden = torch.empty((4, 50, 4 * c), dtype=torch.bfloat16, device=device)
+    build.call("vit_block", "vsc22_vit_block", vit_block_ops._ARGTYPES,
+               x.data_ptr(), *(t.data_ptr() for t in p.values()), ln.data_ptr(),
+               qkv.data_ptr(), attn.data_ptr(), x1.data_ptr(), hidden.data_ptr(),
+               out.data_ptr(), 4, 50, c, h, 4 * c, 2, 1e-5, 1, build.stream_ptr(device))
+    ln1 = ln_rows(x.float(), p["ln1_s"], p["ln1_b"], 1e-5).to(torch.bfloat16)
+    bf16_bar(qkv, attn_proj.qkv_reference(ln1, p["qkv_w"], p["qkv_b"], (c // h) ** -0.5))
+    want = vit_block_reference(x, *p.values(), h, "quick_gelu", 1e-5, fold_scale=True)
+    ok, err, share, words = chip_smoke.agreement(out, want, chip_smoke.F32_TOL, block=True)
+    assert ok, (err, words)
+
+
+# sha256 of B9's and B10's float32 outputs on `block_digests`'s operands
+# (NVIDIA H100 80GB HBM3, torch 2.11.0+cu128, CUDA 12.8), from the kernels
+# before their bf16 products moved to the tensor-core loop: f32 keeps the
+# FFMA tiles, and so its outputs bit for bit.
+BLOCK_F32_DIGESTS = {
+    "B9": "8d7b66c13b763d629a506fe350c78cbc955eb8f70fcc2bc61fe669c9f1692c21",
+    "B10": "4d61c5809a0ed04a6f35427e3445bdf91ccd4b24d0cddead3ff0ad122ca49643",
+}
+
+
+@pytest.mark.parametrize("name", list(BLOCK_F32_DIGESTS))
+def test_block_f32_bitwise_as_before_the_loops(device, name):
+    assert block_digests("float32", device)[name] == BLOCK_F32_DIGESTS[name]
 
 
 def test_attention_kernels_raise_past_shared_memory(device):

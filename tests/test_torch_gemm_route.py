@@ -1,7 +1,7 @@
-"""Which GEMM loop each product of K1 (`attn_proj.routes`) and K2
-(`mlp.routes`) takes, by the shared rule `ops/gemm.gemm_route` that
-mirrors `gemm_is_mma` in `csrc/gemm_nt.cuh` (B1's `swin_block.routes`
-reads the same rule); and K2's LN rows, which the tensor-core path writes
+"""Which GEMM loop each product of K1 and B9 (`attn_proj.routes`), K2
+(`mlp.routes`) and B10 (`vit_block.routes`) takes, by the shared rule
+`ops/gemm.gemm_route` that mirrors `gemm_is_mma` in `csrc/gemm_nt.cuh`
+(B1's `swin_block.routes` reads the same rule); and K2's LN rows, which the tensor-core path writes
 to a scratch before fc1, against the LN inside the JAX oracle
 `_xla_ln_mlp`. The kernels run only on the card; these checks run
 anywhere."""
@@ -13,7 +13,7 @@ import torch
 
 import chip_smoke
 from vsc22_tpu.ops import pallas_mlp
-from vsc22_tpu_torch.ops import attn_proj, mlp, swin_block
+from vsc22_tpu_torch.ops import attn_proj, mlp, swin_block, vit_block
 from vsc22_tpu_torch.ops.gemm import gemm_route
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -40,6 +40,28 @@ def b1_case(c, heads, dtype=BF16):
     ws = [zeros(s, dtype) for s in ((3 * c, c), (c, c), (f, c), (c, f))]
     return swin_block.routes(zeros((2, 64, c), dtype), *ws, heads)
 
+
+def b9_case(c, heads, dtype=BF16, proj_offset=0):
+    return attn_proj.routes(zeros((2, 5, c), dtype), zeros((c, c), dtype, proj_offset), heads,
+                            half_block=True)
+
+
+def b10_case(c, heads, dtype=BF16, fc1_offset=0, fc2_offset=0):
+    f = 4 * c
+    return vit_block.routes(zeros((2, 5, c), dtype), zeros((f, c), dtype, fc1_offset),
+                            zeros((c, f), dtype, fc2_offset), heads)
+
+
+# bf16 B9 and B10: each LN written by the LN-rows kernel first; fc1, fc2 and
+# B9's proj (K1's) on the tensor-core loop by the rule; QKV and B10's proj
+# in the plain version's order of summation on the 128x128 FFMA tile, whose
+# moves to the loop broke the 2% bf16 bar (PERF.md), whatever the
+# operands.
+B9_BF16 = dict(core="mma", ln="rows", qkv="ffma128", proj="mma")
+B10_BF16 = dict(ln1="rows", qkv="ffma128", core="mma", proj="ffma128", ln2="rows", fc1="mma",
+                fc2="mma")
+B10_F32 = dict(ln1="prologue", qkv="ffma", core="ffma", proj="ffma", ln2="prologue",
+               fc1="ffma", fc2="ffma")
 
 MMA = dict(ln="rows", fc1="mma", fc2="mma")
 FFMA = dict(ln="prologue", fc1="ffma", fc2="ffma")
@@ -70,6 +92,28 @@ ROUTE_CASES = {
                dict(core="mma", qkv="ffma", proj="ffma", fc1="ffma", fc2="ffma")),
     "b1 C 36": (lambda: b1_case(36, 2),
                 dict(core="ffma", qkv="ffma128", proj="ffma", fc1="ffma", fc2="mma")),
+    "b9 clip bf16": (lambda: b9_case(1024, 16), B9_BF16),
+    "b9 vit bf16": (lambda: b9_case(768, 12), B9_BF16),
+    "b9 clip f32": (lambda: b9_case(1024, 16, F32),
+                    dict(core="ffma", ln="prologue", qkv="ffma", proj="ffma")),
+    # C 100: K % 8 != 0 (and hd 25 takes the FFMA core); QKV is in order
+    # on the 128x128 tile all the same, the projection off the rule.
+    "b9 C 100": (lambda: b9_case(100, 4), dict(B9_BF16, core="ffma", proj="ffma")),
+    "b9 proj_w off 16 bytes": (lambda: b9_case(64, 4, proj_offset=1),
+                               dict(B9_BF16, proj="ffma")),
+    "b10 clip bf16": (lambda: b10_case(1024, 16), B10_BF16),
+    "b10 vit bf16": (lambda: b10_case(768, 12), B10_BF16),
+    "b10 clip f32": (lambda: b10_case(1024, 16, F32), B10_F32),
+    # hd 32 (the folded scale is no power of two): the same loops.
+    "b10 hd 32 bf16": (lambda: b10_case(96, 3), B10_BF16),
+    # C 100: fc1's K off the rule (LN2 back in the FFMA prologue), fc2's
+    # K (400) on it.
+    "b10 C 100": (lambda: b10_case(100, 4),
+                  dict(B10_BF16, core="ffma", ln2="prologue", fc1="ffma")),
+    "b10 fc1_w off 16 bytes": (lambda: b10_case(64, 4, fc1_offset=1),
+                               dict(B10_BF16, ln2="prologue", fc1="ffma")),
+    "b10 fc2_w off 16 bytes": (lambda: b10_case(64, 4, fc2_offset=1),
+                               dict(B10_BF16, fc2="ffma")),
 }
 
 
@@ -80,9 +124,11 @@ def test_routes(case):
 
 
 def test_the_rule_is_one_function():
-    """B1, K1 and K2 read the one `gemm_route`, not copies of it."""
+    """B1, K1 and K2 read the one `gemm_route`, not copies of it (B9 and
+    B10 through K1's and K2's routes)."""
     assert swin_block.gemm_route is gemm_route
     assert mlp.gemm_route is gemm_route and attn_proj.gemm_route is gemm_route
+    assert vit_block.mlp_routes is mlp.routes
 
 
 def jax_ln(x, ln_s, ln_b, eps):

@@ -113,3 +113,31 @@ def test_folded_scale_matches_pallas_interpret_in_bf16(act):
     ulp_max = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
     np.testing.assert_allclose(got, want, atol=ulp_max, rtol=2.0**-7)
     assert (got != want).mean() <= 0.10
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,heads,act", [(128, 4, "gelu"), (128, 2, "quick_gelu"),
+                                         (96, 3, "quick_gelu")])
+def test_composed_stages_equal_the_folded_reference(dtype, c, heads, act):
+    """The plain path as the kernel composes it (LN1 rows, QKV with q's
+    scale folded in, K1 at logits scale 1, K2 on x1) equals the plain
+    version with the kernel's rounding of q bit for bit, at hd 32 (c 128,
+    4 heads; c 96, 3 heads) and hd 64; and matches the JAX kernel in
+    interpret mode within this file's bars (f32: ATOL, RTOL; bf16: those of
+    `test_folded_scale_matches_pallas_interpret_in_bf16`)."""
+    x, args = make_block(2, 128, c, seed=6)
+    tdt = getattr(torch, dtype)
+    pargs = port_args(x, args, tdt)
+    got = pvb.vit_block_composed(*pargs, heads, act, 1e-6)
+    assert torch.equal(got, pvb.vit_block_reference(*pargs, heads, act, 1e-6, fold_scale=True))
+    cast = (lambda a: jnp.asarray(a).astype(jnp.bfloat16)) if dtype == "bfloat16" else jnp.asarray
+    jargs = [cast(args[k]) if k in DENSE else jnp.asarray(args[k]) for k in NAMES]
+    want = np.asarray(vit_block_fused(cast(x), *jargs, num_heads=heads, activation=act,
+                                      interpret=True)).astype(np.float32)
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    else:
+        ulp_max = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+        np.testing.assert_allclose(got, want, atol=ulp_max, rtol=2.0**-7)
+        assert (got != want).mean() <= 0.10

@@ -20,10 +20,7 @@
 // product, 3x its FLOPs) is a dense [B*L, C] x [C, n*C] product, bound by
 // the bf16 tensor-core rate in bf16 and the FMA rate in f32.
 //
-// Design: K1 is two launches, B9 three:
-//  0. (B9) the FFMA tiled GEMM (gemm_nt.cuh) with LN1 fused into its
-//     A-tile load and the QKV bias in its epilogue -> qkv [B, L, 3C] in the
-//     working dtype (a scratch in device memory);
+// Design: K1 is two launches (`attn_proj_residual`, attn_proj.cuh):
 //  1. the shared attention core, one block per (query tile, head, frame),
 //     reading q, k and v from the packed rows (stride 3C) -> attn [B, L, C];
 //  2. the projection with a bias + f32 residual epilogue:
@@ -31,47 +28,44 @@
 //     `gemm_mma_kernel` where `gemm_is_mma` allows it (C % 8 == 0 and an
 //     aligned W; attn is the wrapper's own buffer): its sums feed only the
 //     output rounding, after the f32 residual. Else the FFMA tile.
-// B9's QKV stays on the FFMA tile: its sums are rounded to bf16 as q, k
-// and v, early in the block, where a summation order other than the plain
-// version's flips many outputs (ROADMAP, "Order of summation"). Later
-// work: keep P.V on chip into the projection.
-#include "attn_core.cuh"
+// B9 puts `ln_qkv` (attn_proj.cuh) before them. In bf16 that is two
+// launches, so B9 is four:
+//  (a) K2's `ln_rows_kernel`: LN1(x) rounded to bf16 -> a scratch ln
+//      [B, L, C], bit for bit the plain LN;
+//  (b) QKV on the 128x128 FFMA tile (`gemm128_bias_kernel`), the f32 bias
+//      added and q, k, v rounded once -> qkv [B, L, 3C] (a scratch);
+//  (c, d) K1 as above.
+// (b) keeps the plain version's order of summation: its sums are rounded
+// to bf16 as q, k and v early in the block, where another order is
+// carried into many outputs (ROADMAP, "Order of summation"). On the
+// tensor-core loop B9's QKV moved 2.0026% of its CLIP-width bf16 outputs
+// (limit 2%), in order 0.1311% (scripts/torch_gemm_probe.py --steps,
+// PERF.md); in order, B9's bf16 outputs are bit for bit those it gave on
+// the 64x64 tile with the LN in its A-tile load, in 1.8x the time. f32
+// takes that tile, then K1: three launches. Later work: the LN in an
+// ldmatrix-fed tile, P.V kept on chip into the projection.
+#include "attn_proj.cuh"
 
 namespace vsc22 {
 
 template <typename T>
-int attn_proj_residual(const void* x, const void* qkv, const void* proj_w, const float* proj_b,
-                       void* attn, void* out, int B, int L, int C, int H,
-                       cudaStream_t stream) {
-  const int hd = C / H;
-  const T* q = static_cast<const T*>(qkv);
-  int err = launch_attn_core<T>(q, q + C, q + 2 * C, 3 * C, static_cast<T*>(attn), C, B, L, H, hd,
-                                1.0f / sqrtf((float)hd), stream);
-  if (err != 0) return err;
-  const T* a = static_cast<const T*>(attn);
-  const T* w = static_cast<const T*>(proj_w);
-  const T* xt = static_cast<const T*>(x);
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    if (gemm_is_mma(C, a, w))
-      return launch_gemm_mma<kActNone, T, true>(a, w, proj_b, static_cast<T*>(out), B * L, C, C,
-                                                stream, xt);
-  }
-  launch_gemm<T, kActNone, false>(a, w, proj_b, xt, static_cast<T*>(out), B * L, C, C, nullptr,
-                                  nullptr, 0.0f, stream);
-  return (int)cudaGetLastError();
+int k1(const void* x, const void* qkv, const void* proj_w, const float* proj_b, void* attn,
+       void* out, int B, int L, int C, int H, cudaStream_t stream) {
+  return attn_proj_residual<T>(static_cast<const T*>(x), static_cast<const T*>(qkv),
+                               static_cast<const T*>(proj_w), proj_b, static_cast<T*>(attn),
+                               static_cast<T*>(out), B, L, C, H, 1.0f / sqrtf((float)(C / H)),
+                               stream);
 }
 
 template <typename T>
-int ln_attn_proj_residual(const void* x, const float* ln_g, const float* ln_b,
-                          const void* qkv_w, const float* qkv_b, const void* proj_w,
-                          const float* proj_b, void* qkv, void* attn, void* out, int B, int L,
-                          int C, int H, float eps, cudaStream_t stream) {
-  launch_gemm<T, kActNone, true>(static_cast<const T*>(x), static_cast<const T*>(qkv_w), qkv_b,
-                                 nullptr, static_cast<T*>(qkv), B * L, 3 * C, C, ln_g, ln_b, eps,
-                                 stream);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return attn_proj_residual<T>(x, qkv, proj_w, proj_b, attn, out, B, L, C, H, stream);
+int b9(const void* x, const float* ln_g, const float* ln_b, const void* qkv_w,
+       const float* qkv_b, const void* proj_w, const float* proj_b, void* ln, void* qkv,
+       void* attn, void* out, int B, int L, int C, int H, float eps, cudaStream_t stream) {
+  const int rc = ln_qkv<T, false>(
+      static_cast<const T*>(x), ln_g, ln_b, static_cast<const T*>(qkv_w), qkv_b,
+      static_cast<T*>(ln), static_cast<T*>(qkv), B * L, C, eps, 1.0f, stream);
+  if (rc != 0) return rc;
+  return k1<T>(x, qkv, proj_w, proj_b, attn, out, B, L, C, H, stream);
 }
 
 }  // namespace vsc22
@@ -83,24 +77,22 @@ extern "C" int vsc22_attn_proj_residual(const void* x, const void* qkv, const vo
                                         int L, int C, int H, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == vsc22::kBF16)
-    return vsc22::attn_proj_residual<__nv_bfloat16>(x, qkv, proj_w, proj_b, attn, out, B, L,
-                                                    C, H, s);
-  return vsc22::attn_proj_residual<float>(x, qkv, proj_w, proj_b, attn, out, B, L, C, H, s);
+    return vsc22::k1<__nv_bfloat16>(x, qkv, proj_w, proj_b, attn, out, B, L, C, H, s);
+  return vsc22::k1<float>(x, qkv, proj_w, proj_b, attn, out, B, L, C, H, s);
 }
 
-// B9. x, out, attn (scratch): [B, L, C]; qkv (scratch): [B, L, 3C]; qkv_w:
-// [3C, C] and proj_w: [C, C] in Linear layout; ln_g, ln_b, proj_b: f32
-// [C]; qkv_b: f32 [3C].
+// B9. x, out, attn (scratch): [B, L, C]; ln (scratch, bf16 only): [B, L, C];
+// qkv (scratch): [B, L, 3C]; qkv_w: [3C, C] and proj_w: [C, C] in Linear
+// layout; ln_g, ln_b, proj_b: f32 [C]; qkv_b: f32 [3C].
 extern "C" int vsc22_ln_attn_proj_residual(const void* x, const float* ln_g, const float* ln_b,
                                            const void* qkv_w, const float* qkv_b,
-                                           const void* proj_w, const float* proj_b, void* qkv,
-                                           void* attn, void* out, int B, int L, int C, int H,
-                                           float eps, int dtype, void* stream) {
+                                           const void* proj_w, const float* proj_b, void* ln,
+                                           void* qkv, void* attn, void* out, int B, int L, int C,
+                                           int H, float eps, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == vsc22::kBF16)
-    return vsc22::ln_attn_proj_residual<__nv_bfloat16>(x, ln_g, ln_b, qkv_w, qkv_b, proj_w,
-                                                       proj_b, qkv, attn, out, B, L, C, H, eps,
-                                                       s);
-  return vsc22::ln_attn_proj_residual<float>(x, ln_g, ln_b, qkv_w, qkv_b, proj_w, proj_b, qkv,
-                                             attn, out, B, L, C, H, eps, s);
+    return vsc22::b9<__nv_bfloat16>(x, ln_g, ln_b, qkv_w, qkv_b, proj_w, proj_b, ln, qkv, attn,
+                                    out, B, L, C, H, eps, s);
+  return vsc22::b9<float>(x, ln_g, ln_b, qkv_w, qkv_b, proj_w, proj_b, ln, qkv, attn, out, B, L,
+                          C, H, eps, s);
 }

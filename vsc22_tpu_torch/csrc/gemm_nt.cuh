@@ -17,18 +17,21 @@
 // Both are CUDA-core FFMA loops, exact f32 products, no cp.async/TMA
 // pipelining.
 //
-// `gemm128_bias_kernel` puts an f32 bias epilogue on `mainloop128` for
-// bf16 (and f32) operands; B1 takes it for the products whose f32 sums
-// must keep the plain version's order (swin_block.cu).
+// `gemm128_bias_kernel` puts an epilogue on `mainloop128` (f32 bias,
+// optional bf16 residual added in f32, optional scale of the first
+// columns, output in bf16 or f32); the bf16 products whose f32 sums must
+// keep the plain version's order take it: B1's QKV (swin_block.cu), B9's
+// QKV (attn_proj.cu), B10's QKV with q's scale and its proj with the
+// residual (vit_block.cu).
 //
 // `gemm_mma_kernel` is the same NT product for bf16 operands on the tensor
 // cores, with the epilogues of `gemm_bias_act_kernel` (f32 bias, optional
 // activation, optional bf16 residual added in f32, output in bf16 or f32).
-// B1's proj, fc1 and fc2 (swin_block.cu), K1's projection (and so B9's,
-// attn_proj.cu) and K2's fc1 and fc2 (ln_mlp.cu) launch it, by the rule of
-// `gemm_is_mma` (mirrored in ops/gemm.py `gemm_route`): bf16, K % 8 == 0
-// and 16-byte-aligned A and W. Every other shape, f32, B7 and B10 keep
-// `mainloop`. Design: a 128x128 block
+// B1's proj, fc1 and fc2 (swin_block.cu), K1's projection (attn_proj.cu,
+// and so B9's) and K2's fc1 and fc2 (ln_mlp.cu, and so B10's) launch it,
+// by the rule of `gemm_is_mma` (mirrored in ops/gemm.py `gemm_route`):
+// bf16, K % 8 == 0 and 16-byte-aligned A and W. Every other shape, f32
+// and B7 keep `mainloop`. Design: a 128x128 block
 // tile over 8 warps (2 x 4, each 64 x 32), K in 32-deep slices through a
 // ring of 3 shared-memory stages filled by 16-byte cp.async (ragged M, N
 // and K zero-filled: no byte is read there), rows at a pitch of 40 bf16
@@ -403,14 +406,18 @@ inline void launch_gemm(const T* A, const T* W, const float* bias,
       A, W, bias, res, out, M, N, K, ln_g, ln_b, eps, scaled_cols, col_scale);
 }
 
-// out[m][n] = sum_k A[m][k] W[n][k] + bias[n] in f32 on `mainloop128`:
-// each sum an FMA chain over k in order from 0, as the plain version's
-// f32 product sums. B1 takes it for its bf16 QKV product (swin_block.cu).
-template <typename T>
+// out[m][n] = TO(res[m][n] + (sum_k A[m][k] W[n][k] + bias[n]) * s) on
+// `mainloop128`, each sum an FMA chain over k in order from 0, as the
+// plain version's f32 product sums, then one f32 rounding per operation as
+// in `gemm_bias_act_kernel`. The residual is added under RES only; s is
+// col_scale for the columns n < scaled_cols under QSCALE (B10 folds the
+// softmax scale into q there), else the step is left out. B1's QKV (f32
+// out), B9's and B10's QKV and B10's proj (bf16 out) take it.
+template <typename T, typename TO = float, bool RES = false, bool QSCALE = false>
 __global__ void __launch_bounds__(kThreads)
     gemm128_bias_kernel(const T* __restrict__ A, const T* __restrict__ W,
-                        const float* __restrict__ bias, float* __restrict__ out, int M, int N,
-                        int K) {
+                        const float* __restrict__ bias, TO* __restrict__ out, int M, int N,
+                        int K, const T* __restrict__ res, int scaled_cols, float col_scale) {
   __shared__ Tile128Smem s;
   const int m0 = blockIdx.x * kT128, n0 = blockIdx.y * kT128;
   float acc[8][8];
@@ -423,16 +430,27 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int n = n0 + tile128_index(tx, j);
-      if (n < N) out[(size_t)m * N + n] = acc[i][j] + bias[n];
+      if (n >= N) continue;
+      const size_t o = (size_t)m * N + n;
+      float v = acc[i][j] + bias[n];
+      if constexpr (QSCALE) {
+        if (n < scaled_cols) v *= col_scale;
+      }
+      if constexpr (RES) v = to_f32(res[o]) + v;
+      out[o] = from_f32<TO>(v);
     }
   }
 }
 
-template <typename T>
-inline int launch_gemm128_bias(const T* A, const T* W, const float* bias, float* out, int M,
-                               int N, int K, cudaStream_t stream) {
+// `res` is read only with RES (then [M, N], row-major), the scale only with
+// QSCALE.
+template <typename T, typename TO = float, bool RES = false, bool QSCALE = false>
+inline int launch_gemm128_bias(const T* A, const T* W, const float* bias, TO* out, int M, int N,
+                               int K, cudaStream_t stream, const T* res = nullptr,
+                               int scaled_cols = 0, float col_scale = 1.0f) {
   const dim3 grid((M + kT128 - 1) / kT128, (N + kT128 - 1) / kT128);
-  gemm128_bias_kernel<T><<<grid, kThreads, 0, stream>>>(A, W, bias, out, M, N, K);
+  gemm128_bias_kernel<T, TO, RES, QSCALE><<<grid, kThreads, 0, stream>>>(
+      A, W, bias, out, M, N, K, res, scaled_cols, col_scale);
   return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,12 @@ in]; LN params and biases are f32. x, qkv and the weights share the
 working dtype (float32 or bfloat16).
 
 In bfloat16 the projection of K1, and so of B9, takes the tensor-core loop
-by `gemm_route`; B9's QKV product keeps the FFMA tile (`routes`).
+by `gemm_route`; B9's QKV product reads LN1 from a scratch that K2's
+LN-rows kernel writes first, and keeps the plain version's order of
+summation on the 128x128 FFMA tile (`routes` names each loop of a call).
+B9's plain version is its stages' plain versions composed: `mlp.ln_rows`,
+`qkv_reference`, K1's `attn_proj_residual_reference`; B10 (ops/vit_block.py)
+runs the same stages.
 """
 
 from __future__ import annotations
@@ -27,31 +32,45 @@ from vsc22_tpu_torch.ops.gemm import gemm_route
 from vsc22_tpu_torch.ops.mlp import ln_rows
 
 _ARGTYPES = [build.PTR] * 6 + [build.INT] * 5 + [build.PTR]
-_LN_ARGTYPES = [build.PTR] * 10 + [build.INT] * 4 + [build.FLOAT, build.INT, build.PTR]
+_LN_ARGTYPES = [build.PTR] * 11 + [build.INT] * 4 + [build.FLOAT, build.INT, build.PTR]
 
 
-def attn_proj_residual_reference(x, qkv, proj_w, proj_b, num_heads: int):
-    """Plain PyTorch version: the JAX XLA oracle `_attn_proj_xla`."""
+def attn_proj_residual_reference(x, qkv, proj_w, proj_b, num_heads: int, scale=None):
+    """Plain PyTorch version: the JAX XLA oracle `_attn_proj_xla`; the
+    logits are scaled by `scale`, 1/sqrt(hd) unless given (B10 passes 1:
+    its q carries the scale)."""
     b, l, c = x.shape
     hd = c // num_heads
     dt = x.dtype
     r = qkv.to(dt).reshape(b, l, 3, num_heads, hd).float()
     q, k, v = r[:, :, 0], r[:, :, 1], r[:, :, 2]
-    logits = torch.einsum("blhd,bmhd->bhlm", q, k) * hd**-0.5
+    logits = torch.einsum("blhd,bmhd->bhlm", q, k) * (hd**-0.5 if scale is None else scale)
     probs = torch.softmax(logits, dim=-1).to(dt).float()
     attn = torch.einsum("bhlm,bmhd->blhd", probs, v).to(dt).reshape(b, l, c)
     proj = attn.float() @ proj_w.to(dt).float().t() + proj_b.float()
     return (x.float() + proj).to(dt)
 
 
-def routes(x, proj_w, num_heads: int) -> dict:
-    """What a K1 launch on these operands runs (and B9's after its QKV,
-    which always takes the FFMA tile): the attention core and the loop of
-    the projection (`gemm_route`; it reads the wrapper's own attention
-    buffer, which is aligned). Mirrors `attn_proj_residual` in
-    `csrc/attn_proj.cu`."""
-    c = x.shape[-1]
-    return dict(core=attn_core(x.dtype, c // num_heads), proj=gemm_route(x.dtype, c, proj_w))
+def routes(x, proj_w, num_heads: int, half_block: bool = False) -> dict:
+    """What a K1 launch on these operands runs: the attention core and the
+    loop of the projection (`gemm_route`; it reads the wrapper's own
+    attention buffer, which is aligned). With `half_block`, a B9 launch:
+    also where LN1 is computed and the loop of QKV (`qkv_routes`). Mirrors
+    `attn_proj_residual` and `ln_qkv` in `csrc/attn_proj.cuh`."""
+    dt, c = x.dtype, x.shape[-1]
+    r = dict(core=attn_core(dt, c // num_heads), proj=gemm_route(dt, c, proj_w))
+    return {**r, **qkv_routes(dt)} if half_block else r
+
+
+def qkv_routes(dtype: torch.dtype) -> dict:
+    """Where B9's and B10's LN1 is computed and the loop of their QKV: in
+    bfloat16 the LN-rows kernel into the wrapper's scratch ("rows"), then
+    the 128x128 FFMA tile in the plain version's order of summation
+    ("ffma128"), whatever the operands; in float32 the 64x64 FFMA tile with
+    the LN fused into its A-tile load ("prologue", "ffma"). Mirrors
+    `ln_qkv` in `csrc/attn_proj.cuh`."""
+    bf16 = dtype == torch.bfloat16
+    return dict(ln="rows" if bf16 else "prologue", qkv="ffma128" if bf16 else "ffma")
 
 
 def _check_heads(c: int, num_heads: int) -> None:
@@ -87,13 +106,24 @@ def attn_proj_residual(x, qkv, proj_w, proj_b, num_heads: int):
 attn_proj_residual.launches = 0
 
 
+def qkv_reference(ln, qkv_w, qkv_b, q_scale=None):
+    """The QKV stage of B9 and B10 in plain PyTorch: ln W^T + b in f32, the
+    q columns (the first third) times `q_scale` in f32 where given (B10's
+    folded scale), then rounded once to ln's dtype."""
+    dt = ln.dtype
+    qkv = ln.float() @ qkv_w.to(dt).float().t() + qkv_b.float()
+    if q_scale is not None:
+        qkv[..., : qkv.shape[-1] // 3] *= q_scale
+    return qkv.to(dt)
+
+
 def ln_attn_proj_residual_reference(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b,
                                     num_heads: int, eps: float = 1e-5):
-    """Plain PyTorch version: the JAX XLA oracle `_ln_attn_proj_xla`."""
-    dt = x.dtype
-    ln = ln_rows(x.float(), ln_s, ln_b, eps).to(dt)
-    qkv = ln.float() @ qkv_w.to(dt).float().t() + qkv_b.float()
-    return attn_proj_residual_reference(x, qkv.to(dt), proj_w, proj_b, num_heads)
+    """Plain PyTorch version: the JAX XLA oracle `_ln_attn_proj_xla`,
+    composed of the plain stages (LN1 rows, QKV rounded once, K1)."""
+    ln = ln_rows(x.float(), ln_s, ln_b, eps).to(x.dtype)
+    return attn_proj_residual_reference(x, qkv_reference(ln, qkv_w, qkv_b), proj_w, proj_b,
+                                        num_heads)
 
 
 def ln_attn_proj_residual(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b,
@@ -114,14 +144,16 @@ def ln_attn_proj_residual(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b,
     build.check_cuda("proj_w", proj_w, device, x.dtype, (c, c))
     build.check_cuda("proj_b", proj_b, device, torch.float32, (c,))
     check_attn_smem(l, c // num_heads, x.dtype)
+    ln = torch.empty_like(x) if x.dtype == torch.bfloat16 else None
     qkv = torch.empty((b, l, 3 * c), dtype=x.dtype, device=device)
     attn = torch.empty_like(x)
     out = torch.empty_like(x)
     build.call(
         "attn_proj", "vsc22_ln_attn_proj_residual", _LN_ARGTYPES,
         x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(),
-        proj_w.data_ptr(), proj_b.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
-        b, l, c, num_heads, eps, code, build.stream_ptr(device),
+        proj_w.data_ptr(), proj_b.data_ptr(), None if ln is None else ln.data_ptr(),
+        qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), b, l, c, num_heads, eps, code,
+        build.stream_ptr(device),
     )
     ln_attn_proj_residual.launches += 1
     return out

@@ -1,8 +1,8 @@
 """Which GEMM loop of `csrc/gemm_nt.cuh` a product of the port's kernels
-takes (B1's proj, fc1 and fc2, K1's projection and so B9's, K2's fc1 and
-fc2), and the shared memory of a block of the tensor-core loop. The rule
-lives in C++ (`gemm_is_mma`); this mirror lets the tests and
-`chip_smoke.py` name the loop of each product of a call."""
+takes (B1's proj, fc1 and fc2, K1's projection, K2's fc1 and fc2, B9's
+and B10's products), and the shared memory of a block of the tensor-core
+loop. The rule lives in C++ (`gemm_is_mma`); this mirror lets the tests
+and `chip_smoke.py` name the loop of each product of a call."""
 
 from __future__ import annotations
 
@@ -20,3 +20,4 @@ def gemm_route(dtype: torch.dtype, k: int, *operands: torch.Tensor) -> str:
     `csrc/gemm_nt.cuh`."""
     aligned = all(t.data_ptr() % 16 == 0 for t in operands)
     return "mma" if dtype == torch.bfloat16 and k % 8 == 0 and aligned else "ffma"
+

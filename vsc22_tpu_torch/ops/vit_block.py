@@ -13,6 +13,14 @@ Weights are in PyTorch's Linear layout [out, in]: qkv_w [3C, C], proj_w
 [C, C], fc1_w [F, C], fc2_w [C, F]; LN params and biases are f32. x and the
 weights share the working dtype (float32 or bfloat16).
 
+In bfloat16 the kernel runs the stages of B9 and K2, composed: LN1 rows,
+QKV, K1's attention core (scale 1) and projection with the residual, then
+K2 on x1. fc1 and fc2 take the tensor-core loop where `gemm_route` allows
+it; QKV and proj keep the plain version's order of summation on the
+128x128 FFMA tile (`routes` names the loop of each product of a call).
+`vit_block_composed` is the same composition of the stages' plain
+versions.
+
 The kernel follows the TPU kernel's rounding of q: (acc + b) * hd^-0.5 in
 f32, rounded once. The plain version copies the JAX oracle, which rounds q
 and then scales it in the working dtype, unless it is asked to fold the
@@ -26,11 +34,31 @@ from __future__ import annotations
 import torch
 
 from vsc22_tpu_torch.kernels import build
-from vsc22_tpu_torch.ops.attn import check_attn_smem
-from vsc22_tpu_torch.ops.mlp import _ACT_CODES, _activate, ln_rows
+from vsc22_tpu_torch.ops.attn import attn_core, check_attn_smem
+from vsc22_tpu_torch.ops.attn_proj import (
+    attn_proj_residual_reference,
+    qkv_reference,
+    qkv_routes,
+)
+from vsc22_tpu_torch.ops.mlp import _ACT_CODES, _activate, ln_mlp_residual_reference, ln_rows
+from vsc22_tpu_torch.ops.mlp import routes as mlp_routes
 
 _LN_EPS = 1e-6
-_ARGTYPES = [build.PTR] * 18 + [build.INT] * 6 + [build.FLOAT, build.INT, build.PTR]
+_ARGTYPES = [build.PTR] * 19 + [build.INT] * 6 + [build.FLOAT, build.INT, build.PTR]
+
+
+def routes(x, fc1_w, fc2_w, num_heads: int) -> dict:
+    """What a B10 launch on these operands runs: where LN1 and LN2 are
+    computed ("rows" or "prologue"), the attention core and the loop of
+    each product. LN1 and QKV as B9's (`attn_proj.qkv_routes`); proj like
+    QKV on the 128x128 FFMA tile in bfloat16 ("ffma128"), the 64x64 one in
+    float32; LN2, fc1 and fc2 as K2's (`mlp.routes`). Mirrors `vit_block`
+    in `csrc/vit_block.cu`."""
+    dt, c = x.dtype, x.shape[-1]
+    q = qkv_routes(dt)
+    k2 = mlp_routes(x, fc1_w, fc2_w)
+    return dict(ln1=q["ln"], qkv=q["qkv"], core=attn_core(dt, c // num_heads), proj=q["qkv"],
+                ln2=k2["ln"], fc1=k2["fc1"], fc2=k2["fc2"])
 
 
 def vit_block_reference(x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s, ln2_b,
@@ -55,6 +83,20 @@ def vit_block_reference(x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s, ln
     hidden = _activate(ln2.float() @ fc1_w.float().t() + fc1_b.float(), activation).to(dt)
     mlp = hidden.float() @ fc2_w.float().t() + fc2_b.float()
     return (x1.float() + mlp).to(dt)
+
+
+def vit_block_composed(x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s, ln2_b,
+                       fc1_w, fc1_b, fc2_w, fc2_b, num_heads: int,
+                       activation: str = "gelu", eps: float = _LN_EPS):
+    """The plain version as the kernel composes it, from the plain versions
+    of its stages: LN1 rows, QKV with q's scale folded in
+    (`qkv_reference`), K1 with the logits scale 1, then K2 on x1. Equal bit
+    for bit to `vit_block_reference(..., fold_scale=True)`."""
+    ln1 = ln_rows(x.float(), ln1_s, ln1_b, eps).to(x.dtype)
+    qkv = qkv_reference(ln1, qkv_w, qkv_b, (x.shape[-1] // num_heads) ** -0.5)
+    x1 = attn_proj_residual_reference(x, qkv, proj_w, proj_b, num_heads, scale=1.0)
+    return ln_mlp_residual_reference(x1, ln2_s, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, activation,
+                                     eps)
 
 
 def vit_block(x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s, ln2_b,
@@ -85,14 +127,15 @@ def vit_block(x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s, ln2_b,
         else:
             build.check_cuda(name, t, device, torch.float32, (f32[name],))
     check_attn_smem(l, c // num_heads, x.dtype)
+    ln = torch.empty_like(x) if x.dtype == torch.bfloat16 else None
     qkv = torch.empty((b, l, 3 * c), dtype=x.dtype, device=device)
     attn, x1, out = (torch.empty_like(x) for _ in range(3))
     hidden = torch.empty((b, l, f), dtype=x.dtype, device=device)
     build.call(
         "vit_block", "vsc22_vit_block", _ARGTYPES,
-        *(t.data_ptr() for t in args), qkv.data_ptr(), attn.data_ptr(), x1.data_ptr(),
-        hidden.data_ptr(), out.data_ptr(), b, l, c, num_heads, f, _ACT_CODES[activation], eps,
-        code, build.stream_ptr(device),
+        *(t.data_ptr() for t in args), None if ln is None else ln.data_ptr(), qkv.data_ptr(),
+        attn.data_ptr(), x1.data_ptr(), hidden.data_ptr(), out.data_ptr(), b, l, c, num_heads,
+        f, _ACT_CODES[activation], eps, code, build.stream_ptr(device),
     )
     vit_block.launches += 1
     return out

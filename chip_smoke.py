@@ -15,7 +15,9 @@ result line):
      as cuBLAS calls beside, and K2's LN-rows kernel alone (bit for bit);
      B1 at all four SwinV2-Base stage
      shapes of a 128-frame chunk, shifted and unshifted where the stage has
-     both; B6 and B7 at the stage 1 and stage 4 shapes; B5 at the search's
+     both; B6 and B7 at the stage 1 and stage 4 shapes (B7 naming each
+     product's loop: bf16 tensor cores, f32 3xTF32 tensor cores; checked,
+     with its products as cuBLAS calls beside); B5 at the search's
      shape (a 4096-row query tile against 1.28M refs; f16 on the
      tensor-core route, f32 and f16 D 511 on the FFMA route, each naming
      its route), and K3 at a 4096-row slice of the eval's score-norm shape
@@ -49,7 +51,8 @@ result line):
   4. the SwinV2 path cross-check: one SwinV2-Base member in float32 on 16
      frames, with the default block dispatch (B1, and B6 + B7 in stage 4)
      and with `fused_block=False` (B6 + B7 everywhere): the L2-normalised
-     descriptors agree to 1e-3;
+     descriptors agree to 1e-3, and each of the 26 B7 launches took 3xTF32
+     for both products;
   5. the descriptor-track eval path at the reference corpus size of
      `scripts/scaled_eval.py` (40,000 ref videos x 32 frames x 512-d on the
      card, 4,000 noise videos, 100 planted copies), on 1,000 query videos:
@@ -163,8 +166,10 @@ def cuda_ms(fn, reps: int = 10) -> float:
 # bf16 and f16 dense tensor-core rate (f32 accumulate), float32 rate
 # outside the tensor cores (the port's f32 GEMMs run with TF32 off), HBM
 # bandwidth. The rate is the card's for the operands' type, whatever
-# units a kernel's design uses.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
+# units a kernel's design uses, except for B7's f32 products on 3xTF32:
+# three tf32 products per f32 one, at the dense TF32 rate ("tf32").
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12,
+              "tf32": 495e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -653,20 +658,48 @@ def check_swin_kernels(device) -> dict:
                 library_fn=sdpa_yardstick(*args),
             )
             del q, k, v, args
-            rows = w * n
-            args = (randn(gen, (rows, c), 1.0, dt, device),
-                    randn(gen, (f, c), c**-0.5, dt, device), randn(gen, (f,), 0.05, dt, device),
-                    randn(gen, (c, f), f**-0.5, dt, device), randn(gen, (c,), 0.05, dt, device))
-            results[("fused_mlp", f"stage{stage}", dname(dt))] = compare(
-                f"fused_mlp stage{stage} {dname(dt)} [{rows},{c}] hidden={f}",
-                lambda: mlp.fused_mlp(*args),
-                lambda: mlp.fused_mlp_reference(*args),
-                work=work_mlp(rows, c, f, isz, ln=False), dtype=dt,
-            )
-            del args
+            results[("fused_mlp", f"stage{stage}", dname(dt))] = check_fused_mlp(
+                fused_mlp_args(gen, w * n, c, f, dt, device), f"stage{stage}")
             torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     return results
+
+
+def fused_mlp_args(gen, rows, c, f, dt, device) -> tuple:
+    """B7's x, w1, b1, w2, b2, the biases in the dtype as `layers.Mlp`
+    passes them."""
+    return (randn(gen, (rows, c), 1.0, dt, device), randn(gen, (f, c), c**-0.5, dt, device),
+            randn(gen, (f,), 0.05, dt, device), randn(gen, (c, f), f**-0.5, dt, device),
+            randn(gen, (c,), 0.05, dt, device))
+
+
+def check_fused_mlp(args, case: str) -> dict:
+    """B7 against its plain version, naming each product's loop, which at
+    the SwinV2-Base shapes must be the tensor-core loop ("mma") in bf16 and
+    3xTF32 ("tf32x3") in f32; its products as `torch.mm` calls in the
+    operands' type beside. The bound is the route's: on 3xTF32 three tf32
+    products per f32 FLOP at the TF32 rate, with the f32 FFMA bound
+    beside."""
+    from vsc22_tpu_torch.ops import mlp
+
+    x, w1, b1, w2, b2 = args
+    dt, (rows, c), f = x.dtype, x.shape, w1.shape[0]
+    r = mlp.fused_mlp_routes(x, w1, w2)
+    loop = "mma" if dt == torch.bfloat16 else "tf32x3"
+    check(r == dict(fc1=loop, fc2=loop), f"B7 {case} {dname(dt)}: routes {r}")
+    flops, nbytes = work_mlp(rows, c, f, x.element_size(), ln=False)
+    hid = torch.randn((rows, f), device=x.device).to(dt)
+    res = compare(
+        f"fused_mlp {case} {dname(dt)} [{rows},{c}] hidden={f} (fc1/fc2 {r['fc1']}/{r['fc2']})",
+        lambda: mlp.fused_mlp(*args), lambda: mlp.fused_mlp_reference(*args),
+        work=(3 * flops, nbytes) if loop == "tf32x3" else (flops, nbytes),
+        dtype="tf32" if loop == "tf32x3" else dt,
+        products_fn=lambda: (torch.mm(x, w1.t()), torch.mm(hid, w2.t())),
+    )
+    if loop == "tf32x3":
+        res["ffma_bound_ms"] = bound(flops, nbytes, torch.float32)["bound_ms"]
+        print(f"    (the f32 FFMA tile's bound: {res['ffma_bound_ms']:.3f} ms)", flush=True)
+    return dict(res, routes=r)
 
 
 # B5 against its plain version: scores and bound within TOPK_TOL (f16
@@ -936,33 +969,38 @@ def capture_row_max_operands(run) -> list:
 
 
 @contextlib.contextmanager
-def k1_k2_routes():
-    """Every K1 and K2 call the models make while the block runs, as
-    (kernel, width C, routes): the CLIP and ViT blocks' calls, spied on
-    where `models/clip.py` and `models/layers.py` make them."""
-    from vsc22_tpu_torch.models import clip, layers
-    from vsc22_tpu_torch.ops import attn_proj, mlp
-
+def spy_routes(targets):
+    """Every call of module.name for (module, name, label, routes) in
+    `targets`, as (label, width C, routes(*args)), while the block runs."""
     seen = []
 
-    def spy(real, name, routes):
+    def spy(real, label, routes):
         def call(*args, **kwargs):
-            seen.append((name, int(args[0].shape[-1]), routes(*args)))
+            seen.append((label, int(args[0].shape[-1]), routes(*args)))
             return real(*args, **kwargs)
         return call
 
-    k1 = lambda x, qkv, pw, pb, h: attn_proj.routes(x, pw, h)
-    k2 = lambda x, ln_s, ln_b, w1, b1, w2, *rest: mlp.routes(x, w1, w2)
-    targets = [(m, n) for m in (clip, layers) for n in ("attn_proj_residual", "ln_mlp_residual")]
-    saved = [(m, n, getattr(m, n)) for m, n in targets]
-    for m, n, real in saved:
-        setattr(m, n, spy(real, "K1" if n == "attn_proj_residual" else "K2",
-                          k1 if n == "attn_proj_residual" else k2))
+    saved = [(m, n, getattr(m, n)) for m, n, _, _ in targets]
+    for (m, n, label, routes), (_, _, real) in zip(targets, saved):
+        setattr(m, n, spy(real, label, routes))
     try:
         yield seen
     finally:
         for m, n, real in saved:
             setattr(m, n, real)
+
+
+def k1_k2_routes():
+    """Every K1 and K2 call the models make, spied on where
+    `models/clip.py` and `models/layers.py` make them."""
+    from vsc22_tpu_torch.models import clip, layers
+    from vsc22_tpu_torch.ops import attn_proj, mlp
+
+    k1 = lambda x, qkv, pw, pb, h: attn_proj.routes(x, pw, h)
+    k2 = lambda x, ln_s, ln_b, w1, b1, w2, *rest: mlp.routes(x, w1, w2)
+    return spy_routes([(m, n, label, routes) for m in (clip, layers)
+                       for n, label, routes in (("attn_proj_residual", "K1", k1),
+                                                ("ln_mlp_residual", "K2", k2))])
 
 
 def stage_split(pipe, run) -> dict:
@@ -1051,7 +1089,7 @@ KERNEL_FAMILIES = {
                        "fc1 and fc2 on bf16 tensor cores",
     "ln_rows_kernel": "the LN rows before a bf16 product: K2's, B9's, B10's two",
     "gemm128_bias_kernel": "B1's, B9's and B10's QKV and B10's proj on the 128x128 FFMA tile",
-    "gemm_bias_act_kernel": "FFMA GEMM tile: f32 and off-rule products, B7",
+    "gemm_bias_act_kernel": "FFMA GEMM tile: f32 and off-rule products",
     "window_attn_mma_kernel": "window-attention core on tensor cores",
     "window_attn_kernel": "FFMA window-attention core",
     "attn_core_mma_kernel": "bf16 attention core of K1, B8-B10",
@@ -1067,10 +1105,14 @@ def check_swin_paths(device, wrappers) -> dict:
     """One SwinV2-Base member in float32 on a 16-frame chunk, under the
     default block dispatch (B1 in stages 1-3; stage 4 takes the module path
     in f32) and under `fused_block=False` (B6 + B7 in every block), with the
-    same weights: the L2-normalised descriptors agree to 1e-3. The card
-    counterpart of tests/test_swin_block_fused.py's path test."""
+    same weights: the L2-normalised descriptors agree to 1e-3, and every B7
+    launch took 3xTF32 for both products, as the rule names at these
+    widths. The card counterpart of tests/test_swin_block_fused.py's path
+    test."""
+    from vsc22_tpu_torch.models import swinv2
     from vsc22_tpu_torch.models.layers import l2_normalize, reset_parameters
     from vsc22_tpu_torch.models.swinv2 import swinv2_base_256_descriptor
+    from vsc22_tpu_torch.ops.mlp import fused_mlp_routes
 
     fused = swinv2_base_256_descriptor(torch.float32, device)
     reset_parameters(fused, torch.Generator().manual_seed(7))
@@ -1079,11 +1121,15 @@ def check_swin_paths(device, wrappers) -> dict:
     gen = torch.Generator().manual_seed(8)
     images = torch.randn((16, 256, 256, 3), generator=gen).to(device)
     zero_counts(wrappers)
-    with torch.inference_mode():
+    b7 = lambda x, w1, b1, w2, b2: fused_mlp_routes(x, w1, w2)
+    with spy_routes([(swinv2, "fused_mlp", "B7", b7)]) as calls, torch.inference_mode():
         a = l2_normalize(fused(images))
         b = l2_normalize(module(images))
     torch.cuda.synchronize()
     launches = counts(wrappers)
+    off = [(c, r) for _, c, r in calls if r != dict(fc1="tf32x3", fc2="tf32x3")]
+    print(f"  B7 calls by route: {len(calls) - len(off)} with fc1/fc2 tf32x3/tf32x3, "
+          f"{len(off)} off it {off[:3]}", flush=True)
     err = float((a - b).abs().max())
     print(f"  SwinV2-Base f32, 16 frames: default dispatch vs fused_block=False: "
           f"descriptors max_abs_err {err:.3e} (tol 1e-3); launches {launches} "
@@ -1093,6 +1139,7 @@ def check_swin_paths(device, wrappers) -> dict:
     check(launches["swin_block"] == 22, "path check: B1 launch count")
     check(launches["window_attention"] == 26 and launches["fused_mlp"] == 26,
           "path check: B6/B7 launch counts")
+    check(len(calls) == 26 and not off, "path check: a B7 launch off the 3xTF32 route")
     del fused, module, images
     torch.cuda.empty_cache()
     return launches

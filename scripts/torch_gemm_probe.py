@@ -10,8 +10,8 @@ alone (`chip_smoke.check_kernels` and `check_block_kernels`).
 unpacked with `git archive`, so that two versions are compared in one call
 on one card (run them in turns: old, new, new, old). The script builds the
 libraries it needs and prints ptxas's register and spill lines of every
-instance of the tensor-core GEMM, the 128x128 FFMA tile and the LN-rows
-kernel.
+instance of the tensor-core GEMM, B7's 3xTF32 tile, the 128x128 FFMA tile
+and the LN-rows kernel.
 
 `--steps` looks inside K1, K2, B9 and B10 in bf16 at both shapes instead:
 it runs each on buffers of its own and holds each intermediate against the
@@ -71,7 +71,7 @@ def main() -> int:
         for line in build.build_log(name).splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
-            elif (any(k in entry for k in ("gemm_mma_kernel", "gemm128", "ln_rows"))
+            elif (any(k in entry for k in ("gemm_mma_kernel", "gemm128", "gemm_tf32x3", "ln_rows"))
                   and ("registers" in line or "spill" in line)):
                 # the mangled name up to the end of its template arguments
                 print(f"  {name}: {entry.split('EEv')[0]}: {line.split(':', 1)[-1].strip()}",

@@ -9,7 +9,9 @@ projection and K2's products on the tensor-core loop at ragged rows, and
 K2's LN-rows kernel bit for bit; B9 and B10 on their bf16 loops at the
 ViT-B/32 and CLIP widths, and B10's q-scale epilogue at ragged N and hd 32;
 B1's, f32 K1's and f32 B9's and B10's outputs bit for bit as pinned
-before; B5's product loop for every case, and its FFMA route's outputs bit
+before; B7 at the SwinV2-Base stage 1 and 4 widths on the tensor-core loop
+(bf16) and 3xTF32 (f32), and at shapes and alignments across its route
+rule; B5's product loop for every case, and its FFMA route's outputs bit
 for bit as pinned before the tensor-core route; K3's split
 grid with the max in the last split, all-negative and zero maxima, and D
 padded to a multiple of 16).
@@ -811,6 +813,62 @@ def test_fused_mlp_ragged(device, dtype, rows, c, hidden):
     got = fused_mlp(*args)
     assert fused_mlp.launches == before + 1
     assert_close(got, fused_mlp_reference(*args), TOL[dtype])
+
+
+# B7 at SwinV2-Base's stage 1 and stage 4 widths (C 128 and 1024, hidden
+# 4C): 16 frames' rows of stage 1 and a 128-frame chunk's of stage 4.
+B7_STAGES = {1: (16 * 64 * 64, 128), 4: (128 * 8 * 8, 1024)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", sorted(B7_STAGES))
+def test_fused_mlp_at_the_swinv2_base_stages(device, dtype, stage):
+    """Both products on tensor cores: the tensor-core loop in bf16 (the
+    bf16 bar), 3xTF32 in f32 (TOL)."""
+    rows, c = B7_STAGES[stage]
+    gen = torch.Generator().manual_seed(40 + stage)
+    args = chip_smoke.fused_mlp_args(gen, rows, c, 4 * c, dtype, device)
+    loop = "mma" if dtype == torch.bfloat16 else "tf32x3"
+    assert mlp.fused_mlp_routes(args[0], args[1], args[3]) == dict(fc1=loop, fc2=loop)
+    before = fused_mlp.launches
+    got = fused_mlp(*args)
+    assert fused_mlp.launches == before + 1
+    want = fused_mlp_reference(*args)
+    if dtype == torch.bfloat16:
+        bf16_bar(got, want)
+    else:
+        assert_close(got, want, TOL[dtype])
+
+
+# (rows, C, hidden, x offset) across B7's route rule: K off 8 but on 4 (C
+# 36, hidden 132), fc2's K off both (hidden 70), fc1's off both (C 30),
+# rows off the 128-row tile, and x one element into its buffer (fc1's
+# operand off 16 bytes).
+B7_RULE_CASES = [(33, 36, 132, 0), (130, 100, 70, 0), (300, 30, 128, 0), (1000, 64, 256, 0),
+                 (129, 128, 512, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c,hidden,offset", B7_RULE_CASES)
+def test_fused_mlp_across_the_route_rule(device, dtype, rows, c, hidden, offset):
+    gen = torch.Generator().manual_seed(rows + c + hidden + offset)
+    x, w1, b1, w2, b2 = chip_smoke.fused_mlp_args(gen, rows, c, hidden, dtype, device)
+    if offset:
+        buf = torch.zeros(rows * c + offset, dtype=dtype, device=device)
+        buf[offset:].copy_(x.flatten())
+        x = buf[offset:].view(rows, c)
+    bf16 = dtype == torch.bfloat16
+
+    def rule(k, aligned):
+        if aligned and k % (8 if bf16 else 4) == 0:
+            return "mma" if bf16 else "tf32x3"
+        return "ffma"
+
+    assert mlp.fused_mlp_routes(x, w1, w2) == dict(fc1=rule(c, offset == 0), fc2=rule(hidden, True))
+    before = fused_mlp.launches
+    got = fused_mlp(x, w1, b1, w2, b2)
+    assert fused_mlp.launches == before + 1
+    assert_close(got, fused_mlp_reference(x, w1, b1, w2, b2), TOL[dtype])
 
 
 # (nq, nr, d, num_valid, e, tile_r, k): query counts off the 64-row tile,

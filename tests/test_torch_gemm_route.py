@@ -1,10 +1,15 @@
 """Which GEMM loop each product of K1 and B9 (`attn_proj.routes`), K2
-(`mlp.routes`) and B10 (`vit_block.routes`) takes, by the shared rule
-`ops/gemm.gemm_route` that mirrors `gemm_is_mma` in `csrc/gemm_nt.cuh`
-(B1's `swin_block.routes` reads the same rule); and K2's LN rows, which the tensor-core path writes
+(`mlp.routes`), B7 (`mlp.fused_mlp_routes`) and B10 (`vit_block.routes`)
+takes, by the shared rule `ops/gemm.gemm_route` that mirrors `gemm_is_mma`
+and `gemm_is_tf32x3` in `csrc/gemm_nt.cuh` (B1's `swin_block.routes` reads
+the same rule), and the shared memory of a block of each tensor-core loop
+against the header's constants; and K2's LN rows, which the tensor-core path writes
 to a scratch before fc1, against the LN inside the JAX oracle
 `_xla_ln_mlp`. The kernels run only on the card; these checks run
 anywhere."""
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +19,7 @@ import torch
 import chip_smoke
 from vsc22_tpu.ops import pallas_mlp
 from vsc22_tpu_torch.ops import attn_proj, mlp, swin_block, vit_block
-from vsc22_tpu_torch.ops.gemm import gemm_route
+from vsc22_tpu_torch.ops.gemm import GEMM_MMA_SMEM, GEMM_TF32X3_SMEM, gemm_route
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -29,6 +34,12 @@ def zeros(shape, dtype=BF16, offset=0):
 def k2_case(c, hidden, dtype=BF16, w1_offset=0, w2_offset=0):
     x = zeros((6, c), dtype)
     return mlp.routes(x, zeros((hidden, c), dtype, w1_offset), zeros((c, hidden), dtype, w2_offset))
+
+
+def b7_case(c, hidden, dtype, x_offset=0, w1_offset=0, w2_offset=0):
+    return mlp.fused_mlp_routes(zeros((6, c), dtype, x_offset),
+                                zeros((hidden, c), dtype, w1_offset),
+                                zeros((c, hidden), dtype, w2_offset))
 
 
 def k1_case(c, heads, dtype=BF16, offset=0):
@@ -79,6 +90,29 @@ ROUTE_CASES = {
                            dict(ln="prologue", fc1="ffma", fc2="mma")),
     "k2 w2 off 16 bytes": (lambda: k2_case(64, 256, w2_offset=1),
                            dict(ln="rows", fc1="mma", fc2="ffma")),
+    # B7: bf16 on the tensor-core loop (K % 8 == 0), f32 on 3xTF32 (K % 4
+    # == 0), both with 16-byte-aligned operands; x is fc1's own operand.
+    "b7 C 128 bf16": (lambda: b7_case(128, 512, BF16), dict(fc1="mma", fc2="mma")),
+    "b7 C 128 f32": (lambda: b7_case(128, 512, F32), dict(fc1="tf32x3", fc2="tf32x3")),
+    # C 36, hidden 132: whole 16-byte f32 rows, not whole 16-byte bf16 rows.
+    "b7 C 36 bf16": (lambda: b7_case(36, 132, BF16), dict(fc1="ffma", fc2="ffma")),
+    "b7 C 36 f32": (lambda: b7_case(36, 132, F32), dict(fc1="tf32x3", fc2="tf32x3")),
+    # C 100, hidden 70: fc1's K 100 holds f32's rule only, fc2's K 70 neither.
+    "b7 C 100 hidden 70 bf16": (lambda: b7_case(100, 70, BF16), dict(fc1="ffma", fc2="ffma")),
+    "b7 C 100 hidden 70 f32": (lambda: b7_case(100, 70, F32), dict(fc1="tf32x3", fc2="ffma")),
+    # C 30: fc1 off both rules, fc2's K 128 on them.
+    "b7 C 30 bf16": (lambda: b7_case(30, 128, BF16), dict(fc1="ffma", fc2="mma")),
+    "b7 C 30 f32": (lambda: b7_case(30, 128, F32), dict(fc1="ffma", fc2="tf32x3")),
+    "b7 x off 16 bytes bf16": (lambda: b7_case(64, 256, BF16, x_offset=1),
+                               dict(fc1="ffma", fc2="mma")),
+    "b7 x off 16 bytes f32": (lambda: b7_case(64, 256, F32, x_offset=1),
+                              dict(fc1="ffma", fc2="tf32x3")),
+    "b7 w1 off 16 bytes f32": (lambda: b7_case(64, 256, F32, w1_offset=2),
+                               dict(fc1="ffma", fc2="tf32x3")),
+    "b7 w2 off 16 bytes f32": (lambda: b7_case(64, 256, F32, w2_offset=3),
+                               dict(fc1="tf32x3", fc2="ffma")),
+    "b7 w2 off 16 bytes bf16": (lambda: b7_case(64, 256, BF16, w2_offset=4),
+                                dict(fc1="mma", fc2="ffma")),
     "k1 clip bf16": (lambda: k1_case(1024, 16), dict(core="mma", proj="mma")),
     "k1 vit bf16": (lambda: k1_case(768, 12), dict(core="mma", proj="mma")),
     "k1 clip f32": (lambda: k1_case(1024, 16, F32), dict(core="ffma", proj="ffma")),
@@ -129,6 +163,43 @@ def test_the_rule_is_one_function():
     assert swin_block.gemm_route is gemm_route
     assert mlp.gemm_route is gemm_route and attn_proj.gemm_route is gemm_route
     assert vit_block.mlp_routes is mlp.routes
+
+
+@pytest.mark.parametrize("k", [4, 36, 1024, 4096])
+def test_only_b7_takes_tf32x3(k):
+    """3xTF32 is B7's alone: without `tf32x3` an f32 product keeps the FFMA
+    tile whatever its K (K1's, K2's, B1's, B9's and B10's f32 sums do not
+    move), and the flag changes no bf16 route."""
+    w = zeros((8, k), F32)
+    assert gemm_route(F32, k, w) == "ffma"
+    assert gemm_route(F32, k, w, tf32x3=True) == "tf32x3"
+    wb = zeros((8, k), BF16)
+    assert gemm_route(BF16, k, wb, tf32x3=True) == gemm_route(BF16, k, wb)
+
+
+def header_constants(prefix: str) -> dict:
+    """The `constexpr int <prefix>...` values of csrc/gemm_nt.cuh, with
+    their `+ n` offsets resolved."""
+    src = (Path(mlp.__file__).parent.parent / "csrc" / "gemm_nt.cuh").read_text()
+    vals = {}
+    for name, expr in re.findall(rf"constexpr int ({prefix}\w+) = ([^;]+);", src):
+        vals[name] = eval(expr, {}, dict(vals))
+    return vals
+
+
+def test_block_smem_matches_the_header():
+    """The mirrors' shared memory per block: stages x (BM + BN) rows x the
+    pitch x the element size (the 3xTF32 tile stages W's big and small
+    slices and A's), as the header's constants give it, and within the
+    232,448 bytes a block can have."""
+    mma = header_constants("kMma")
+    assert GEMM_MMA_SMEM == mma["kMmaStages"] * (mma["kMmaBM"] + mma["kMmaBN"]) \
+        * mma["kMmaPitch"] * 2
+    x3 = header_constants("kX3")
+    assert GEMM_TF32X3_SMEM == x3["kX3Stages"] * (2 * x3["kX3BN"] * x3["kX3BK"]
+                                                  + x3["kX3BM"] * x3["kX3Pitch"]) * 4 + 1024
+    assert x3["kX3Pitch"] % 4 == 0 and (x3["kX3Pitch"] // 4) % 2 == 1  # 16-byte rows, odd
+    assert GEMM_TF32X3_SMEM <= 232_448
 
 
 def jax_ln(x, ln_s, ln_b, eps):

@@ -1,6 +1,7 @@
 """Port kernels K2 (LayerNorm + MLP + residual) and B7 (`fused_mlp`, the
 MLP alone): their plain versions against the JAX Pallas kernels
-(interpret mode) and the XLA oracles."""
+(interpret mode) and the XLA oracles; and the loop each of B7's products
+takes at the SwinV2-Base stage widths."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,7 +10,7 @@ import torch
 
 import chip_smoke
 from vsc22_tpu.ops.pallas_mlp import _forward, _ln_forward, _xla_ln_mlp, _xla_mlp
-from vsc22_tpu_torch.ops.mlp import fused_mlp, ln_mlp_residual
+from vsc22_tpu_torch.ops.mlp import fused_mlp, fused_mlp_routes, ln_mlp_residual
 
 # f32 on both sides; the sums run in another order.
 ATOL = 1e-5
@@ -117,3 +118,20 @@ def test_fused_mlp_takes_cpu_or_cuda_only():
     t = lambda a: torch.from_numpy(a).to("meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         fused_mlp(*(t(a) for a in (x, w1.T.copy(), b1, w2.T.copy(), b2)))
+
+
+# SwinV2-Base's stage widths C (hidden 4C): B7 runs there on the module
+# path (`models/swinv2.py`), in f32 at stage 4 under the default dispatch
+# and at every stage with `fused_block=False`.
+SWINV2_BASE_WIDTHS = (128, 256, 512, 1024)
+
+
+@pytest.mark.parametrize("dtype,loop", [(torch.float32, "tf32x3"), (torch.bfloat16, "mma")])
+@pytest.mark.parametrize("c", SWINV2_BASE_WIDTHS)
+def test_fused_mlp_routes_at_the_swinv2_base_stages(c, dtype, loop):
+    """Both products on tensor cores at every stage: bf16 on the
+    tensor-core loop, f32 on 3xTF32."""
+    x = torch.zeros((64, c), dtype=dtype)
+    w1 = torch.zeros((4 * c, c), dtype=dtype)
+    w2 = torch.zeros((c, 4 * c), dtype=dtype)
+    assert fused_mlp_routes(x, w1, w2) == dict(fc1=loop, fc2=loop)

@@ -28,10 +28,12 @@
 // cores, with the epilogues of `gemm_bias_act_kernel` (f32 bias, optional
 // activation, optional bf16 residual added in f32, output in bf16 or f32).
 // B1's proj, fc1 and fc2 (swin_block.cu), K1's projection (attn_proj.cu,
-// and so B9's) and K2's fc1 and fc2 (ln_mlp.cu, and so B10's) launch it,
-// by the rule of `gemm_is_mma` (mirrored in ops/gemm.py `gemm_route`):
-// bf16, K % 8 == 0 and 16-byte-aligned A and W. Every other shape, f32
-// and B7 keep `mainloop`. Design: a 128x128 block
+// and so B9's), K2's fc1 and fc2 (ln_mlp.cu, and so B10's) and B7's bf16
+// fc1 and fc2 launch it, by the rule of `gemm_is_mma` (mirrored in
+// ops/gemm.py `gemm_route`): bf16, K % 8 == 0 and 16-byte-aligned A and W.
+// Every other bf16 shape and every f32 product but B7's keep `mainloop`.
+// B7's f32 products take `gemm_tf32x3_kernel` (below, after the bf16
+// loop) by the rule of `gemm_is_tf32x3`. Design: a 128x128 block
 // tile over 8 warps (2 x 4, each 64 x 32), K in 32-deep slices through a
 // ring of 3 shared-memory stages filled by 16-byte cp.async (ragged M, N
 // and K zero-filled: no byte is read there), rows at a pitch of 40 bf16
@@ -606,6 +608,235 @@ inline int launch_gemm_mma(const __nv_bfloat16* A, const __nv_bfloat16* W, const
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((M + kMmaBM - 1) / kMmaBM, (N + kMmaBN - 1) / kMmaBN);
   kernel<<<grid, kMmaThreads, kGemmMmaSmem, stream>>>(A, W, bias, res, out, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+// ---- the f32 3xTF32 tensor-core product (B7) ---------------------------------
+//
+// An f32 NT product on the tensor cores at about f32 accuracy ("3xTF32"):
+// each operand element x = big + small (`split_tf32_fast`), and each 8-deep
+// step of the sum runs small*big, big*small and big*big as tf32 products;
+// the dropped small*small is below 2^-22 of a product. The twelve products
+// of a 32-deep slice chain into a partial that starts from zero, and the
+// partial joins the f32 sum by a round-to-nearest add: the tensor core's
+// own accumulate does not round to nearest, and chained over all of K it
+// drifts (1.3e-4 against 1.1e-5 at B7's stage 4, PERF.md).
+//
+// What bounds it: three tf32 products per f32 one, so 495 / 3 TFLOP/s.
+// mma.sync reaches about 320 TFLOP/s in tf32 on the H100 and a tile of it
+// ran B7 at stage 4 in 2.4 ms; wgmma reaches about 470 (PERF.md).
+// So this tile is wgmma's: two warpgroups, each 64 rows x 128 columns of
+// the 128x128 block tile, wgmma.m64n128k8.tf32 with A's fragments in
+// registers and W's in shared memory. Each wgmma reads its W tile from
+// shared memory, 96 KB a 32-deep slice for the block's 24, so shared
+// memory's bandwidth is what the rest of the loop competes for:
+//  - W is split once per call into big and small operands in device
+//    memory (ln_mlp.cu `split_tf32_kernel`; every row-block reads the same
+//    W), and each slice of both lands by 16-byte cp.async in wgmma's
+//    K-major 128-byte swizzle (`wgmma_desc_sw128`): no thread reads or
+//    writes W in shared memory.
+//  - A's slice lands raw by cp.async, rows at a pitch of 36 floats (144
+//    bytes); each warp reads its 16 rows with ldmatrix.x4 (on f32 data it
+//    hands each lane the element (row g, column t) of four 8x4 matrices:
+//    the tf32 m16n8k8 A fragment, which is wgmma's register A layout;
+//    eight rows 144 bytes apart fall on distinct banks) and splits them in
+//    registers.
+//  - A ring of 4 stages; a warp cannot queue more than about one wgmma
+//    ahead, so the next slice's A fragments are loaded between this
+//    slice's k8 steps, while their wgmmas run.
+// Ragged M, N and K are zero-filled, so K % 4 == 0 and 16-byte-aligned
+// operands (`gemm_is_tf32x3`). 128 accumulators a thread (sum and partial)
+// hold one block per SM. The grid walks N fastest, so the blocks in flight
+// share A rows and read W (16 MB at most for B7) from L2.
+
+constexpr int kX3BM = 128;           // output rows per block (two warpgroups)
+constexpr int kX3BN = 128;           // output cols per block
+constexpr int kX3BK = 32;            // K slice per stage, f32 (one 128-byte row)
+constexpr int kX3Stages = 4;         // cp.async ring depth
+constexpr int kX3Pitch = kX3BK + 4;  // A's smem row pitch, f32 (144 bytes)
+constexpr int kX3Threads = 256;
+constexpr int kX3WPart = kX3BN * kX3BK;      // floats of W's big (or small) slice
+constexpr int kX3ARaw = kX3BM * kX3Pitch;    // floats of A's raw slice
+constexpr int kX3Stage = 2 * kX3WPart + kX3ARaw;  // W big, W small, A: 50 KB
+constexpr size_t kGemmX3Smem = (size_t)kX3Stages * kX3Stage * sizeof(float) + 1024;
+
+// Which loop an f32 product of B7 takes (ops/gemm.py `gemm_route` with
+// tf32x3=True): this one, else `mainloop`.
+inline bool gemm_is_tf32x3(int K, const void* a, const void* w) {
+  return K % 4 == 0 && aligned16(a) && aligned16(w);
+}
+
+// x = big + small, from x's f32 bits: big is x rounded to tf32 (to
+// nearest, ties away from zero, as cvt.rna gives it for finite x) by an
+// integer add and mask; small = x - big exactly, |small| <= 2^-11 |x|,
+// handed to the tensor core as it stands: it reads the top 19 bits, a
+// truncation within 2^-10 |small|. (CUTLASS's fast 3xTF32 splits so.)
+__device__ __forceinline__ void split_tf32_fast(uint32_t x, uint32_t& big, uint32_t& small) {
+  big = (x + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(__uint_as_float(x) - __uint_as_float(big));
+}
+
+// One slice of the ring: A's rows m0 .. m0 + 127 raw at kX3Pitch, and W's
+// big and small rows n0 .. n0 + 127 in the 128-byte swizzle (row n's
+// 16-byte chunk c at byte n * 128 + (c ^ n % 8) * 16), k0 .. k0 + 31, as
+// 16-byte cp.async copies; eight neighbouring threads copy one 128-byte row
+// (K % 4 == 0, so a copy is all inside K or all outside; rows past an
+// operand's end are zero-filled and never read).
+__device__ __forceinline__ void x3_load(float* stage, const float* __restrict__ A,
+                                        const float* __restrict__ wbig,
+                                        const float* __restrict__ wsmall, int m0, int n0, int M,
+                                        int N, int k0, int K) {
+  const int c = threadIdx.x % 8, row0 = threadIdx.x / 8;
+  const bool k_in = k0 + 4 * c < K;
+#pragma unroll
+  for (int i = 0; i < kX3BN / 32; ++i) {
+    const int n = row0 + 32 * i;
+    const bool in = k_in && n0 + n < N;
+    const size_t g = (size_t)(n0 + n) * K + k0 + 4 * c;
+    const int at = n * kX3BK + (c ^ (n & 7)) * 4;
+    cp_async16_zfill(stage + at, in ? wbig + g : wbig, in);
+    cp_async16_zfill(stage + kX3WPart + at, in ? wsmall + g : wsmall, in);
+  }
+  float* a = stage + 2 * kX3WPart;
+#pragma unroll
+  for (int i = 0; i < kX3BM / 32; ++i) {
+    const int r = row0 + 32 * i;
+    const bool in = k_in && m0 + r < M;
+    cp_async16_zfill(a + r * kX3Pitch + 4 * c, in ? A + (size_t)(m0 + r) * K + k0 + 4 * c : A,
+                     in);
+  }
+}
+
+// This warp's A fragment of k8 step kk from a stage (its 16 rows through
+// ldmatrix.x4: rows 0-7 | 8-15, k 0-3 | 4-7 -> a0..a3), split.
+__device__ __forceinline__ void x3_fragment(const float* stage, int kk, uint32_t (&ab)[4],
+                                            uint32_t (&as)[4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float* a = stage + 2 * kX3WPart + (warp * 16 + (lane & 15)) * kX3Pitch + (lane >> 4) * 4;
+  uint32_t r[4];
+  ldmatrix_x4(r, a + kk * 8);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32_fast(r[i], ab[i], as[i]);
+}
+
+// acc = this warpgroup's 64 x 128 part of the 128x128 tile at (m0, n0) of
+// sum_k A[m][k] W[n][k], for f32 A [M, K] and W [N, K] (given as its
+// split, `split_tf32_kernel`), row-major, 16-byte aligned, K % 4 == 0:
+// warpgroup h holds rows 64 h .. 64 h + 63, its warp w rows 64 h + 16 w +
+// (g, g + 8), acc[4 j ..] the n8 tile j (`wgmma_tf32_m64n128k8`). `smem` is
+// the block's kGemmX3Smem bytes.
+__device__ __forceinline__ void tf32x3_nt_tile(const float* __restrict__ A,
+                                               const float* __restrict__ wbig,
+                                               const float* __restrict__ wsmall, int m0, int n0,
+                                               int M, int N, int K, float* smem,
+                                               float (&acc)[64]) {
+  float* ring = reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(smem) + 1023) &
+                                         ~(uintptr_t)1023);  // the swizzle's alignment
+  const int ktiles = (K + kX3BK - 1) / kX3BK;
+  auto stage = [&](int t) { return ring + (size_t)(t % kX3Stages) * kX3Stage; };
+  auto load = [&](int t) {  // one cp.async group a call, empty past K
+    if (t < ktiles) x3_load(stage(t), A, wbig, wsmall, m0, n0, M, N, t * kX3BK, K);
+    cp_async_commit();
+  };
+  uint32_t ab[2][kX3BK / 8][4], as[2][kX3BK / 8][4];
+  float part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.0f;
+
+  for (int t = 0; t < kX3Stages - 1; ++t) load(t);
+  cp_async_wait<kX3Stages - 2>();
+  __syncthreads();  // slice 0 landed
+#pragma unroll
+  for (int kk = 0; kk < kX3BK / 8; ++kk) x3_fragment(stage(0), kk, ab[0][kk], as[0][kk]);
+#pragma unroll 1
+  for (int kt = 0; kt < ktiles; kt += 2) {
+    // Two slices an iteration, so that the fragments' index is a constant.
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int t = kt + u;
+      if (t < ktiles) {
+        const bool more = t + 1 < ktiles;
+        if (more) cp_async_wait<kX3Stages - 3>();
+        fence_proxy_async();  // this thread's copies, to wgmma's reads
+        // Slices t and t + 1 landed; slice t - 1's wgmmas are done and its
+        // A fragments read, so its stage is free.
+        __syncthreads();
+        load(t + kX3Stages - 1);
+        const float* w = stage(t);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kX3BK / 8; ++kk) {
+          // the k8 step's two 16-byte chunks start 32 kk bytes into each row;
+          // a partial starts from zero
+          const uint64_t db = wgmma_desc_sw128(w + kk * 8);
+          const uint64_t ds = wgmma_desc_sw128(w + kX3WPart + kk * 8);
+          wgmma_tf32_m64n128k8(part, as[u][kk], db, kk > 0);
+          wgmma_tf32_m64n128k8(part, ab[u][kk], ds, 1);
+          wgmma_tf32_m64n128k8(part, ab[u][kk], db, 1);
+          if (more) x3_fragment(stage(t + 1), kk, ab[1 - u][kk], as[1 - u][kk]);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          fence_operand(part[i]);
+          acc[i] = __fadd_rn(acc[i], part[i]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// out[m][n] = act(sum_k A[m][k] W[n][k] + bias[n]), all f32, on 3xTF32,
+// W given as its split: B7's fc1 (ACT = GELU) and fc2. blockIdx.x walks N,
+// blockIdx.y M.
+template <int ACT>
+__global__ void __launch_bounds__(kX3Threads, 1)
+    gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ wbig,
+                       const float* __restrict__ wsmall, const float* __restrict__ bias,
+                       float* __restrict__ out, int M, int N, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n0 = blockIdx.x * kX3BN, m0 = blockIdx.y * kX3BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float acc[64];
+  tf32x3_nt_tile(A, wbig, wsmall, m0, n0, M, N, K, reinterpret_cast<float*>(smem_raw), acc);
+
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int m = m0 + warp * 16 + g + 8 * half;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < kX3BN / 8; ++j) {
+      const int n = n0 + j * 8 + c2;
+      if (n >= N) continue;
+      const float v0 = activate<ACT>(acc[4 * j + 2 * half] + bias[n]);
+      float* o = out + (size_t)m * N + n;
+      if (N % 2 == 0) {  // n is even, so n + 1 < N and o is 8-byte aligned
+        const float v1 = activate<ACT>(acc[4 * j + 2 * half + 1] + bias[n + 1]);
+        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      } else {
+        o[0] = v0;
+        if (n + 1 < N) o[1] = activate<ACT>(acc[4 * j + 2 * half + 1] + bias[n + 1]);
+      }
+    }
+  }
+}
+
+// W [N, K] given as its split, `wbig` and `wsmall` (each N K floats,
+// 16-byte aligned).
+template <int ACT>
+inline int launch_gemm_tf32x3(const float* A, const float* wbig, const float* wsmall,
+                              const float* bias, float* out, int M, int N, int K,
+                              cudaStream_t stream) {
+  auto kernel = gemm_tf32x3_kernel<ACT>;
+  const dim3 grid((N + kX3BN - 1) / kX3BN, (M + kX3BM - 1) / kX3BM);
+  if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kGemmX3Smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kX3Threads, kGemmX3Smem, stream>>>(A, wbig, wsmall, bias, out, M, N, K);
   return (int)cudaGetLastError();
 }
 

@@ -12,10 +12,13 @@ Counterparts of `vsc22_tpu/ops/pallas_mlp.py` `ln_mlp_residual` (its
 [out, in]; LN scale/bias and the fc biases are f32. x, w1 and w2 share the
 working dtype (float32 or bfloat16).
 
-In bfloat16, K2's fc1 and fc2 take the tensor-core loop by `gemm_route`,
-fc1 reading LN(x) from a scratch that `ln_rows_kernel` writes first
-(`layernorm_rows` launches that kernel alone); `routes` names the loop of
-each product for a call. B7 and f32 keep the FFMA tile.
+In bfloat16, K2's and B7's fc1 and fc2 take the tensor-core loop by
+`gemm_route`, K2's fc1 reading LN(x) from a scratch that `ln_rows_kernel`
+writes first (`layernorm_rows` launches that kernel alone). In float32,
+B7's products take the 3xTF32 tensor-core loop, K2's the FFMA tile. A
+product off the rule (K or an operand's alignment) keeps the FFMA tile.
+`routes` (K2) and `fused_mlp_routes` (B7) name the loop of each product
+for a call.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ _ARGTYPES = (
     [build.PTR] * 10 + [build.INT] * 4 + [build.FLOAT, build.INT, build.PTR]
 )
 _LN_ROWS_ARGTYPES = [build.PTR] * 4 + [build.INT] * 2 + [build.FLOAT, build.INT, build.PTR]
-_MLP_ARGTYPES = [build.PTR] * 7 + [build.INT] * 4 + [build.PTR]
+_MLP_ARGTYPES = [build.PTR] * 8 + [build.INT] * 4 + [build.PTR]
 
 
 def _activate(h, activation: str):
@@ -145,6 +148,17 @@ def fused_mlp_reference(x, w1, b1, w2, b2):
     return (h.float() @ w2.to(dt).float().t() + b2.float()).to(dt)
 
 
+def fused_mlp_routes(x, w1, w2) -> dict:
+    """The loop of B7's fc1 (on x and w1) and fc2 (on the wrapper's own
+    hidden, which is aligned, and w2): "mma" (bf16 tensor cores),
+    "tf32x3" (f32 on 3xTF32 tensor cores) or "ffma". Mirrors `fused_mlp`
+    in `csrc/ln_mlp.cu`."""
+    dt = x.dtype
+    c, hidden = x.shape[-1], w1.shape[0]
+    return dict(fc1=gemm_route(dt, c, x, w1, tf32x3=True),
+                fc2=gemm_route(dt, hidden, w2, tf32x3=True))
+
+
 def fused_mlp(x, w1, b1, w2, b2):
     """B7 on a CUDA tensor, the plain version on a CPU tensor. b1 and b2
     may come in any float dtype (`layers.Mlp` passes the working dtype);
@@ -163,10 +177,13 @@ def fused_mlp(x, w1, b1, w2, b2):
     build.check_cuda("b2", b2, device, torch.float32, (c,))
     h = torch.empty((m, hidden), dtype=x.dtype, device=device)
     out = torch.empty_like(x)
+    # f32: the 3xTF32 route's split of w1, then of w2 (big, small)
+    wsplit = torch.empty(2 * hidden * c, device=device) if x.dtype == torch.float32 else None
     build.call(
         "ln_mlp", "vsc22_fused_mlp", _MLP_ARGTYPES,
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        h.data_ptr(), out.data_ptr(), m, c, hidden, code, build.stream_ptr(device),
+        h.data_ptr(), out.data_ptr(), None if wsplit is None else wsplit.data_ptr(),
+        m, c, hidden, code, build.stream_ptr(device),
     )
     fused_mlp.launches += 1
     return out

@@ -29,6 +29,40 @@ def test_port_import_leaves_jax_out():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+MATCHING_MODULES = (
+    "vsc22_tpu_torch.models.mobilenetv3",
+    "vsc22_tpu_torch.models.hrnet",
+    "vsc22_tpu_torch.utils.jax_params",
+    "vsc22_tpu_torch.matching.simmat",
+    "vsc22_tpu_torch.matching.decode",
+    "vsc22_tpu_torch.pipelines.query_extract",
+    "vsc22_tpu_torch.pipelines.matching_infer",
+    "vsc22_tpu_torch.pipelines.matching_cli",
+)
+
+
+def test_matching_modules_each_import_alone_without_jax():
+    """Each module of the matching track, imported first in a fresh
+    interpreter, then `chip_smoke`: none loads JAX, the JAX package or
+    pandas, and the CLI's entry point is there."""
+    code = (
+        "import sys, importlib\n"
+        f"for name in {MATCHING_MODULES!r} + ('chip_smoke',):\n"
+        "    importlib.import_module(name)\n"
+        "    bad = sorted(m for m in sys.modules if m in ('jax', 'vsc22_tpu', 'pandas')\n"
+        "                 or m.startswith(('jax.', 'flax', 'vsc22_tpu.', 'pandas.')))\n"
+        "    assert not bad, (name, bad)\n"
+        "assert callable(sys.modules['vsc22_tpu_torch.pipelines.matching_cli'].main)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    for name in MATCHING_MODULES:
+        assert (ROOT / (name.replace(".", "/") + ".py")).is_file(), name
+
+
 def _imported_module(line: str):
     """The module an `import x` / `from x import y` line names, else None."""
     words = line.split()

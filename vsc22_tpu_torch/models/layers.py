@@ -61,12 +61,19 @@ def linear_f32_bias(x, lin: Linear):
     w = lin.weight
     if w.dtype == torch.float32:
         return lin(x)
-    x2 = x.to(w.dtype).reshape(-1, x.shape[-1])
-    if x2.device.type == "cpu":
-        acc = x2.float() @ w.float().t()  # every product exact in f32
+    return (matmul_f32(x.to(w.dtype), w.t()) + lin.bias).to(w.dtype)
+
+
+def matmul_f32(x, w):
+    """x [..., K] @ w [K, N] in float32 as `jnp.dot(...,
+    preferred_element_type=f32)` computes it: products of x's dtype
+    accumulated in float32."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.dtype == torch.float32 or x2.device.type == "cpu":
+        out = x2.float() @ w.float()  # bf16 x bf16 products are exact in f32
     else:
-        acc = torch.mm(x2, w.t(), out_dtype=torch.float32)
-    return (acc + lin.bias).to(w.dtype).reshape(*x.shape[:-1], w.shape[0])
+        out = torch.mm(x2, w, out_dtype=torch.float32)
+    return out.reshape(*x.shape[:-1], w.shape[1])
 
 
 class LayerNorm(nn.Module):
@@ -104,6 +111,68 @@ def reset_parameters(module: nn.Module, generator: torch.Generator,
     for p in module.parameters():
         if id(p) not in owned:
             _normal_(p, embed_std, generator)
+
+
+class Conv(nn.Module):
+    """A flax `nn.Conv(use_bias=False)` over NHWC activations: weight OIHW
+    [F, C / groups, k, k] in `dtype`, explicit symmetric padding `pad`
+    (torch's `padding=`, which is not flax `SAME` at stride 2 on even
+    inputs). float32 convolutions run in full float32 (no TF32)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, pad: int = 0,
+                 groups: int = 1, dtype=torch.float32, device=None):
+        super().__init__()
+        self.stride, self.pad, self.groups = stride, pad, groups
+        self.weight = nn.Parameter(
+            torch.empty(cout, cin // groups, kernel, kernel, dtype=dtype, device=device))
+
+    def reset(self, generator: torch.Generator) -> None:
+        _normal_(self.weight, self.weight[0].numel() ** -0.5, generator)
+
+    def forward(self, x):  # [B, H, W, C] -> [B, H', W', F]
+        w = self.weight
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            y = F.conv2d(x.to(w.dtype).permute(0, 3, 1, 2), w, None, self.stride, self.pad, 1,
+                         self.groups)
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+        return y.permute(0, 2, 3, 1)
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm over the last axis, float32 scale, bias and
+    running mean and variance (eps 1e-5)."""
+
+    def __init__(self, features: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, dtype=torch.float32, device=device))
+        self.register_buffer("mean", torch.zeros(features, dtype=torch.float32, device=device))
+        self.register_buffer("var", torch.ones(features, dtype=torch.float32, device=device))
+
+    def reset(self, generator: torch.Generator) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        self.mean.zero_()
+        self.var.fill_(1.0)
+
+    def forward(self, y):
+        """flax `nn.BatchNorm(use_running_average=True)` in y's dtype: the
+        statistics are float32, so (y - mean) * (rsqrt(var + eps) * scale)
+        + bias runs in float32 and rounds to y's dtype once."""
+        mul = torch.rsqrt(self.var + 1e-5) * self.weight
+        return ((y.float() - self.mean) * mul + self.bias).to(y.dtype)
+
+    def folded(self, y):
+        """The BN folded into two constants, as the JAX HRNet's packed
+        branch 0 applies it: mult = scale / sqrt(var + eps) and add = bias
+        - mean * mult in float32, cast to y's dtype, then y * mult + add in
+        y's dtype (two roundings in bfloat16)."""
+        mult = self.weight / torch.sqrt(self.var + 1e-5)
+        add = self.bias - self.mean * mult
+        return y * mult.to(y.dtype) + add.to(y.dtype)
 
 
 def layer_norm(x, ln: LayerNorm, eps: float, dtype):

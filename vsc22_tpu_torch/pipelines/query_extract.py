@@ -1,4 +1,5 @@
-"""Query-pipeline constants and near-duplicate frame removal.
+"""Query-pipeline constants, near-duplicate frame removal and the noise
+corpus's minimum-variance dimension.
 
 Counterpart of `vsc22_tpu/pipelines/query_extract.py` (reference contract
 D1/infer/extract_query_feats.py:54-244).
@@ -9,6 +10,9 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
+
+from vsc22_tpu_torch.core.types import VideoFeature
+from vsc22_tpu_torch.retrieval.score_norm import _min_variance_dim
 
 SCORE_THRESHOLD = 0.001
 LEN_THRESHOLD = 48
@@ -36,3 +40,9 @@ def near_duplicate_keep_indices(
             continue
         removed |= sim[i] > threshold
     return [int(i) for i in np.flatnonzero(~removed)]
+
+
+def calculate_low_var_dim(score_norm_refs: List[VideoFeature]) -> int:
+    """Minimum-variance dimension of the noise corpus (shared query/ref):
+    the dimension score-norm deletes."""
+    return _min_variance_dim(score_norm_refs)

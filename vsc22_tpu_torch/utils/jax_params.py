@@ -2,11 +2,15 @@
 
 The JAX package's variables (`model.init(...)`, or
 `flax.serialization.to_state_dict`, fetched to the host as numpy) map onto
-`VitDescriptor`, `SwinTransformerV2`, `CLIPVisual`, `VideoScoreModel` and
-a lone `MultiHeadAttention`: Dense kernels
-[in, out] are transposed to Linear [out, in], HWIO patch convs become
-OIHW, and every array is copied into the existing parameter (which casts
-it to that parameter's dtype and device). Nothing here imports JAX.
+`VitDescriptor`, `SwinTransformerV2`, `CLIPVisual`, `VideoScoreModel`,
+a lone `MultiHeadAttention`, and the matching track's CNNs
+(`MobileNetV3Small`, `SAMHRNet`, from their `{params, batch_stats}`
+trees): Dense kernels [in, out] are transposed to Linear [out, in], HWIO
+convs become OIHW (a depthwise [k, k, 1, C] becomes [C, 1, k, k]), BN
+scale and bias come from `params` and its running mean and variance from
+`batch_stats`, and every array is copied into the existing parameter
+(which casts it to that parameter's dtype and device). A shape that does
+not fit raises. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -15,7 +19,9 @@ import numpy as np
 import torch
 
 from vsc22_tpu_torch.models.clip import CLIPVisual
+from vsc22_tpu_torch.models.hrnet import SAMHRNet
 from vsc22_tpu_torch.models.layers import LayerNorm, Linear, MultiHeadAttention, PatchEmbed
+from vsc22_tpu_torch.models.mobilenetv3 import MobileNetV3Small
 from vsc22_tpu_torch.models.swinv2 import SwinTransformerV2
 from vsc22_tpu_torch.models.vit import VitDescriptor
 from vsc22_tpu_torch.models.vsm import VideoScoreModel
@@ -155,4 +161,80 @@ def load_video_score_model(model: VideoScoreModel, variables) -> VideoScoreModel
 def load_multi_head_attention(model: MultiHeadAttention, variables) -> MultiHeadAttention:
     """A JAX `MultiHeadAttention` tree, with or without its qkv bias."""
     _attention(model, _params(variables))
+    return model
+
+
+def _conv_bn(mod, params, stats) -> None:
+    """A JAX `ConvBNAct` / `ConvBN` ({Conv_0, BatchNorm_0}) into the port's."""
+    _copy(mod.conv.weight, np.asarray(params["Conv_0"]["kernel"]).transpose(3, 2, 0, 1))
+    bn, p, s = mod.bn, params["BatchNorm_0"], stats["BatchNorm_0"]
+    _copy(bn.weight, p["scale"])
+    _copy(bn.bias, p["bias"])
+    _copy(bn.mean, s["mean"])
+    _copy(bn.var, s["var"])
+
+
+def _cnn_trees(variables):
+    if "batch_stats" not in variables:
+        raise ValueError("a BatchNorm CNN needs its batch_stats collection")
+    return variables["params"], variables["batch_stats"]
+
+
+@torch.no_grad()
+def load_mobilenetv3(model: MobileNetV3Small, variables) -> MobileNetV3Small:
+    p, s = _cnn_trees(variables)
+    _conv_bn(model.stem, p["stem"], s["stem"])
+    for i, block in enumerate(model.blocks):
+        bp, bs = p[f"block{i}"], s[f"block{i}"]
+        if (block.expand is None) != ("expand" not in bp) or (block.se is None) != ("se" not in bp):
+            raise ValueError(f"block{i}: the expand or SE layers differ")
+        for name in ("expand", "dw", "project"):
+            if getattr(block, name) is not None:
+                _conv_bn(getattr(block, name), bp[name], bs[name])
+        if block.se is not None:
+            _dense_tree(block.se.fc1, bp["se"]["fc1"])
+            _dense_tree(block.se.fc2, bp["se"]["fc2"])
+    _conv_bn(model.head_conv, p["head_conv"], s["head_conv"])
+    _dense_tree(model.pre_logits, p["pre_logits"])
+    _dense_tree(model.classifier, p["classifier"])
+    return model
+
+
+def _hr_module(mod, p, s) -> None:
+    for i, blocks in enumerate(mod.branches):
+        for b, block in enumerate(blocks):
+            t = f"branch{i}_block{b}"
+            _conv_bn(block.conv1, p[t]["conv1"], s[t]["conv1"])
+            _conv_bn(block.conv2, p[t]["conv2"], s[t]["conv2"])
+    for key, f in mod.fuse.items():
+        if isinstance(f, torch.nn.ModuleList):
+            for k, step in enumerate(f):
+                _conv_bn(step, p[f"fuse{key}_step{k}"], s[f"fuse{key}_step{k}"])
+        else:
+            _conv_bn(f, p[f"fuse{key}"], s[f"fuse{key}"])
+
+
+@torch.no_grad()
+def load_sam_hrnet(model: SAMHRNet, variables) -> SAMHRNet:
+    """The JAX `SAMHRNet` tree (either `s2d_branch0` setting: both declare
+    it) into the port's model."""
+    p, s = _cnn_trees(variables)
+    bp, bs = p["backbone"], s["backbone"]
+    bb = model.backbone
+    for name in ("stem1", "stem2", "trans2", "trans3"):
+        _conv_bn(getattr(bb, name), bp[name], bs[name])
+    for b, block in enumerate(bb.layer1):
+        t = f"layer1_{b}"
+        for name in ("conv1", "conv2", "conv3", "downsample"):
+            if getattr(block, name) is not None:
+                _conv_bn(getattr(block, name), bp[t][name], bs[t][name])
+    for i, t in enumerate(bb.trans1):
+        _conv_bn(t, bp[f"trans1_{i}"], bs[f"trans1_{i}"])
+    for stage in ("stage2", "stage3", "stage4"):
+        for m, mod in enumerate(getattr(bb, stage)):
+            _hr_module(mod, bp[f"{stage}_m{m}"], bs[f"{stage}_m{m}"])
+    _copy(model.fuse1_weight, np.asarray(p["fuse1"]["kernel"])[0, 0])
+    _copy(model.fuse1_bias, p["fuse1"]["bias"])
+    _copy(model.fuse2_weight, np.asarray(p["fuse2"]["kernel"])[0, 0].T)
+    _copy(model.fuse2_bias, p["fuse2"]["bias"])
     return model

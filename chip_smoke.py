@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's query descriptor, eval and matching paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's query, eval, matching and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -63,7 +63,7 @@ result line):
      pool, candidate µAP > 0.95; B5's launches cover every 4096-row query
      tile, all on the tensor-core route; for 256 sampled query rows
      `row_topk` on B5 equals the exact per-tile path; then the search alone
-     at all 5,000 query videos, again all on the tensor-core route. Every
+     at all 2,000 query videos, again all on the tensor-core route. Every
      stage's wall time is printed, and the K3 call inside each score-norm,
      and K3 alone on the eval score-norm's own operands ([32000,511] x
      [128000,511]) against its plain version and its chunked f16 products;
@@ -91,7 +91,20 @@ result line):
      idle share and its kernels); every planted pair recalled, every
      probability and heatmap finite in [0, 1], every match row inside its
      videos, B5 launched, every model input on the card;
-  8. a JSON line of per-kernel numbers (B5's launches: phases 5 and 7),
+  8. the descriptor track's training step (`vsc22_tpu_torch/train/`): (a)
+     the gradients of K1, K2 and B7 at the train step's shapes and of B1,
+     B6, B8, B9 and B10 at one phase-2 shape each, bf16, through each
+     wrapper's recompute VJP against autograd of its plain version, and B5
+     and K3 raising on an operand that requires grad; (b) three f32 steps
+     of the tiny ViT and the tiny SwinV2 with FGM and EMA, card against
+     CPU (loss, gradients, params and EMA); (c) ViT-B/32@384 at 48 pairs
+     and (d) SwinV2-Base@256 at 32 pairs (drop-path 0.2), bf16 with f32
+     masters, FGM and EMA (`scripts/torch_perf_train.py`'s bench, lr 1e-4
+     without warm-up): a warm-up step, 8 timed steps whose loss must fall,
+     the launches per step (K1 and K2 24 each; B7 48 on bf16 tensor cores,
+     no B1 or B6), images/s, step ms, peak memory, model TFLOP/s; (e) one
+     profiled step of each, device time by family and the idle share;
+  9. a JSON line of per-kernel numbers (B5's launches: phases 5 and 7),
      then the device line.
 
 Needs CUDA (it refuses to run without) and no network; builds in
@@ -904,6 +917,25 @@ def build_slice(device, full: bool, seed: int = 0):
     return pipe, noise, dict(vit=vit_m, swins=swins, clip=clip_m, vsm=vsm_m)
 
 
+def prepare_host(device) -> dict:
+    """What phases 3 and 5 draw on the host, made while the kernels build
+    (none of it launches a kernel): the full-width slice (seeded weights on
+    the card, the PCA fit) with its 24 synthetic videos, and the eval
+    corpus; each with its seconds."""
+    t0 = time.perf_counter()
+    pipe, noise, models = build_slice(device, full=True)
+    videos = synth_videos(24, 32, 360, 640)
+    dev_videos = [torch.from_numpy(v).to(device) for v in videos]
+    torch.cuda.synchronize()
+    slice_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sizes = EVAL_SIZES
+    corpus = make_corpus(sizes["queries"], sizes["refs"], sizes["noise"], sizes["frames"],
+                         sizes["dim"], sizes["planted"])
+    return dict(slice=(pipe, noise, models, videos, dev_videos), slice_s=slice_s,
+                corpus=corpus, corpus_s=time.perf_counter() - t0)
+
+
 def run_slice(pipe, noise, names, videos, device, dev_videos=None, batch=24):
     from vsc22_tpu_torch.retrieval.score_norm import query_score_normalize
 
@@ -1173,11 +1205,11 @@ def check_swin_paths(device, wrappers) -> dict:
 
 # The reference operating point of `scripts/scaled_eval.py` (10k query
 # videos x 40k ref videos x 32 frames, 512-d, 4k noise videos, 100 planted
-# copies), cut to 5,000 query videos: the eval path runs on the first
+# copies), cut to 2,000 query videos: the eval path runs on the first
 # 1,000, so that the host-side TN localization of 5 pairs per query fits
-# the time limit, and the search alone is timed at all 5,000 (at 10,000
-# the whole script ran 311-337 s cold on one H100, with phase 7).
-EVAL_SIZES = dict(queries=5_000, eval_queries=1_000, refs=40_000, noise=4_000, frames=32,
+# the time limit, and the search alone is timed at all 2,000 (10,000 until
+# the matching phase came, 5,000 until the training phase: `PERF.md` §4).
+EVAL_SIZES = dict(queries=2_000, eval_queries=1_000, refs=40_000, noise=4_000, frames=32,
                   dim=512, planted=100)
 
 
@@ -1328,14 +1360,15 @@ def check_b5_against_exact(sn_queries, sn_refs, device, rows=256, k=128) -> None
     torch.cuda.empty_cache()
 
 
-def run_eval(device, wrappers, card: str) -> dict:
+def run_eval(device, wrappers, card: str, corpus, corpus_s: float) -> dict:
     """The descriptor-track eval path as `scripts/scaled_eval.py` runs it:
     score-norm (beta 1.2, nk 1), the global budget search of 1200 hits per
     query (f16 transfer), the top 25 candidates per query, TN localization
     of the top 5 (score-normalised, a process pool), candidate µAP on the
     planted copies. Then the B5 cross-check and the search alone at the
-    full query count. Returns (the launches of the eval path, the corpus
-    (queries, refs, noise) for phase 7)."""
+    full query count, on `corpus` (`make_corpus`'s, drawn in `corpus_s`
+    seconds). Returns (the launches of the eval path, the corpus (queries,
+    refs, noise) for phase 7)."""
     from vsc22_tpu_torch.align.vta import BaseVtaModel
     from vsc22_tpu_torch.core.metrics import average_precision
     from vsc22_tpu_torch.core.types import CandidatePair
@@ -1351,9 +1384,10 @@ def run_eval(device, wrappers, card: str) -> dict:
 
     sizes, concurrency = EVAL_SIZES, min(8, os.cpu_count() or 1)
     stages: dict = {}
-    queries, refs, noise, gt = timed_stage(stages, "corpus_gen", lambda: make_corpus(
-        sizes["queries"], sizes["refs"], sizes["noise"], sizes["frames"], sizes["dim"],
-        sizes["planted"]))
+    queries, refs, noise, gt = corpus
+    stages["corpus_gen"] = corpus_s
+    print(f"  corpus_gen: {corpus_s:.3f} s (drawn on the host while the kernels built)",
+          flush=True)
     n_eval = sizes["eval_queries"]
     eval_q = queries[:n_eval]
     print(f"  corpus: {len(queries)} query x {len(refs)} ref videos of {sizes['frames']} "
@@ -2010,6 +2044,333 @@ def run_matching(device, wrappers, card: str, corpus, stage1_vps: float) -> int:
 
 # --- main -------------------------------------------------------------------
 
+# --- phase 8: training on the card -------------------------------------------------
+
+# Card against CPU, the tiny train steps in float32: the bars of
+# tests/test_torch_train.py (the port against JAX on the CPU). Gradients
+# within TRAIN_GRAD_TOL of each leaf's max |g|; loss relative
+# TRAIN_LOSS_TOL; params and EMA after three steps at lr 1e-3 within
+# TRAIN_PARAM_ATOL but for TRAIN_PARAM_MAX_SHARE of the elements, all
+# within TRAIN_PARAM_WORST. Left out: the elements whose first-step CPU
+# gradient is at most TRAIN_ROUNDING_GRAD of the step's largest |g| (zero
+# but for rounding, as the ViT's k bias: Adam's m / (sqrt(v) + 1e-6) turns
+# such a residue into a step of up to lr / (4 eps) = 250 times it).
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_PARAM_ATOL = 1e-6
+TRAIN_PARAM_MAX_SHARE = 1e-3
+TRAIN_PARAM_WORST = 1e-5
+TRAIN_ROUNDING_GRAD = 1e-6
+# Kernel names of the train step's profiled families.
+TRAIN_HAND_KERNELS = ("gemm_mma_kernel", "ln_rows_kernel", "gemm_bias_act_kernel",
+                      "gemm128_bias_kernel", "gemm_tf32x3_kernel", "attn_core_mma_kernel",
+                      "attn_core_kernel", "window_attn_mma_kernel", "window_attn_kernel")
+TRAIN_CUBLAS_WORDS = ("gemm", "xmma", "cutlass", "cublas", "splitK", "gemv")
+TRAIN_OPTIMIZER_WORDS = ("multi_tensor_apply", "foreach")
+
+
+def grad_check(name, wrapper, plain, args, static, block: bool = False, reps: int = 1,
+               plain_out=None) -> None:
+    """Forward and backward of `wrapper` (the kernel, its recompute VJP) and
+    of `plain` under autograd, on the same inputs and cotangent. The
+    wrapper's output (the kernel's) against the plain version's by phase
+    2's bar (`block` as there; `plain_out`, where given, is the plain
+    version that rounds as the kernel does, where the recompute's rounds as
+    the JAX oracle: B10's q scale off a power of two); its grad_fn and the
+    kernel's launch; every
+    floating input's gradient, f32 within TRAIN_GRAD_TOL of its max |g|,
+    bf16 by phase 2's bar (the backward is autograd of the plain version
+    on the saved inputs, so this checks the VJP's wiring: argument order,
+    the non-tensor arguments, dtypes); the times of both (forward +
+    backward)."""
+    gen = torch.Generator().manual_seed(0)
+
+    def run(fn, want_grad_fn):
+        ins = [a.detach().clone().requires_grad_() for a in args]
+        out = fn(*ins, *static)
+        check(out.grad_fn is not None or not want_grad_fn, f"{name}: no grad_fn on the card")
+        out.backward(cot)
+        return out.detach(), [t.grad for t in ins]
+
+    launches = wrapper.launches
+    want_out = (plain_out or plain)(*args, *static)
+    cot = torch.randn(want_out.shape, generator=gen).to(want_out.dtype).to(want_out.device)
+    out, got = run(wrapper, True)
+    check(wrapper.launches > launches, f"{name}: the kernel did not launch")
+    check(bool(torch.isfinite(out).all()), f"{name}: non-finite kernel output")
+    ok, out_err, _, out_words = agreement(out, want_out, F32_TOL, block)
+    check(ok, f"{name}: the kernel's output disagrees with its plain version (max_abs_err "
+              f"{out_err}, {out_words})")
+    del out, want_out
+    _, want = run(plain, False)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g is not None and g.dtype == w.dtype and bool(torch.isfinite(g).all()),
+              f"{name}: input {i} has no finite gradient")
+        if g.dtype == torch.bfloat16:
+            ok, err, share, words = agreement(g, w, F32_TOL)
+            rel = err / max(float(w.float().abs().max()), 1e-30)
+        else:
+            err = float((g - w).abs().max())
+            rel = err / max(float(w.abs().max()), 1e-30)
+            ok = rel <= TRAIN_GRAD_TOL
+        check(ok, f"{name}: input {i}'s gradient through the kernel disagrees "
+                  f"(max_abs_err {err}, {rel:.3e} of max |g|)")
+        worst = max(worst, rel)
+    del got, want
+    ms = cuda_ms(lambda: run(wrapper, True), reps)
+    plain_ms = cuda_ms(lambda: run(plain, False), reps)
+    print(f"  {name}: output max_abs_err {out_err:.3e} ({out_words}); {len(args)} input "
+          f"gradients through the recompute VJP = autograd of the plain version (worst "
+          f"{worst:.3e} of max |g|); forward + backward {ms:.3f} ms (kernel forward) vs "
+          f"{plain_ms:.3f} ms (plain)", flush=True)
+
+
+def check_kernel_grads(device) -> None:
+    """8(a): K1, K2 and B7 at the train step's shapes (ViT-B/32 at 48
+    pairs, SwinV2-Base stages 1 and 4 at 32 pairs), B1, B6, B8, B9 and
+    B10 at one phase-2 shape each, all bf16; B5 and K3 refuse an operand
+    that requires grad."""
+    from vsc22_tpu_torch.ops import attn, attn_proj, mlp, sim, swin_block, topk, vit_block
+    from vsc22_tpu_torch.ops import window_attn
+
+    gen = torch.Generator().manual_seed(81)
+    bf = torch.bfloat16
+    r = lambda shape, std=1.0, dt=bf: randn(gen, shape, std, dt, device)
+    f32v = lambda n, std=0.05: randn(gen, (n,), std, torch.float32, device)
+    b, l, c, h, hid = 96, 145, 768, 12, 3072
+    grad_check("K1 attn_proj_residual bf16 [96,145,768] h12 (ViT-B/32 train)",
+               attn_proj.attn_proj_residual, attn_proj.attn_proj_residual_reference,
+               [r((b, l, c)), r((b, l, 3 * c)), r((c, c), c**-0.5), f32v(c)], (h,))
+    grad_check("K2 ln_mlp_residual bf16 [13920,768]x3072 (ViT-B/32 train)",
+               mlp.ln_mlp_residual, mlp.ln_mlp_residual_reference,
+               [r((b * l, c)), 1 + f32v(c, 0.1), f32v(c, 0.1), r((hid, c), c**-0.5), f32v(hid),
+                r((c, hid), hid**-0.5), f32v(c)], ("gelu", 1e-6))
+    for stage, (rows, cc) in {1: (262144, 128), 4: (4096, 1024)}.items():
+        grad_check(f"B7 fused_mlp bf16 [{rows},{cc}]x{4 * cc} (SwinV2-Base stage {stage} train)",
+                   mlp.fused_mlp, mlp.fused_mlp_reference,
+                   [r((rows, cc)), r((4 * cc, cc), cc**-0.5), f32v(4 * cc).to(bf),
+                    r((cc, 4 * cc), (4 * cc) ** -0.5), f32v(cc).to(bf)], ())
+    p = block_params(gen, c, hid, bf, device)
+    x = r((128, l, c))
+    half = [x, p["ln1_s"], p["ln1_b"], p["qkv_w"], p["qkv_b"], p["proj_w"], p["proj_b"]]
+    grad_check("B9 ln_attn_proj_residual bf16 [128,145,768] h12", attn_proj.ln_attn_proj_residual,
+               attn_proj.ln_attn_proj_residual_reference, half, (h, 1e-6))
+    grad_check("B10 vit_block bf16 [128,145,768] h12 F 3072", vit_block.vit_block,
+               vit_block.vit_block_reference,
+               half + [p["ln2_s"], p["ln2_b"], p["fc1_w"], p["fc1_b"], p["fc2_w"], p["fc2_b"]],
+               (h, "gelu", 1e-6), block=True)
+    grad_check("B8 packed_attention bf16 [128,257,16,64]", attn.packed_attention,
+               attn.packed_attention_reference, [r((128, 257, 16, 64), 0.125), r((128, 257, 16, 64)),
+                                                 r((128, 257, 16, 64))], ())
+    _, win, cs, hs = SWIN_STAGES[4]
+    n = win * win
+    rpb, scale, mask = window_tables(gen, hs, n, np.zeros((1, n, n), np.float32), device)
+    grad_check("B6 window_attention bf16 [128,32,64,32] (stage 4)", window_attn.window_attention,
+               window_attn.window_attention_reference,
+               [r((128, hs, n, cs // hs)) for _ in range(3)] + [rpb, scale, mask], (1,))
+    sp = block_params(gen, cs, 4 * cs, bf, device)
+    qkv_b = sp["qkv_b"].clone()
+    qkv_b[cs:2 * cs] = 0.0
+    grad_check("B1 swin_block bf16 [128,64,1024] h32 (stage 4)", swin_block.swin_block,
+               swin_block.swin_block_reference,
+               [r((128, n, cs)), sp["qkv_w"], qkv_b, sp["proj_w"], sp["proj_b"], sp["ln1_s"],
+                sp["ln1_b"], sp["fc1_w"], sp["fc1_b"], sp["fc2_w"], sp["fc2_b"], sp["ln2_s"],
+                sp["ln2_b"], rpb, scale, mask], (hs, 1), block=True)
+    q = r((64, 512), dt=torch.float32).requires_grad_()
+    refs = r((1000, 512), dt=torch.float32)
+    for label, fn in (("B5", lambda: topk.extract_topk(q, refs, 1000, e=4, tile_r=256, k=8)),
+                      ("K3", lambda: sim.row_max_gemm(q, refs))):
+        try:
+            fn()
+        except RuntimeError as e:
+            check("not differentiable" in str(e), f"{label}: raised {e}")
+        else:
+            raise Failed(f"{label} ran on an operand that requires grad")
+    print("  B5 and K3 raise on an operand that requires grad (no VJP, as in JAX)", flush=True)
+
+
+def _flat_masters(model, tree) -> dict:
+    from vsc22_tpu_torch.utils import jax_params
+
+    entries = (jax_params.vit_entries(model) if hasattr(model, "backbone")
+               else jax_params.swinv2_entries(model))
+    return jax_params.jax_flat_params(entries, {id(p): tree[n]
+                                                for n, p in model.named_parameters()})
+
+
+def check_tiny_train(device) -> None:
+    """8(b): three f32 steps of the tiny ViT and the tiny SwinV2 with FGM
+    and EMA, card against CPU, same weights and batch."""
+    from vsc22_tpu_torch.models.layers import reset_parameters
+    from vsc22_tpu_torch.models.swinv2 import swinv2_tiny_test_descriptor
+    from vsc22_tpu_torch.models.vit import vit_tiny_test_descriptor
+    from vsc22_tpu_torch.train.contrastive import (
+        ContrastiveConfig,
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg = ContrastiveConfig(learning_rate=1e-3, warmup_ratio=0.0, total_steps=10,
+                            fgm_epsilon=0.1, ema_decay=0.9)
+    for label, build, size in (("ViT tiny", vit_tiny_test_descriptor, 64),
+                               ("SwinV2 tiny", swinv2_tiny_test_descriptor, 32)):
+        cpu = build()
+        reset_parameters(cpu, torch.Generator().manual_seed(82))
+        card = copy.deepcopy(cpu).to(device)
+        rng = np.random.default_rng(83)
+        imgs = {k: torch.from_numpy(rng.standard_normal((3, size, size, 3)).astype(np.float32))
+                for k in ("img_a", "img_b")}
+        runs = []
+        for model, dev in ((cpu, "cpu"), (card, device)):
+            batch = {k: v.to(dev) for k, v in imgs.items()}
+            state, tx = create_train_state(model, cfg)
+            step = make_train_step(model, tx, cfg)
+            _, grads = step.gradients(batch, torch.Generator().manual_seed(0))
+            gen = torch.Generator().manual_seed(0)
+            losses = []
+            for _ in range(3):
+                state, metrics = step(state, batch, gen)
+                losses.append(float(metrics["loss"]))
+            runs.append(([g.cpu() for g in grads], losses,
+                         {k: v.cpu() for k, v in state.params.items()},
+                         {k: v.cpu() for k, v in state.ema_params.items()}))
+        (g_cpu, l_cpu, p_cpu, e_cpu), (g_card, l_card, p_card, e_card) = runs
+        grad_err = max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+                       for a, b in zip(g_cpu, g_card))
+        loss_err = max(abs(a - b) / abs(a) for a, b in zip(l_cpu, l_card))
+        ref = _flat_masters(cpu, {n: g for (n, _), g in zip(cpu.named_parameters(), g_cpu)})
+        top = max(float(np.abs(g).max()) for g in ref.values())
+        left_out = sum(int((np.abs(g) <= TRAIN_ROUNDING_GRAD * top).sum()) for g in ref.values())
+        over, total, worst = 0, 0, 0.0
+        for want_tree, got_tree in ((p_cpu, p_card), (e_cpu, e_card)):
+            want, got = _flat_masters(cpu, want_tree), _flat_masters(cpu, got_tree)
+            for k in want:
+                keep = np.abs(ref[k]) > TRAIN_ROUNDING_GRAD * top
+                err = np.abs(got[k] - want[k])[keep]
+                worst = max(worst, float(err.max(initial=0.0)))
+                over += int((err > TRAIN_PARAM_ATOL).sum())
+                total += err.size
+        print(f"  {label} f32, 3 steps with FGM and EMA, card vs CPU: first-step gradients "
+              f"{grad_err:.3e} of each leaf's max (tol {TRAIN_GRAD_TOL:g}), losses "
+              f"{l_card} (rel {loss_err:.3e}, tol {TRAIN_LOSS_TOL:g}), params and EMA worst "
+              f"{worst:.3e} (tol {TRAIN_PARAM_WORST:g}), {over} of {total} over "
+              f"{TRAIN_PARAM_ATOL:g} ({left_out} elements with a rounding-residue gradient "
+              "left out)", flush=True)
+        check(grad_err <= TRAIN_GRAD_TOL and loss_err <= TRAIN_LOSS_TOL
+              and worst <= TRAIN_PARAM_WORST and over <= TRAIN_PARAM_MAX_SHARE * total,
+              f"{label}: the train step on the card disagrees with the CPU's")
+
+
+def train_profile(run) -> dict:
+    """run() under torch.profiler (device activity): device ms by family
+    (the hand kernels, cuBLAS's products, the optimizer's foreach
+    kernels, everything else), the idle share of the wall clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fam = {"hand kernels (forward)": [0.0, 0], "cuBLAS products": [0.0, 0],
+           "optimizer (foreach)": [0.0, 0], "everything else": [0.0, 0]}
+    top = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        key = e.key
+        if any(k in key for k in TRAIN_HAND_KERNELS):
+            f = "hand kernels (forward)"
+        elif any(k in key for k in TRAIN_OPTIMIZER_WORDS):
+            f = "optimizer (foreach)"
+        elif any(k in key.lower() for k in TRAIN_CUBLAS_WORDS):
+            f = "cuBLAS products"
+        else:
+            f = "everything else"
+        fam[f][0] += e.self_device_time_total / 1e3
+        fam[f][1] += e.count
+        top.append((e.self_device_time_total / 1e3, e.count, key))
+    device_ms = sum(v[0] for v in fam.values())
+    print(f"  profiled step: wall {1e3 * wall:.1f} ms, device {device_ms:.1f} ms, idle "
+          f"{1 - device_ms / 1e3 / wall:.1%} of the wall (under the profiler)", flush=True)
+    for f, (ms, calls) in fam.items():
+        print(f"    {f}: {ms:.1f} ms ({ms / device_ms:.1%}), {calls} launches", flush=True)
+    for ms, calls, key in sorted(top, reverse=True)[:8]:
+        print(f"      {ms:8.2f} ms {ms / device_ms:6.1%} {calls:6d} calls  {key[:100]}",
+              flush=True)
+    return {f: v[0] for f, v in fam.items()} | {"idle": 1 - device_ms / 1e3 / wall}
+
+
+def run_train_model(model: str, pairs: int, card: str, wrappers: dict) -> dict:
+    """8(c)/(d): `scripts/torch_perf_train.py`'s bench at full width, bf16
+    with f32 masters, FGM and EMA on, lr 1e-4 with no warm-up: one warm-up
+    step, 8 timed steps (the launches of the path's kernels counted over
+    them), one profiled step (the step's parts, run apart: the script's
+    `--parts`)."""
+    from scripts.torch_perf_train import measure, setup
+
+    t0 = time.perf_counter()
+    bench = setup(model, pairs, fgm=True, lr=1e-4, warmup_ratio=0.0)
+    bench.step()
+    torch.cuda.synchronize()
+    print(f"  {model}: set-up and warm-up step {time.perf_counter() - t0:.1f} s", flush=True)
+    zero_counts(wrappers.values())
+    res = measure(bench, 8)
+    res["launches_per_step"] = {k: w.launches / 8 for k, w in wrappers.items()}
+    losses = res["losses"]
+    print(f"  {model} train step, {pairs} pairs ({2 * pairs} images a pass, FGM: 2 passes), "
+          f"bf16, EMA: {res['train_images_per_sec']:.1f} images/s, step {res['step_ms']:.1f} ms, "
+          f"peak memory {res['peak_mem_gib']:.2f} GiB, model {res['model_tflops']:.1f} TFLOP/s "
+          f"({res['tflops_share_of_bf16_peak']:.1%} of 989) on {card}", flush=True)
+    print(f"    losses over the timed steps {[round(v, 4) for v in losses]}; launches per step "
+          f"{res['launches_per_step']}", flush=True)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{model}: the loss did not fall over the timed steps: {losses}")
+    res["profile"] = train_profile(bench.step)
+    del bench
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_training(device, card: str) -> None:
+    """Phase 8: the descriptor track's training step on the card."""
+    from vsc22_tpu_torch.models import swinv2 as swin_model
+    from vsc22_tpu_torch.ops import attn_proj, mlp, swin_block, window_attn
+    from vsc22_tpu_torch.ops.mlp import fused_mlp_routes
+
+    t0 = time.perf_counter()
+    check_kernel_grads(device)
+    print(f"  8(a) took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    check_tiny_train(device)
+    print(f"  8(b) took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    vit_res = run_train_model("vit", 48, card, {"K1": attn_proj.attn_proj_residual,
+                                                 "K2": mlp.ln_mlp_residual})
+    per_step = vit_res["launches_per_step"]
+    check(per_step["K1"] == 24 and per_step["K2"] == 24,
+          f"ViT-B/32: K1 and K2 launches per step {per_step}, not 12 per forward x 2 passes")
+    print(f"  8(c) took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    b7 = lambda x, w1, b1, w2, b2: fused_mlp_routes(x, w1, w2)
+    with spy_routes([(swin_model, "fused_mlp", "B7", b7)]) as calls:
+        swin_res = run_train_model("swin", 32, card, {
+            "B7": mlp.fused_mlp, "B1": swin_block.swin_block, "B6": window_attn.window_attention})
+    per_step = swin_res["launches_per_step"]
+    check(per_step["B7"] == 48 and per_step["B1"] == 0 and per_step["B6"] == 0,
+          f"SwinV2-Base: launches per step {per_step}, not B7 24 per forward x 2 passes and "
+          "no B1 or B6")
+    loops = {(r["fc1"], r["fc2"]) for _, _, r in calls}
+    print(f"  SwinV2-Base B7 calls {len(calls)}, their loops (fc1, fc2): {sorted(loops)}",
+          flush=True)
+    check(loops == {("mma", "mma")}, f"a B7 product of the train step left bf16 tensor cores: "
+                                     f"{loops}")
+    print(f"  8(d)-(e) took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 LIBRARIES = ("attn_proj", "ln_mlp", "row_max", "window_attn", "swin_block", "extract_topk",
              "attn", "vit_block")
 # name -> (source, the TPU kernel it replaces, the phase-2 case reported)
@@ -2037,7 +2398,10 @@ KERNELS = {
 }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    """With `--training-only`, phases 1 and 8 alone (the train step's
+    checks and measurements; no result lines)."""
+    training_only = "--training-only" in (sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 2
@@ -2067,11 +2431,26 @@ def main() -> int:
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+    with ThreadPoolExecutor(len(LIBRARIES) + 1) as pool:
+        host = None if training_only else pool.submit(prepare_host, device)
         list(pool.map(build.library, LIBRARIES))
+        built = time.perf_counter() - t0
+        host = None if host is None else host.result()
     for name in LIBRARIES:
         print(build.build_log(name), file=sys.stderr)
-    print(f"  built {', '.join(LIBRARIES)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  built {', '.join(LIBRARIES)} in {built:.1f} s", flush=True)
+    if host is not None:
+        waited = time.perf_counter() - t0 - built
+        print(f"  meanwhile on the host: the full-width slice's set-up {host['slice_s']:.1f} s, "
+              f"the eval corpus {host['corpus_s']:.1f} s; waited {waited:.1f} s for them after "
+              "the build", flush=True)
+    if training_only:
+        print(f"phase 8: training on the card ({card})", flush=True)
+        t0 = time.perf_counter()
+        run_training(device, card)
+        print(f"  phase 8 took {time.perf_counter() - t0:.1f} s; total "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
 
     print(f"phase 2: kernels vs plain on the card ({card})", flush=True)
     kres = check_kernels(device)
@@ -2083,14 +2462,10 @@ def main() -> int:
     print(f"phase 3: the slice ({card})", flush=True)
     check_small_slice(device, wrappers)
 
-    t0 = time.perf_counter()
-    pipe, noise, models = build_slice(device, full=True)
-    videos = synth_videos(24, 32, 360, 640)
+    pipe, noise, models, videos, dev_videos = host.pop("slice")
     names = [f"Q{i:06d}" for i in range(len(videos))]
-    dev_videos = [torch.from_numpy(v).to(device) for v in videos]
-    torch.cuda.synchronize()
-    print(f"  full-width set-up (weights, PCA fit, corpus) {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"  full-width set-up (weights, PCA fit, videos) {host['slice_s']:.1f} s, made during "
+          "phase 1", flush=True)
     t0 = time.perf_counter()
     row_max_calls = capture_row_max_operands(
         lambda: run_slice(pipe, noise, names, videos, device, dev_videos))
@@ -2182,7 +2557,8 @@ def main() -> int:
     launches["fused_mlp"] = path_launches["fused_mlp"]
 
     print(f"phase 5: the descriptor-track eval path ({card})", flush=True)
-    eval_launches, corpus = run_eval(device, wrappers, card)
+    eval_launches, corpus = run_eval(device, wrappers, card, host.pop("corpus"),
+                                     host["corpus_s"])
     launches["extract_topk"] = eval_launches["extract_topk"]
 
     print(f"phase 6: the CLIP block variants ({card})", flush=True)
@@ -2197,6 +2573,11 @@ def main() -> int:
     del corpus
     torch.cuda.empty_cache()
     print(f"  phase 7 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print(f"phase 8: training on the card ({card})", flush=True)
+    t0 = time.perf_counter()
+    run_training(device, card)
+    print(f"  phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []
     check(all(launches[name] > 0 for name in KERNELS), f"a kernel never ran: {launches}")

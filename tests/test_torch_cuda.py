@@ -14,7 +14,10 @@ before; B7 at the SwinV2-Base stage 1 and 4 widths on the tensor-core loop
 rule; B5's product loop for every case, and its FFMA route's outputs bit
 for bit as pinned before the tensor-core route; K3's split
 grid with the max in the last split, all-negative and zero maxima, and D
-padded to a multiple of 16).
+padded to a multiple of 16; the outputs and gradients of K1, K2, B7, B9,
+B10, B8, B6 and B1 through their recompute VJPs against autograd of their
+plain versions, in f32 and bf16 at ragged shapes, and B5 and K3 raising on an
+operand that requires grad).
 
 Needs a CUDA device; skips elsewhere. The shared conftest imports JAX,
 which the GPU host lacks, so run it there without it:
@@ -22,6 +25,7 @@ which the GPU host lacks, so run it there without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import functools
 import hashlib
 
 import pytest
@@ -969,3 +973,132 @@ B5_FFMA_DIGESTS = {
 @pytest.mark.parametrize("dt,d", list(B5_FFMA_DIGESTS))
 def test_extract_topk_ffma_route_bitwise_as_before(device, dt, d):
     assert b5_digest(dt, d, device) == B5_FFMA_DIGESTS[(dt, d)]
+
+
+# --- gradients: each differentiable wrapper's recompute VJP ------------------
+
+
+def _grad_case(name, dtype, device):
+    """(wrapper, plain, args, static) at a ragged shape of `name`."""
+    gen = torch.Generator().manual_seed(13)
+    r = lambda shape, std=1.0: randn(gen, shape, std, dtype, device)
+    v = lambda n, std=0.05: randn(gen, (n,), std, torch.float32, device)
+    b, l, c, h, f = 3, 37, 96, 3, 160
+    p = chip_smoke.block_params(gen, c, f, dtype, device)
+    half = [r((b, l, c)), p["ln1_s"], p["ln1_b"], p["qkv_w"], p["qkv_b"], p["proj_w"],
+            p["proj_b"]]
+    if name == "K1":
+        return (attn_proj_residual, attn_proj_residual_reference,
+                [r((b, l, c)), r((b, l, 3 * c)), p["proj_w"], p["proj_b"]], (h,))
+    if name == "B9":
+        return ln_attn_proj_residual, ln_attn_proj_residual_reference, half, (h, 1e-6)
+    if name == "B10":
+        return (vit_block, vit_block_reference,
+                half + [p["ln2_s"], p["ln2_b"], p["fc1_w"], p["fc1_b"], p["fc2_w"], p["fc2_b"]],
+                (h, "quick_gelu", 1e-5))
+    if name == "K2":
+        return (ln_mlp_residual, ln_mlp_residual_reference,
+                [r((130, c)), p["ln2_s"], p["ln2_b"], p["fc1_w"], p["fc1_b"], p["fc2_w"],
+                 p["fc2_b"]], ("gelu", 1e-6))
+    if name == "B7":
+        return (fused_mlp, fused_mlp_reference,
+                [r((130, c)), p["fc1_w"], p["fc1_b"], p["fc2_w"], p["fc2_b"]], ())
+    if name == "B8":
+        return (packed_attention, packed_attention_reference,
+                [r((b, l, h, 32), 0.2), r((b, l, h, 32)), r((b, l, h, 32))], ())
+    n, nw = 49, 2
+    mask = torch.as_tensor(_shift_attn_mask(14, 14, 7, 3)[:nw]).to(device)
+    rpb, scale, _ = chip_smoke.window_tables(gen, h, n, mask.cpu().numpy(), device)
+    if name == "B6":
+        return (window_attention, window_attention_reference,
+                [r((4, h, n, 32)) for _ in range(3)] + [rpb, scale, mask], (nw,))
+    qkv_b = p["qkv_b"].clone()
+    qkv_b[c:2 * c] = 0.0
+    return (swin_block, swin_block_reference,
+            [r((4, n, c)), p["qkv_w"], qkv_b, p["proj_w"], p["proj_b"], p["ln1_s"],
+             p["ln1_b"], p["fc1_w"], p["fc1_b"], p["fc2_w"], p["fc2_b"], p["ln2_s"],
+             p["ln2_b"], rpb, scale, mask], (h, nw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["K1", "K2", "B7", "B9", "B10", "B8", "B6", "B1"])
+def test_wrapper_gradients_match_the_plain_version(device, name, dtype):
+    """On a CUDA tensor that requires grad each wrapper launches its kernel,
+    returns a result with a grad_fn and the plain version's output (phase
+    2's bar, B1's and B10's block atol for them; B10's q rounded as the
+    kernel rounds it), and its input gradients
+    are autograd's through the plain version (`chip_smoke.grad_check`: f32
+    within 1e-4 of each input's max |g|, bf16 by phase 2's bar)."""
+    wrapper, plain, args, static = _grad_case(name, dtype, device)
+    # B10 at hd 32: the kernel folds q's scale before rounding q, the JAX
+    # oracle (the recompute) after (`ops/vit_block.py`).
+    plain_out = functools.partial(vit_block_reference, fold_scale=True) if name == "B10" else None
+    chip_smoke.grad_check(f"{name} {dtype}", wrapper, plain, args, static,
+                          block=name in ("B1", "B10"), reps=1, plain_out=plain_out)
+
+
+def test_topk_and_row_max_refuse_grad_on_the_card(device):
+    q = torch.randn(16, 64, device=device, requires_grad=True)
+    r = torch.randn(300, 64, device=device)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        extract_topk(q, r, 300, e=2, tile_r=64, k=4)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        row_max_gemm(q, r)
+    with torch.no_grad():
+        assert row_max_gemm(q, r).shape == (16,)
+
+
+def test_matmul_f32_gradients_on_the_card(device):
+    """`layers.matmul_f32` in bf16 (`torch.mm(..., out_dtype=float32)`, the
+    ViT's QKV): its cotangents are autograd's through the f32 upcast, the
+    f32 products rounded once to each operand's dtype."""
+    from vsc22_tpu_torch.models.layers import matmul_f32
+
+    gen = torch.Generator().manual_seed(14)
+    x = randn(gen, (2, 37, 96), 1.0, torch.bfloat16, device)
+    w = randn(gen, (288, 96), 96**-0.5, torch.bfloat16, device)
+    cot = randn(gen, (2, 37, 288), 1.0, torch.float32, device)
+    xs = [x.clone().requires_grad_() for _ in range(2)]
+    ws = [w.clone().requires_grad_() for _ in range(2)]
+    got = matmul_f32(xs[0], ws[0].t())
+    want = xs[1].float() @ ws[1].float().t()
+    assert got.dtype == torch.float32 and got.grad_fn is not None
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+    got.backward(cot)
+    want.backward(cot)
+    for a, b in ((xs[0], xs[1]), (ws[0], ws[1])):
+        assert a.grad.dtype == torch.bfloat16
+        torch.testing.assert_close(a.grad.float(), b.grad.float(), rtol=0, atol=0)
+
+
+def test_dropout_masks_are_drawn_on_the_card(device):
+    """`DropRng` draws each mask on the tensor's device and keeps it for the
+    step's second pass; the VSM trainer (dropout 0.1, EMA) steps on the card
+    with its masks and parameters there, and a step's seed comes from the
+    CPU generator, so a reseeded run repeats it."""
+    from vsc22_tpu_torch.models.layers import DropRng, reset_parameters
+    from vsc22_tpu_torch.models.vsm import VSM_TINY_TEST, VideoScoreModel
+    from vsc22_tpu_torch.train import vid_score
+
+    rng = DropRng(torch.Generator().manual_seed(0))
+    mask = rng.keep_mask("k", (64, 32), 0.9, device)
+    assert mask.device.type == "cuda" and mask.dtype == torch.bool
+    assert rng.keep_mask("k", (64, 32), 0.9, device) is mask
+    assert 0.8 < float(mask.float().mean()) < 0.97
+    cfg = vid_score.VidScoreConfig(learning_rate=1e-3, warmup_ratio=0.0, total_steps=10,
+                                   ema_decay=0.9)
+    gen = torch.Generator().manual_seed(15)
+    feats = randn(gen, (4, 8, 16), 1.0, torch.float32, device)
+    batch = {"feats": feats, "label": torch.tensor([1.0, 0.0, 1.0, 0.0], device=device)}
+    losses = []
+    for _ in range(2):
+        model = VideoScoreModel(VSM_TINY_TEST, torch.float32, device)
+        reset_parameters(model, torch.Generator().manual_seed(16))
+        state, tx = vid_score.create_vid_score_state(model, cfg)
+        step = vid_score.make_vid_score_train_step(model, tx, cfg)
+        seeds = torch.Generator().manual_seed(17)
+        run = [float(step(state, batch, seeds)[1]["loss"]) for _ in range(3)]
+        assert all(v == v and abs(v) < 1e3 for v in run)
+        assert all(t.device.type == "cuda" for t in state.params.values())
+        losses.append(run)
+    assert losses[0] == losses[1]

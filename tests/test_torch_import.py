@@ -63,6 +63,41 @@ def test_matching_modules_each_import_alone_without_jax():
         assert (ROOT / (name.replace(".", "/") + ".py")).is_file(), name
 
 
+TRAIN_MODULES = (
+    "vsc22_tpu_torch.ops.vjp",
+    "vsc22_tpu_torch.train",
+    "vsc22_tpu_torch.train.contrastive",
+    "vsc22_tpu_torch.train.checkpoint",
+    "vsc22_tpu_torch.train.vid_score",
+    "scripts.torch_perf_train",
+)
+
+
+def test_train_modules_each_import_alone_without_jax():
+    """Each training module, imported first in a fresh interpreter: none
+    loads JAX, the JAX package or pandas, and the trainers' entry points
+    are there."""
+    code = (
+        "import sys, importlib\n"
+        f"for name in {TRAIN_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "    bad = sorted(m for m in sys.modules if m in ('jax', 'vsc22_tpu', 'pandas')\n"
+        "                 or m.startswith(('jax.', 'flax', 'vsc22_tpu.', 'pandas.')))\n"
+        "    assert not bad, (name, bad)\n"
+        "c = sys.modules['vsc22_tpu_torch.train.contrastive']\n"
+        "assert callable(c.make_train_step) and callable(c.create_train_state)\n"
+        "assert callable(sys.modules['scripts.torch_perf_train'].main)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    for name in TRAIN_MODULES:
+        path = ROOT / name.replace(".", "/")
+        assert path.with_suffix(".py").is_file() or (path / "__init__.py").is_file(), name
+
+
 def _imported_module(line: str):
     """The module an `import x` / `from x import y` line names, else None."""
     words = line.split()
@@ -74,7 +109,8 @@ def _imported_module(line: str):
 def test_port_sources_never_import_jax():
     """Neither JAX, nor the JAX package, nor pandas: `vsc22_tpu` is
     imported by no line, not even inside a function."""
-    files = [*(ROOT / "vsc22_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    files = [*(ROOT / "vsc22_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
+             ROOT / "scripts" / "torch_perf_train.py"]
     assert len(files) > 10
     for f in files:
         for line in f.read_text().splitlines():

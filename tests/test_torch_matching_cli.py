@@ -37,6 +37,7 @@ from vsc22_tpu.models import mobilenetv3 as jmnv3
 from vsc22_tpu.pipelines import matching_cli as jcli
 from vsc22_tpu.train.checkpoint import load_cnn_snapshot, save_cnn_snapshot
 from vsc22_tpu_torch.pipelines import matching_cli
+from vsc22_tpu_torch.utils import jax_params
 
 SCORE_TOL = 1e-4
 
@@ -143,7 +144,7 @@ def test_matching_cli_writes_the_jax_rows(tmp_path, snapshots, monkeypatch):
 
 
 def test_snapshot_reader_rebuilds_the_variable_tree(snapshots):
-    tree = matching_cli.load_cnn_snapshot(snapshots["refine"][0])
+    tree = jax_params.npz_tree(snapshots["refine"][0])
     assert set(tree) == {"params", "batch_stats"}
     assert tree["params"]["fuse2"]["kernel"][0, 0, 0, 1] == 12.0
     assert tree["batch_stats"]["backbone"]["stem1"]["BatchNorm_0"]["mean"].shape == (8,)

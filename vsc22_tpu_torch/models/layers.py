@@ -5,7 +5,13 @@ package's precision split: matmul weights live in the model's compute
 dtype (the JAX code casts its f32 params to it at use, which rounds the
 same way), while biases, LayerNorm params and f32 heads stay float32.
 Weights use PyTorch layouts (Linear [out, in]); `utils/jax_params.py`
-carries JAX param trees across.
+carries JAX param trees across. Training keeps f32 masters of the
+parameters beside the model (`train/contrastive.py`), so that the
+inference paths round as before.
+
+Dropout and DropPath draw their masks from a `DropRng`, one per train
+step: the FGM pass and a rematerialised block reuse the first pass's
+masks, as JAX's passes reuse one `rng`.
 """
 
 from __future__ import annotations
@@ -67,13 +73,98 @@ def linear_f32_bias(x, lin: Linear):
 def matmul_f32(x, w):
     """x [..., K] @ w [K, N] in float32 as `jnp.dot(...,
     preferred_element_type=f32)` computes it: products of x's dtype
-    accumulated in float32."""
+    accumulated in float32. Differentiable: the cotangents of x and w come
+    back in their own dtypes."""
     x2 = x.reshape(-1, x.shape[-1])
     if x2.dtype == torch.float32 or x2.device.type == "cpu":
         out = x2.float() @ w.float()  # bf16 x bf16 products are exact in f32
     else:
-        out = torch.mm(x2, w, out_dtype=torch.float32)
+        out = _MatmulF32.apply(x2, w)
     return out.reshape(*x.shape[:-1], w.shape[1])
+
+
+class _MatmulF32(torch.autograd.Function):
+    """`torch.mm(x, w, out_dtype=float32)` with a backward: each cotangent
+    is an f32 product of the f32 output cotangent and the other operand,
+    rounded once to its operand's dtype (JAX's transpose of a dot with
+    `preferred_element_type=f32`, then the cast back)."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        gx = (g @ w.float().t()).to(x2.dtype) if ctx.needs_input_grad[0] else None
+        gw = (x2.float().t() @ g).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
+def gelu_exact(x):
+    """`jax.nn.gelu(x, approximate=False)` with its roundings: 0.5 * x *
+    erfc(-x * sqrt(0.5)), where sqrt(0.5), the argument of erfc, erfc
+    itself and the product are each rounded to x's dtype (exact GELU in
+    one f32 pass and one rounding moves 37% of bf16 outputs)."""
+    r = lambda v: v.to(x.dtype).float()
+    xf = x.float()
+    sqrt_half = r(torch.tensor(0.5 ** 0.5))
+    return (0.5 * xf * r(torch.special.erfc(r(-xf * sqrt_half)))).to(x.dtype)
+
+
+class DropRng:
+    """The dropout and DropPath keep-masks of one train step. The step's
+    seed is drawn once from `generator` (a CPU `torch.Generator`, whose
+    state a checkpoint keeps); each mask is drawn at its first use on the
+    tensor's own device, from a generator there seeded with the step's
+    seed, as `uniform < keep` (JAX's `bernoulli`), and kept under its key
+    (the module and a tag): the FGM pass and a block recomputed under
+    `torch.utils.checkpoint` get the first pass's masks."""
+
+    def __init__(self, generator: torch.Generator):
+        self.seed = int(torch.randint(2**62, (), generator=generator))
+        self._generators: dict = {}
+        self._masks: dict = {}
+
+    def keep_mask(self, key, shape, keep: float, device) -> torch.Tensor:
+        mask = self._masks.get(key)
+        if mask is None:
+            device = torch.device(device)
+            gen = self._generators.get(device)
+            if gen is None:
+                gen = torch.Generator(device).manual_seed(self.seed)
+                self._generators[device] = gen
+            mask = torch.rand(shape, generator=gen, device=device) < keep
+            self._masks[key] = mask
+        return mask
+
+
+def dropout(x, rate: float, rng, key):
+    """flax `nn.Dropout`: x / keep where the mask keeps, 0 elsewhere; the
+    identity when `rng` is None (deterministic) or the rate is 0."""
+    if rate == 0.0 or rng is None:
+        return x
+    keep = 1.0 - rate
+    mask = rng.keep_mask(key, tuple(x.shape), keep, x.device)
+    return torch.where(mask, x / keep, 0.0)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth (`vsc22_tpu/models/layers.py:166-179`): each
+    sample's residual branch kept with probability 1 - rate and scaled by
+    1 / keep, or zeroed; the identity when `rng` is None or the rate is 0."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, rng=None):
+        if self.rate == 0.0 or rng is None:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        return torch.where(rng.keep_mask((self, "path"), shape, keep, x.device), x / keep, 0.0)
 
 
 class LayerNorm(nn.Module):
@@ -251,11 +342,12 @@ class AttentionParams(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """Attention with a fused QKV projection (JAX `MultiHeadAttention`):
-    params `qkv` (bias optional) and `proj`. Inference only: `attn_drop`
-    and `proj_drop` are kept as fields and never applied. With no
-    `attn_bias` it runs `attention(q * hd^-0.5, k, v)` (B8 on the card);
-    with one, f32 logits scaled after the product plus the bias (the JAX
-    einsum path, `layers.py:152-158`)."""
+    params `qkv` (bias optional) and `proj`. With no `attn_bias` it runs
+    `attention(q * hd^-0.5, k, v)` (B8 on the card, differentiable through
+    its recompute VJP); with one, f32 logits scaled after the product plus
+    the bias (the JAX einsum path, `layers.py:152-158`). Given a `DropRng`
+    it applies `proj_drop` after the projection, as JAX in training;
+    `attn_drop` is kept as a field and not applied (no model sets it)."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32, qkv_bias: bool = True,
                  attn_drop: float = 0.0, proj_drop: float = 0.0, device=None):
@@ -267,7 +359,7 @@ class MultiHeadAttention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, dtype, device, bias=qkv_bias)
         self.proj = Linear(dim, dim, dtype, device)
 
-    def forward(self, x, attn_bias=None):  # [B, L, C]
+    def forward(self, x, attn_bias=None, rng=None):  # [B, L, C]
         b, l, c = x.shape
         hd = c // self.num_heads
         qkv = self.qkv(x).reshape(b, l, 3, self.num_heads, hd)
@@ -278,7 +370,8 @@ class MultiHeadAttention(nn.Module):
             logits = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float()) * hd**-0.5
             probs = torch.softmax(logits + attn_bias, dim=-1).to(self.dtype)
             out = torch.einsum("bhlm,bmhd->blhd", probs.float(), v.float())
-        return self.proj(out.reshape(b, l, c).to(self.dtype))
+        out = self.proj(out.reshape(b, l, c).to(self.dtype))
+        return dropout(out, self.proj_drop, rng, (self, "proj"))
 
 
 class MlpParams(nn.Module):
@@ -291,21 +384,30 @@ class MlpParams(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN ViT encoder block (inference): x + attn(LN1 x) through K1,
-    then x + mlp(LN2 x) with exact GELU through K2; LN eps 1e-6 (flax
-    default, `vsc22_tpu/models/layers.py:240`)."""
+    """Pre-LN ViT encoder block: x + attn(LN1 x) through K1, then x +
+    mlp(LN2 x) with exact GELU through K2; LN eps 1e-6 (flax default,
+    `vsc22_tpu/models/layers.py:240`). Training takes the same kernels
+    when dropout and drop-path are 0, differentiable through their
+    recompute VJPs (`ops/vjp.py`); otherwise it takes JAX's plain path
+    with dropout and DropPath (`layers.py:221-256`)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, drop_path: float = 0.0,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.dropout = dropout
         self.norm1 = LayerNorm(dim, device)
         self.attn = AttentionParams(dim, dtype, device)
         self.norm2 = LayerNorm(dim, device)
         self.mlp = MlpParams(dim, int(dim * mlp_ratio), dtype, device)
+        self.drop_path1 = DropPath(drop_path)
+        self.drop_path2 = DropPath(drop_path)
 
-    def forward(self, x):  # [B, L, C]
+    def forward(self, x, rng=None):  # [B, L, C]; rng: a DropRng in training
+        if rng is not None and (self.dropout > 0.0 or self.drop_path1.rate > 0.0):
+            return self._plain(x, rng)
         b, l, c = x.shape
         dt = self.dtype
         y = layer_norm(x, self.norm1, 1e-6, dt)
@@ -318,3 +420,27 @@ class TransformerBlock(nn.Module):
             self.mlp.fc1.weight, self.mlp.fc1.bias,
             self.mlp.fc2.weight, self.mlp.fc2.bias, "gelu", 1e-6,
         ).reshape(b, l, c)
+
+    def _plain(self, x, rng):
+        """The train path with dropout and DropPath, in JAX's roundings:
+        attention as `_attn_proj_xla`, LN2 with two-pass f32 statistics,
+        fc1 and fc2 as flax Denses in the working dtype."""
+        b, l, c = x.shape
+        h, dt = self.num_heads, self.dtype
+        hd = c // h
+        y = layer_norm(x, self.norm1, 1e-6, dt)
+        r = linear_f32_bias(y, self.attn.qkv).reshape(b, l, 3, h, hd).float()
+        logits = torch.einsum("blhd,bmhd->bhlm", r[:, :, 0], r[:, :, 1]) * hd**-0.5
+        probs = torch.softmax(logits, dim=-1).to(dt).float()
+        out = torch.einsum("bhlm,bmhd->blhd", probs, r[:, :, 2]).to(dt).reshape(b, l, c)
+        out = (matmul_f32(out, self.attn.proj.weight.t()) + self.attn.proj.bias).to(dt)
+        out = dropout(out, self.dropout, rng, (self, "attn"))
+        x = x + self.drop_path1(out, rng)
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf - mean).square().mean(-1, keepdim=True)
+        y = ((xf - mean) * torch.rsqrt(var + 1e-6) * self.norm2.weight
+             + self.norm2.bias).to(dt)
+        y = dropout(gelu_exact(self.mlp.fc1(y)), self.dropout, rng, (self, "hidden"))
+        y = dropout(self.mlp.fc2(y), self.dropout, rng, (self, "mlp"))
+        return x + self.drop_path2(y, rng)

@@ -20,6 +20,14 @@ The fused path is taken when C and the MLP width are multiples of 128 and
 the TPU kernel's VMEM estimate for one window is under 48 MiB: every block
 of the Base model in bf16, all but stage 4 in f32, none at the tiny test
 widths. `fused_block=False` forces the module path.
+
+Training (`train=True`) takes JAX's train route (`swinv2.py:207-222,
+322-333, 456-460`): never the fused block, the module path with the plain
+attention chunked over windows (`ops/window_attn.window_attention_chunked`,
+not B6), the MLP in B7 (differentiable through its recompute VJP), and
+DropPath at `linspace(0, drop_path_rate, depth)` on both branches, its
+masks from a `layers.DropRng`. With `remat` each block runs under
+`torch.utils.checkpoint`.
 """
 
 from __future__ import annotations
@@ -31,21 +39,24 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vsc22_tpu_torch.core.device import resolve
 from vsc22_tpu_torch.models.layers import (
+    DropPath,
     LayerNorm,
     Linear,
     MlpParams,
     PatchEmbed,
     _normal_,
     dense,
+    dropout,
     gem_pool,
     layer_norm,
 )
 from vsc22_tpu_torch.ops.mlp import fused_mlp
 from vsc22_tpu_torch.ops.swin_block import swin_block
-from vsc22_tpu_torch.ops.window_attn import window_attention
+from vsc22_tpu_torch.ops.window_attn import window_attention, window_attention_chunked
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm default
 
@@ -60,6 +71,8 @@ class SwinV2Config:
     window_size: int = 16
     pretrained_window_sizes: Tuple[int, ...] = (12, 12, 12, 6)
     mlp_ratio: float = 4.0
+    drop_path_rate: float = 0.2
+    dropout: float = 0.0
     output_dim: int = 512
     pool_param: float = 3.0
 
@@ -77,6 +90,7 @@ SWINV2_TINY_TEST = SwinV2Config(
     num_heads=(2, 4),
     window_size=4,
     pretrained_window_sizes=(0, 0),
+    drop_path_rate=0.0,
     output_dim=8,
 )
 
@@ -208,29 +222,38 @@ class WindowAttention(nn.Module):
         scale = torch.exp(torch.clamp(self.logit_scale, max=math.log(100.0))).reshape(h)
         return rpb.contiguous(), scale
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor, num_shift_windows: int):
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, num_shift_windows: int,
+                train: bool = False):
         """The module path (`swinv2.py:174-225`): x [W, N, C] windows ->
-        [W, N, C] in the model dtype."""
+        [W, N, C] in the model dtype; B6 in inference, the chunked plain
+        attention in training."""
         dt = self.dtype
         b_, n, c = x.shape
         h = self.num_heads
         qkv = dense(x, self.qkv_weight, self.qkv_bias())
         q, k, v = qkv.reshape(b_, n, 3, h, c // h).permute(2, 0, 3, 1, 4).contiguous()
         rpb, scale = self.bias_and_scale()
-        out = window_attention(q, k, v, rpb, scale, mask, num_shift_windows)
+        attend = window_attention_chunked if train else window_attention
+        out = attend(q, k, v, rpb, scale, mask, num_shift_windows)
         out = out.permute(0, 2, 1, 3).reshape(b_, n, c).to(dt)
         return self.proj(out)
 
 
 class SwinBlock(nn.Module):
-    """Res-post-norm SwinV2 block (inference). Window and shift are
-    clamped as in JAX: a stage whose resolution is at most the window uses
-    one window per image and no shift."""
+    """Res-post-norm SwinV2 block. Window and shift are clamped as in JAX:
+    a stage whose resolution is at most the window uses one window per
+    image and no shift. In inference it takes B1 or the module path (B6,
+    B7); in training (`train=True`) always the module path, with the plain
+    chunked attention, B7 through its recompute VJP, and DropPath at
+    `drop_path` on both residual branches (`swinv2.py:322-410`)."""
 
     def __init__(self, dim: int, input_resolution: int, num_heads: int, window_size: int,
                  shift_size: int, mlp_ratio: float = 4.0, pretrained_window: int = 0,
-                 dtype=torch.float32, device=None, fused_block: Optional[bool] = None):
+                 dtype=torch.float32, device=None, fused_block: Optional[bool] = None,
+                 drop_path: float = 0.0):
         super().__init__()
+        self.drop_path1 = DropPath(drop_path)
+        self.drop_path2 = DropPath(drop_path)
         res = input_resolution
         window, shift = window_size, shift_size
         if res <= window:
@@ -257,15 +280,18 @@ class SwinBlock(nn.Module):
             and _vmem_estimate(1, n, dim, self.hidden, num_heads, itemsize) < 48 * 2**20
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, L, C]
+    def forward(self, x: torch.Tensor, rng=None, train: bool = False) -> torch.Tensor:
+        """x [B, L, C]; `train` takes the train route, `rng` (a
+        `layers.DropRng`) draws its DropPath masks."""
         b, l, c = x.shape
         r, window, shift, dt = self.res, self.window, self.shift, self.dtype
         nw = self.mask.shape[0]
+        fused = self.fused and not train
         xs = x.reshape(b, r, r, c)
         if shift > 0:
             xs = torch.roll(xs, shifts=(-shift, -shift), dims=(1, 2))
         windows = window_partition(xs, window)
-        if self.fused:
+        if fused:
             rpb, scale = self.attn.bias_and_scale()
             a, mlp = self.attn, self.mlp
             out_w = swin_block(
@@ -276,21 +302,21 @@ class SwinBlock(nn.Module):
                 self.num_heads, nw,
             )
         else:
-            out_w = self.attn(windows, self.mask, nw)
+            out_w = self.attn(windows, self.mask, nw, train)
         xs = window_reverse(out_w, window, r, r)
         if shift > 0:
             xs = torch.roll(xs, shifts=(shift, shift), dims=(1, 2))
         xs = xs.reshape(b, l, c)
-        if self.fused:
+        if fused:
             return xs
         # Module path: flax LNs and residual adds in the model dtype.
-        x = x.to(dt) + layer_norm(xs, self.norm1, _LN_EPS, dt)
+        x = x.to(dt) + self.drop_path1(layer_norm(xs, self.norm1, _LN_EPS, dt), rng)
         mlp = self.mlp
         y = fused_mlp(
             x.reshape(b * l, c), mlp.fc1.weight, mlp.fc1.bias.to(dt),
             mlp.fc2.weight, mlp.fc2.bias.to(dt),
         ).reshape(b, l, c)
-        return x + layer_norm(y, self.norm2, _LN_EPS, dt)
+        return x + self.drop_path2(layer_norm(y, self.norm2, _LN_EPS, dt), rng)
 
 
 class PatchMerging(nn.Module):
@@ -315,13 +341,18 @@ class PatchMerging(nn.Module):
 
 class SwinTransformerV2(nn.Module):
     """SwinV2 encoder + GeM(p) token pooling + Linear head; returns
-    [B, output_dim] un-normalized f32 descriptors."""
+    [B, output_dim] un-normalized f32 descriptors. `remat`: in training,
+    each block under `torch.utils.checkpoint` (JAX's per-block `nn.remat`,
+    `swinv2.py:459-460`), so that only block-boundary activations stay
+    for the backward."""
 
     def __init__(self, cfg: SwinV2Config = SWINV2_BASE_256, dtype=torch.float32, device=None,
-                 fused_block: Optional[bool] = None):
+                 fused_block: Optional[bool] = None, remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
+        dpr = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths))
         self.out_dim = cfg.output_dim
         res = cfg.img_size // cfg.patch_size
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.embed_dim, dtype, device)
@@ -336,6 +367,7 @@ class SwinTransformerV2(nn.Module):
                     dim, r, cfg.num_heads[s], cfg.window_size,
                     0 if i % 2 == 0 else cfg.window_size // 2, cfg.mlp_ratio,
                     cfg.pretrained_window_sizes[s], dtype, device, fused_block,
+                    float(dpr[sum(cfg.depths[:s]) + i]),
                 )
                 for i in range(depth)
             ))
@@ -344,16 +376,26 @@ class SwinTransformerV2(nn.Module):
         self.norm = LayerNorm(cfg.num_features, device)
         self.output_proj = Linear(cfg.num_features, cfg.output_dim, torch.float32, device)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:  # [B, H, W, 3]
+    def forward(self, images: torch.Tensor, train: bool = False,
+                rng=None) -> torch.Tensor:  # [B, H, W, 3]
+        """`train` takes the train route; `rng` (a `layers.DropRng`) draws
+        its dropout and DropPath masks and is needed where a rate is above 0."""
         cfg = self.cfg
         b, h, w, _ = images.shape
         if h != cfg.img_size or w != cfg.img_size:
             raise ValueError(f"expected {cfg.img_size}^2 input, got {h}x{w}")
+        if train and rng is None and (cfg.drop_path_rate > 0.0 or cfg.dropout > 0.0):
+            raise ValueError("training with dropout or drop-path needs a DropRng")
+        rng = rng if train else None
         dt = self.dtype
         x = layer_norm(self.patch_embed(images), self.patch_norm, _LN_EPS, dt)
+        x = dropout(x, cfg.dropout, rng, (self, "embed"))
         for s, blocks in enumerate(self.stages):
             for block in blocks:
-                x = block(x)
+                if train and self.remat:
+                    x = checkpoint(block, x, rng, True, use_reentrant=False)
+                else:
+                    x = block(x, rng, train)
             if s < len(self.merges):
                 x = self.merges[s](x)
         x = layer_norm(x, self.norm, _LN_EPS, dt)
@@ -361,13 +403,15 @@ class SwinTransformerV2(nn.Module):
 
 
 def swinv2_base_256_descriptor(dtype=torch.bfloat16, device="cuda",
-                               fused_block: Optional[bool] = None) -> SwinTransformerV2:
+                               fused_block: Optional[bool] = None,
+                               remat: bool = False) -> SwinTransformerV2:
     """The v106/v107/v115 ensemble members: SwinV2-Base @ 256, 512-d out;
     on the card unless `device` says otherwise."""
-    return SwinTransformerV2(SWINV2_BASE_256, dtype, resolve(device), fused_block)
+    return SwinTransformerV2(SWINV2_BASE_256, dtype, resolve(device), fused_block, remat)
 
 
-def swinv2_tiny_test_descriptor(dtype=torch.float32, device=None) -> SwinTransformerV2:
+def swinv2_tiny_test_descriptor(dtype=torch.float32, device=None,
+                                remat: bool = False) -> SwinTransformerV2:
     """Small config for tests and CPU runs (on the CPU by default: it
     exists for tests)."""
-    return SwinTransformerV2(SWINV2_TINY_TEST, dtype, device)
+    return SwinTransformerV2(SWINV2_TINY_TEST, dtype, device, remat=remat)

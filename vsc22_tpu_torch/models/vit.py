@@ -3,7 +3,11 @@
 Counterpart of `vsc22_tpu/models/vit.py`: the v68 descriptor is
 Linear_2048->512( GeM_p3( Conv1d_768->2048( all ViT tokens ) ) ), GeM over
 the token axis (CLS included). Images are NHWC; the GeM pool and the head
-run in f32 even in a bf16 model (`vit.py:113`).
+run in f32 even in a bf16 model (`vit.py:113`). `train=True` with a
+`layers.DropRng` applies `cfg.dropout` after the position embedding and
+in each block, and DropPath at `cfg.drop_path * i / (depth - 1)` in block
+i (`vit.py:26-90`); with both at 0 (the v68 recipe) training runs the
+same kernels as inference.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from vsc22_tpu_torch.models.layers import (
     Linear,
     PatchEmbed,
     TransformerBlock,
+    dropout,
     layer_norm,
 )
 
@@ -32,6 +37,8 @@ class ViTConfig:
     depth: int = 12
     num_heads: int = 12
     mlp_ratio: float = 4.0
+    dropout: float = 0.0
+    drop_path: float = 0.0
 
     @property
     def num_patches(self) -> int:
@@ -54,12 +61,13 @@ class VisionTransformer(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, c, device=device))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + cfg.num_patches, c, device=device))
         self.blocks = nn.ModuleList(
-            TransformerBlock(c, cfg.num_heads, cfg.mlp_ratio, dtype, device)
-            for _ in range(cfg.depth)
+            TransformerBlock(c, cfg.num_heads, cfg.mlp_ratio, dtype, device,
+                             cfg.drop_path * i / max(cfg.depth - 1, 1), cfg.dropout)
+            for i in range(cfg.depth)
         )
         self.norm = LayerNorm(c, device)
 
-    def forward(self, images):  # [B, H, W, 3]
+    def forward(self, images, rng=None):  # [B, H, W, 3]; rng: a DropRng in training
         cfg = self.cfg
         b, h, w, _ = images.shape
         if h != cfg.img_size or w != cfg.img_size:
@@ -68,8 +76,9 @@ class VisionTransformer(nn.Module):
         x = self.patch_embed(images)
         cls = self.cls_token.to(dt).expand(b, 1, cfg.embed_dim)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
+        x = dropout(x, cfg.dropout, rng, (self, "embed"))
         for block in self.blocks:
-            x = block(x)
+            x = block(x, rng)
         return layer_norm(x, self.norm, 1e-6, dt)
 
 
@@ -86,8 +95,13 @@ class VitDescriptor(nn.Module):
         self.gem = GeMPool(cfg.embed_dim, head_dim, pool_param, dtype, device)
         self.head = Linear(head_dim, out_dim, torch.float32, device)
 
-    def forward(self, images):
-        return self.head(self.gem(self.backbone(images)))
+    def forward(self, images, train: bool = False, rng=None):
+        """`rng` (a `layers.DropRng`) draws the dropout and DropPath masks
+        when `train`; training with a rate above 0 needs one."""
+        cfg = self.backbone.cfg
+        if train and rng is None and (cfg.dropout > 0.0 or cfg.drop_path > 0.0):
+            raise ValueError("training with dropout or drop-path needs a DropRng")
+        return self.head(self.gem(self.backbone(images, rng if train else None)))
 
 
 def vit_base_patch32_384_descriptor(dtype=torch.bfloat16, device="cuda") -> VitDescriptor:

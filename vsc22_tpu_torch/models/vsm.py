@@ -6,7 +6,9 @@ LN(1e-12) -> post-LN BERT layers (LN eps 1e-12, erf GELU, additive mask
 bias -1e4 on masked keys, `vsm.py:114`) -> concat([CLS] state,
 masked-average pool) -> Linear -> 1 logit. Attention is
 `layers.MultiHeadAttention` with the mask bias, so it takes the plain
-einsum path, as the JAX package's does.
+einsum path, as the JAX package's does. In training (`train=True` with a
+`layers.DropRng`) dropout at `cfg.dropout` follows the embedding LN, each
+attention projection and each fc2, as in JAX (`vsm.py:55,67,111`).
 """
 
 from __future__ import annotations
@@ -17,7 +19,14 @@ import torch
 from torch import nn
 
 from vsc22_tpu_torch.core.device import resolve
-from vsc22_tpu_torch.models.layers import LayerNorm, Linear, MultiHeadAttention, layer_norm
+from vsc22_tpu_torch.models.layers import (
+    LayerNorm,
+    Linear,
+    MultiHeadAttention,
+    dropout,
+    gelu_exact,
+    layer_norm,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,39 +36,31 @@ class VSMConfig:
     layers: int = 12
     heads: int = 12
     max_frames: int = 256
+    dropout: float = 0.1
 
 
 VSM_BASE = VSMConfig()
 VSM_TINY_TEST = VSMConfig(feat_dim=16, hidden=32, layers=2, heads=2, max_frames=8)
 
 
-def gelu_exact(x):
-    """`jax.nn.gelu(x, approximate=False)` with its roundings: 0.5 * x *
-    erfc(-x * sqrt(0.5)), where sqrt(0.5), the argument of erfc, erfc
-    itself and the product are each rounded to x's dtype (exact GELU in
-    one f32 pass and one rounding moves 37% of bf16 outputs)."""
-    r = lambda v: v.to(x.dtype).float()
-    xf = x.float()
-    sqrt_half = r(torch.tensor(0.5 ** 0.5))
-    return (0.5 * xf * r(torch.special.erfc(r(-xf * sqrt_half)))).to(x.dtype)
-
-
 class PostLNBlock(nn.Module):
     """BERT-style post-LN encoder block."""
 
-    def __init__(self, hidden: int, heads: int, dtype=torch.float32, device=None):
+    def __init__(self, hidden: int, heads: int, dtype=torch.float32, device=None,
+                 dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
-        self.attn = MultiHeadAttention(hidden, heads, dtype, device=device)
+        self.dropout = dropout
+        self.attn = MultiHeadAttention(hidden, heads, dtype, proj_drop=dropout, device=device)
         self.ln_attn = LayerNorm(hidden, device)
         self.fc1 = Linear(hidden, 4 * hidden, dtype, device)
         self.fc2 = Linear(4 * hidden, hidden, dtype, device)
         self.ln_mlp = LayerNorm(hidden, device)
 
-    def forward(self, x, mask_bias):
+    def forward(self, x, mask_bias, rng=None):
         dt = self.dtype
-        x = layer_norm(x + self.attn(x, mask_bias), self.ln_attn, 1e-12, dt)
-        y = self.fc2(gelu_exact(self.fc1(x)))
+        x = layer_norm(x + self.attn(x, mask_bias, rng), self.ln_attn, 1e-12, dt)
+        y = dropout(self.fc2(gelu_exact(self.fc1(x))), self.dropout, rng, (self, "fc2"))
         return layer_norm(x + y, self.ln_mlp, 1e-12, dt)
 
 
@@ -78,12 +79,17 @@ class VideoScoreModel(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(cfg.max_frames + 2, cfg.hidden, device=device))
         self.emb_norm = LayerNorm(cfg.hidden, device)
         self.layers = nn.ModuleList(
-            PostLNBlock(cfg.hidden, cfg.heads, dtype, device) for _ in range(cfg.layers)
+            PostLNBlock(cfg.hidden, cfg.heads, dtype, device, cfg.dropout)
+            for _ in range(cfg.layers)
         )
         self.output_proj = Linear(2 * cfg.hidden, 1, torch.float32, device)
 
-    def forward(self, feats):
+    def forward(self, feats, train: bool = False, rng=None):
+        """`rng` (a `layers.DropRng`) draws the dropout masks when `train`."""
         cfg = self.cfg
+        if train and cfg.dropout > 0.0 and rng is None:
+            raise ValueError("training with dropout needs a DropRng")
+        rng = rng if train else None
         dt = self.dtype
         b, n, _ = feats.shape
         vision = layer_norm(self.frame_proj(feats), self.frame_norm, 1e-5, dt)
@@ -99,9 +105,10 @@ class VideoScoreModel(nn.Module):
         # Reference mask layout [1, 1, frame_mask] (cls and sep always visible).
         mask = torch.cat([torch.ones(b, 2, device=feats.device), frame_mask], dim=1)
         tokens = layer_norm(tokens + self.pos_embed[: n + 2].to(dt), self.emb_norm, 1e-12, dt)
+        tokens = dropout(tokens, cfg.dropout, rng, (self, "emb"))
         bias = (1.0 - mask)[:, None, None, :] * -10000.0
         for layer in self.layers:
-            tokens = layer(tokens, bias)
+            tokens = layer(tokens, bias, rng)
         states = tokens.float()
         weights = mask[..., None]
         avg_pool = (states * weights).sum(dim=1) / (weights.sum(dim=1) + 1e-5)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from vsc22_tpu_torch.kernels import build
+from vsc22_tpu_torch.ops.vjp import recompute_vjp
 
 _ARGTYPES = [build.PTR] * 4 + [build.INT] * 5 + [build.PTR]
 
@@ -75,9 +76,15 @@ def packed_attention_reference(q, k, v):
 
 
 def packed_attention(q, k, v):
-    """B8 on a CUDA tensor, the plain version on a CPU tensor."""
+    """B8 on a CUDA tensor, the plain version on a CPU tensor; on the card
+    differentiable as the JAX custom VJP (`pallas_attn.py:130-147`), the
+    backward recomputed through `packed_attention_reference`."""
     if q.device.type == "cpu":
         return packed_attention_reference(q, k, v)
+    return _packed_attention_vjp(q, k, v)
+
+
+def _packed_attention_cuda(q, k, v):
     device = build.require_cuda(q)
     code = build.working_dtype(q)
     b, l, h, hd = q.shape
@@ -95,6 +102,7 @@ def packed_attention(q, k, v):
 
 
 packed_attention.launches = 0
+_packed_attention_vjp = recompute_vjp(_packed_attention_cuda, packed_attention_reference, 3)
 
 
 def attention(q, k, v):

@@ -30,6 +30,7 @@ from vsc22_tpu_torch.kernels import build
 from vsc22_tpu_torch.ops.attn import attn_core, check_attn_smem
 from vsc22_tpu_torch.ops.gemm import gemm_route
 from vsc22_tpu_torch.ops.mlp import ln_rows
+from vsc22_tpu_torch.ops.vjp import recompute_vjp
 
 _ARGTYPES = [build.PTR] * 6 + [build.INT] * 5 + [build.PTR]
 _LN_ARGTYPES = [build.PTR] * 11 + [build.INT] * 4 + [build.FLOAT, build.INT, build.PTR]
@@ -79,9 +80,16 @@ def _check_heads(c: int, num_heads: int) -> None:
 
 
 def attn_proj_residual(x, qkv, proj_w, proj_b, num_heads: int):
-    """K1 on a CUDA tensor, the plain version on a CPU tensor."""
+    """K1 on a CUDA tensor, the plain version on a CPU tensor. On the card
+    it is differentiable as the JAX custom VJP (`pallas_attn_proj.py:461-488`):
+    the forward on K1, the backward recomputed through
+    `attn_proj_residual_reference` under autograd (`ops/vjp.py`)."""
     if x.device.type == "cpu":
         return attn_proj_residual_reference(x, qkv, proj_w, proj_b, num_heads)
+    return _attn_proj_residual_vjp(x, qkv, proj_w, proj_b, num_heads)
+
+
+def _attn_proj_residual_cuda(x, qkv, proj_w, proj_b, num_heads: int):
     device = build.require_cuda(x)
     code = build.working_dtype(x)
     b, l, c = x.shape
@@ -104,6 +112,7 @@ def attn_proj_residual(x, qkv, proj_w, proj_b, num_heads: int):
 
 
 attn_proj_residual.launches = 0
+_attn_proj_residual_vjp = recompute_vjp(_attn_proj_residual_cuda, attn_proj_residual_reference, 4)
 
 
 def qkv_reference(ln, qkv_w, qkv_b, q_scale=None):
@@ -128,10 +137,18 @@ def ln_attn_proj_residual_reference(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b,
 
 def ln_attn_proj_residual(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b,
                           num_heads: int, eps: float = 1e-5):
-    """B9 on a CUDA tensor, the plain version on a CPU tensor."""
+    """B9 on a CUDA tensor, the plain version on a CPU tensor; on the card
+    differentiable as the JAX custom VJP (`pallas_attn_proj.py:377-422`),
+    the backward recomputed through `ln_attn_proj_residual_reference`."""
     if x.device.type == "cpu":
         return ln_attn_proj_residual_reference(
             x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b, num_heads, eps)
+    return _ln_attn_proj_residual_vjp(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b,
+                                      num_heads, eps)
+
+
+def _ln_attn_proj_residual_cuda(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b,
+                                num_heads: int, eps: float):
     device = build.require_cuda(x)
     code = build.working_dtype(x)
     b, l, c = x.shape
@@ -160,3 +177,5 @@ def ln_attn_proj_residual(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b,
 
 
 ln_attn_proj_residual.launches = 0
+_ln_attn_proj_residual_vjp = recompute_vjp(_ln_attn_proj_residual_cuda,
+                                           ln_attn_proj_residual_reference, 7)

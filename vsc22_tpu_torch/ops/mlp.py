@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from vsc22_tpu_torch.kernels import build
 from vsc22_tpu_torch.ops.gemm import gemm_route
+from vsc22_tpu_torch.ops.vjp import recompute_vjp
 
 _ACT_CODES = {"gelu": 1, "quick_gelu": 2}
 _ARGTYPES = (
@@ -107,9 +108,16 @@ def ln_mlp_residual_reference(x, ln_s, ln_b, w1, b1, w2, b2,
 
 def ln_mlp_residual(x, ln_s, ln_b, w1, b1, w2, b2,
                     activation: str = "gelu", eps: float = 1e-5):
-    """K2 on a CUDA tensor, the plain version on a CPU tensor."""
+    """K2 on a CUDA tensor, the plain version on a CPU tensor. On the card
+    it is differentiable as the JAX custom VJP (`pallas_mlp.py:194-238`):
+    the forward on K2, the backward recomputed through
+    `ln_mlp_residual_reference` under autograd (`ops/vjp.py`)."""
     if x.device.type == "cpu":
         return ln_mlp_residual_reference(x, ln_s, ln_b, w1, b1, w2, b2, activation, eps)
+    return _ln_mlp_residual_vjp(x, ln_s, ln_b, w1, b1, w2, b2, activation, eps)
+
+
+def _ln_mlp_residual_cuda(x, ln_s, ln_b, w1, b1, w2, b2, activation: str, eps: float):
     device = build.require_cuda(x)
     code = build.working_dtype(x)
     if activation not in _ACT_CODES:
@@ -138,6 +146,7 @@ def ln_mlp_residual(x, ln_s, ln_b, w1, b1, w2, b2,
 
 
 ln_mlp_residual.launches = 0
+_ln_mlp_residual_vjp = recompute_vjp(_ln_mlp_residual_cuda, ln_mlp_residual_reference, 7)
 
 
 def fused_mlp_reference(x, w1, b1, w2, b2):
@@ -162,9 +171,15 @@ def fused_mlp_routes(x, w1, w2) -> dict:
 def fused_mlp(x, w1, b1, w2, b2):
     """B7 on a CUDA tensor, the plain version on a CPU tensor. b1 and b2
     may come in any float dtype (`layers.Mlp` passes the working dtype);
-    the kernel adds them in f32."""
+    the kernel adds them in f32. On the card it is differentiable as the
+    JAX custom VJP (`pallas_mlp.py:241-269`), the backward recomputed
+    through `fused_mlp_reference` under autograd (`ops/vjp.py`)."""
     if x.device.type == "cpu":
         return fused_mlp_reference(x, w1, b1, w2, b2)
+    return _fused_mlp_vjp(x, w1, b1, w2, b2)
+
+
+def _fused_mlp_cuda(x, w1, b1, w2, b2):
     device = build.require_cuda(x)
     code = build.working_dtype(x)
     m, c = x.shape
@@ -190,3 +205,4 @@ def fused_mlp(x, w1, b1, w2, b2):
 
 
 fused_mlp.launches = 0
+_fused_mlp_vjp = recompute_vjp(_fused_mlp_cuda, fused_mlp_reference, 5)

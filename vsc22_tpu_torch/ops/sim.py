@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from vsc22_tpu_torch.kernels import build
+from vsc22_tpu_torch.ops.vjp import refuse_grad
 
 _ARGTYPES = [build.PTR] * 4 + [build.INT] * 5 + [build.PTR]
 # Rows of a query tile (the kernel's block tile), and the fewest blocks
@@ -47,7 +48,10 @@ def row_max_gemm_reference(queries, refs):
 
 
 def row_max_gemm(queries, refs):
-    """[Nq] f32 row maxima; K3 on CUDA tensors, the plain version on CPU ones."""
+    """[Nq] f32 row maxima; K3 on CUDA tensors, the plain version on CPU
+    ones. Not differentiable, on either device (the JAX kernel has no VJP):
+    raises on an operand that requires grad."""
+    refuse_grad("row_max_gemm", queries, refs)
     if queries.ndim != 2 or refs.ndim != 2 or queries.shape[1] != refs.shape[1]:
         raise ValueError(f"shapes {tuple(queries.shape)} and {tuple(refs.shape)} do not pair")
     if refs.shape[0] == 0:

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from vsc22_tpu_torch.kernels import build
 from vsc22_tpu_torch.ops.gemm import gemm_route
+from vsc22_tpu_torch.ops.vjp import recompute_vjp
 from vsc22_tpu_torch.ops.window_attn import check_window_smem, window_core
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm default
@@ -94,11 +95,21 @@ def swin_block_reference(x, qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b, fc1_w, f
 def swin_block(x, qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b, fc1_w, fc1_b,
                fc2_w, fc2_b, ln2_s, ln2_b, rpb, scale, mask,
                num_heads: int, num_shift_windows: int):
-    """B1 on a CUDA tensor, the plain version on a CPU tensor."""
+    """B1 on a CUDA tensor, the plain version on a CPU tensor. On the card
+    it is differentiable as the JAX custom VJP (`pallas_swin_block.py:598-657`),
+    the backward recomputed through `swin_block_reference`."""
     args = (x, qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b, fc1_w, fc1_b,
             fc2_w, fc2_b, ln2_s, ln2_b, rpb, scale, mask)
     if x.device.type == "cpu":
         return swin_block_reference(*args, num_heads, num_shift_windows)
+    return _swin_block_vjp(*args, num_heads, num_shift_windows)
+
+
+def _swin_block_cuda(x, qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b, fc1_w, fc1_b,
+                     fc2_w, fc2_b, ln2_s, ln2_b, rpb, scale, mask,
+                     num_heads: int, num_shift_windows: int):
+    args = (x, qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b, fc1_w, fc1_b,
+            fc2_w, fc2_b, ln2_s, ln2_b, rpb, scale, mask)
     device = build.require_cuda(x)
     code = build.working_dtype(x)
     w, n, c = x.shape
@@ -138,3 +149,4 @@ def swin_block(x, qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b, fc1_w, fc1_b,
 
 
 swin_block.launches = 0
+_swin_block_vjp = recompute_vjp(_swin_block_cuda, swin_block_reference, 16)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from vsc22_tpu_torch.kernels import build
+from vsc22_tpu_torch.ops.vjp import refuse_grad
 
 NEG_INF = float(np.finfo(np.float32).min)
 MAX_E = 8  # the kernel's template range
@@ -128,7 +129,10 @@ def extract_topk_reference(queries, refs, num_valid: int, *, e: int, tile_r: int
 def extract_topk(queries, refs, num_valid: int, *, e: int, tile_r: int, k: int):
     """(scores [Nq, k] f32, indices [Nq, k] int32, bound [Nq] f32): the row
     top-k of the surfaced entries and the truncation bound. B5 on CUDA
-    tensors, the plain version on CPU ones."""
+    tensors, the plain version on CPU ones. Not differentiable, on either
+    device (the JAX kernel has no VJP): raises on an operand that requires
+    grad."""
+    refuse_grad("extract_topk", queries, refs)
     _check(queries, refs, num_valid, e, tile_r)
     if queries.device.type == "cpu":
         return extract_topk_reference(queries, refs, num_valid, e=e, tile_r=tile_r, k=k)

@@ -42,6 +42,7 @@ from vsc22_tpu_torch.ops.attn_proj import (
 )
 from vsc22_tpu_torch.ops.mlp import _ACT_CODES, _activate, ln_mlp_residual_reference, ln_rows
 from vsc22_tpu_torch.ops.mlp import routes as mlp_routes
+from vsc22_tpu_torch.ops.vjp import recompute_vjp
 
 _LN_EPS = 1e-6
 _ARGTYPES = [build.PTR] * 19 + [build.INT] * 6 + [build.FLOAT, build.INT, build.PTR]
@@ -102,11 +103,21 @@ def vit_block_composed(x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s, ln2
 def vit_block(x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s, ln2_b,
               fc1_w, fc1_b, fc2_w, fc2_b, num_heads: int,
               activation: str = "gelu", eps: float = _LN_EPS):
-    """B10 on a CUDA tensor, the plain version on a CPU tensor."""
+    """B10 on a CUDA tensor, the plain version on a CPU tensor. On the
+    card it is differentiable as the JAX custom VJP (`pallas_vit_block.py:290-327`),
+    the backward recomputed through `vit_block_reference`, as JAX's through
+    its XLA twin."""
     args = (x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s, ln2_b,
             fc1_w, fc1_b, fc2_w, fc2_b)
     if x.device.type == "cpu":
         return vit_block_reference(*args, num_heads, activation, eps)
+    return _vit_block_vjp(*args, num_heads, activation, eps)
+
+
+def _vit_block_cuda(x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s, ln2_b,
+                    fc1_w, fc1_b, fc2_w, fc2_b, num_heads: int, activation: str, eps: float):
+    args = (x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s, ln2_b,
+            fc1_w, fc1_b, fc2_w, fc2_b)
     device = build.require_cuda(x)
     code = build.working_dtype(x)
     if activation not in _ACT_CODES:
@@ -142,3 +153,4 @@ def vit_block(x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s, ln2_b,
 
 
 vit_block.launches = 0
+_vit_block_vjp = recompute_vjp(_vit_block_cuda, vit_block_reference, 13)

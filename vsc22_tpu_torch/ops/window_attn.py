@@ -25,8 +25,10 @@ into two tf32 parts, about 2^-22 of each product kept).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from vsc22_tpu_torch.kernels import build
+from vsc22_tpu_torch.ops.vjp import recompute_vjp
 
 _ARGTYPES = [build.PTR] * 7 + [build.INT] * 6 + [build.PTR]
 
@@ -103,10 +105,41 @@ def window_attention_reference(q, k, v, rpb, scale, mask, num_shift_windows: int
     return torch.einsum("whnm,whmd->whnd", probs, v.float()).to(q.dtype)
 
 
+def window_attention_chunked(q, k, v, rpb, scale, mask, num_shift_windows: int,
+                             max_temp_bytes: int = 128 * 2**20):
+    """The plain version with its [W, H, N, N] f32 logits bounded to chunks
+    of windows, as the JAX `window_attention_chunked`: each chunk of
+    `max_temp_bytes // (H N^2 4)` windows runs `window_attention_reference`,
+    under `torch.utils.checkpoint` while autograd records, so that the
+    forward and the backward each hold one chunk's logits (the backward
+    recomputes them). One call when everything fits."""
+    w, h, n, _ = q.shape
+    chunk = max(1, max_temp_bytes // (h * n * n * 4))
+    if chunk >= w:
+        return window_attention_reference(q, k, v, rpb, scale, mask, num_shift_windows)
+    if chunk % num_shift_windows:  # whole items per chunk keep mask[w % nW] aligned
+        chunk = max(chunk // num_shift_windows, 1) * num_shift_windows
+    record = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v, rpb, scale, mask))
+    outs = []
+    for s in range(0, w, chunk):
+        args = (q[s:s + chunk], k[s:s + chunk], v[s:s + chunk], rpb, scale, mask,
+                num_shift_windows)
+        outs.append(checkpoint(window_attention_reference, *args, use_reentrant=False)
+                    if record else window_attention_reference(*args))
+    return torch.cat(outs)
+
+
 def window_attention(q, k, v, rpb, scale, mask, num_shift_windows: int):
-    """B6 on a CUDA tensor, the plain version on a CPU tensor."""
+    """B6 on a CUDA tensor, the plain version on a CPU tensor. On the card
+    it is differentiable as the JAX custom VJP (`pallas_window_attn.py:139-156`):
+    the backward recomputes through `window_attention_chunked`."""
     if q.device.type == "cpu":
         return window_attention_reference(q, k, v, rpb, scale, mask, num_shift_windows)
+    return _window_attention_vjp(q, k, v, rpb, scale, mask, num_shift_windows)
+
+
+def _window_attention_cuda(q, k, v, rpb, scale, mask, num_shift_windows: int):
     device = build.require_cuda(q)
     code = build.working_dtype(q)
     w, h, n, hd = q.shape
@@ -130,3 +163,4 @@ def window_attention(q, k, v, rpb, scale, mask, num_shift_windows: int):
 
 
 window_attention.launches = 0
+_window_attention_vjp = recompute_vjp(_window_attention_cuda, window_attention_chunked, 6)

@@ -10,9 +10,9 @@ descriptor features written by the extraction CLIs:
       [--query_len_map lens.json] [--device cpu]
 
 Classify and refine weights are the flat `params/...` and
-`batch_stats/...` npz files of the JAX package's `save_cnn_snapshot`, read
-with numpy; `-` stands for seeded random weights (plumbing runs only).
-Runs on the card unless `--device` names another device.
+`batch_stats/...` npz files of the JAX package's `save_cnn_snapshot`
+(read by `jax_params.npz_tree`); `-` stands for seeded random weights
+(plumbing runs only). Runs on the card unless `--device` names another device.
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ import argparse
 import json
 import logging
 
-import numpy as np
 import torch
 
 from vsc22_tpu_torch.core.device import resolve
@@ -37,24 +36,11 @@ from vsc22_tpu_torch.pipelines.matching_infer import (
 )
 from vsc22_tpu_torch.pipelines.query_extract import calculate_low_var_dim
 from vsc22_tpu_torch.retrieval.score_norm import query_score_normalize, ref_score_normalize
-from vsc22_tpu_torch.utils.jax_params import load_mobilenetv3, load_sam_hrnet
+from vsc22_tpu_torch.utils.jax_params import load_mobilenetv3, load_sam_hrnet, npz_tree
 
 logger = logging.getLogger("matching_cli")
 
 COLUMNS = ["query_id", "ref_id", "query_start", "query_end", "ref_start", "ref_end", "score"]
-
-
-def load_cnn_snapshot(path: str) -> dict:
-    """A `save_cnn_snapshot` npz as the nested {params, batch_stats} tree."""
-    tree: dict = {}
-    with np.load(path) as data:
-        for key in data.files:
-            *parents, leaf = key.split("/")
-            node = tree
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = data[key]
-    return tree
 
 
 def _load_cnn(build, loader, params_paths, device):
@@ -65,7 +51,7 @@ def _load_cnn(build, loader, params_paths, device):
         if p == "-":
             reset_parameters(model, torch.Generator().manual_seed(0))
         else:
-            loader(model, load_cnn_snapshot(p))
+            loader(model, npz_tree(p))  # a save_cnn_snapshot npz
         out.append(model.to(device).eval())
     return out
 

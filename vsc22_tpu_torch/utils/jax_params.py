@@ -11,9 +11,18 @@ scale and bias come from `params` and its running mean and variance from
 `batch_stats`, and every array is copied into the existing parameter
 (which casts it to that parameter's dtype and device). A shape that does
 not fit raises. Nothing here imports JAX.
+
+The other direction, for the ViT and SwinV2 descriptors, the VSM and the
+matching CNNs: `jax_flat_params` writes a port model's tensors (or its
+EMA) under the flat `/`-joined keys and in the layouts of the JAX
+package's `save_ema_snapshot` and `save_cnn_snapshot`, so that a port
+snapshot loads into the JAX model and a JAX snapshot into the port's
+(`train/checkpoint.py`).
 """
 
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -68,24 +77,167 @@ def _params(variables) -> dict:
     return variables["params"] if "params" in variables else variables
 
 
+# --- both directions from one table ------------------------------------------
+#
+# For the ViT and SwinV2 descriptors, the VSM and the matching CNNs, an
+# entry list names every JAX leaf: (its key path from the collection down,
+# the port tensor it fills, the layout between them). `load_*` fills the
+# model from a tree; `jax_flat_params` writes the flat `/`-joined keys of
+# the JAX package's `save_ema_snapshot` and `save_cnn_snapshot`.
+
+_TO_PORT = {
+    "id": lambda a: a,
+    "T": lambda a: a.T,  # Dense kernel [in, out] <-> Linear [out, in]
+    "conv": lambda a: a.transpose(3, 2, 0, 1),  # HWIO <-> OIHW
+    "k00": lambda a: a[0, 0],  # a 1x1 conv kernel [1, 1, in, out] <-> [in, out]
+    "k00T": lambda a: a[0, 0].T,  # ... <-> [out, in]
+}
+_TO_JAX = {
+    "id": lambda a: a,
+    "T": lambda a: a.T,
+    "conv": lambda a: a.transpose(2, 3, 1, 0),
+    "k00": lambda a: a[None, None],
+    "k00T": lambda a: a.T[None, None],
+}
+
+
+def _e_dense(key, mod: Linear):
+    out = [(key + ("kernel",), mod.weight, "T")]
+    if mod.bias is not None:
+        out.append((key + ("bias",), mod.bias, "id"))
+    return out
+
+
+def _e_ln(key, mod: LayerNorm):
+    return [(key + ("scale",), mod.weight, "id"), (key + ("bias",), mod.bias, "id")]
+
+
+def _e_conv(key, mod):
+    out = [(key + ("kernel",), mod.weight, "conv")]
+    if getattr(mod, "bias", None) is not None:
+        out.append((key + ("bias",), mod.bias, "id"))
+    return out
+
+
+def _e_mlp(key, mlp):
+    return [(key + ("fc1_kernel",), mlp.fc1.weight, "T"), (key + ("fc1_bias",), mlp.fc1.bias, "id"),
+            (key + ("fc2_kernel",), mlp.fc2.weight, "T"), (key + ("fc2_bias",), mlp.fc2.bias, "id")]
+
+
+def vit_entries(model: VitDescriptor) -> list:
+    bb = ("params", "backbone")
+    vit = model.backbone
+    out = _e_conv(bb + ("patch_embed",), vit.patch_embed)
+    out += [(bb + ("cls_token",), vit.cls_token, "id"), (bb + ("pos_embed",), vit.pos_embed, "id")]
+    for i, block in enumerate(vit.blocks):
+        t = bb + (f"block{i}",)
+        out += _e_ln(t + ("norm1",), block.norm1)
+        out += _e_dense(t + ("attn", "qkv"), block.attn.qkv)
+        out += _e_dense(t + ("attn", "proj"), block.attn.proj)
+        out += _e_ln(t + ("norm2",), block.norm2)
+        out += _e_mlp(t + ("mlp",), block.mlp)
+    out += _e_ln(bb + ("norm",), vit.norm)
+    out += _e_dense(("params", "gem", "proj"), model.gem.proj)
+    return out + _e_dense(("params", "head"), model.head)
+
+
+def swinv2_entries(model: SwinTransformerV2) -> list:
+    """The JAX `SwinTransformerV2` tree (either block path: both declare it)."""
+    p = ("params",)
+    out = _e_conv(p + ("patch_embed",), model.patch_embed)
+    out += _e_ln(p + ("patch_norm",), model.patch_norm)
+    for s, blocks in enumerate(model.stages):
+        for i, block in enumerate(blocks):
+            t = p + (f"stage{s}_block{i}",)
+            a, ta = block.attn, t + ("attn",)
+            out += [(ta + ("logit_scale",), a.logit_scale, "id"),
+                    (ta + ("qkv_kernel",), a.qkv_weight, "T"),
+                    (ta + ("q_bias",), a.q_bias, "id"), (ta + ("v_bias",), a.v_bias, "id")]
+            out += _e_dense(ta + ("cpb_fc1",), a.cpb_fc1) + _e_dense(ta + ("cpb_fc2",), a.cpb_fc2)
+            out += _e_dense(ta + ("proj",), a.proj)
+            out += _e_ln(t + ("norm1",), block.norm1) + _e_mlp(t + ("mlp",), block.mlp)
+            out += _e_ln(t + ("norm2",), block.norm2)
+    for s, merge in enumerate(model.merges):
+        out += _e_dense(p + (f"merge{s}", "reduction"), merge.reduction)
+        out += _e_ln(p + (f"merge{s}", "norm"), merge.norm)
+    return out + _e_ln(p + ("norm",), model.norm) + _e_dense(p + ("output_proj",),
+                                                            model.output_proj)
+
+
+def vsm_entries(model: VideoScoreModel) -> list:
+    p = ("params",)
+    out = _e_dense(p + ("frame_proj",), model.frame_proj) + _e_ln(p + ("frame_norm",),
+                                                                  model.frame_norm)
+    out += [(p + ("cls_emb",), model.cls_emb, "id"), (p + ("sep_emb",), model.sep_emb, "id"),
+            (p + ("pos_embed",), model.pos_embed, "id")]
+    out += _e_ln(p + ("emb_norm",), model.emb_norm)
+    for i, layer in enumerate(model.layers):
+        t = p + (f"layer{i}",)
+        out += _e_dense(t + ("attn", "qkv"), layer.attn.qkv)
+        out += _e_dense(t + ("attn", "proj"), layer.attn.proj)
+        out += _e_ln(t + ("ln_attn",), layer.ln_attn)
+        out += _e_dense(t + ("fc1",), layer.fc1) + _e_dense(t + ("fc2",), layer.fc2)
+        out += _e_ln(t + ("ln_mlp",), layer.ln_mlp)
+    return out + _e_dense(p + ("output_proj",), model.output_proj)
+
+
+def npz_tree(path: str) -> dict:
+    """An npz of flat `/`-joined keys (a JAX package snapshot) as the
+    nested tree the loaders take."""
+    tree: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+    return tree
+
+
+def _leaf(tree, key):
+    for k in key:
+        tree = tree[k]
+    return tree
+
+
+def _flat_keys(tree, prefix=()) -> set:
+    if not isinstance(tree, Mapping):
+        return {prefix}
+    return set().union(*(_flat_keys(v, prefix + (k,)) for k, v in tree.items())) \
+        if tree else set()
+
+
+@torch.no_grad()
+def load_entries(entries, variables) -> None:
+    """Fill each entry's tensor from `variables` (a {params[, batch_stats]}
+    tree, or the params alone); a leaf on one side only raises."""
+    tree = variables if "params" in variables else {"params": variables}
+    want = {key for key, _, _ in entries}
+    have = _flat_keys({k: tree[k] for k in {key[0] for key in want}})
+    if want != have:
+        raise ValueError(f"JAX leaves without a port tensor: {sorted(have - want)[:4]}; "
+                         f"port tensors without a JAX leaf: {sorted(want - have)[:4]}")
+    for key, dst, layout in entries:
+        _copy(dst, _TO_PORT[layout](np.asarray(_leaf(tree, key))))
+
+
+def jax_flat_params(entries, tensors=None) -> dict:
+    """{"params/.../kernel": numpy array in the JAX layout} from an entry
+    list: the flat keys and layouts the JAX package's `save_ema_snapshot`
+    writes. `tensors`, where given, maps each entry's port tensor (by
+    identity: `{id(param): value}`) to the value to write instead, such as
+    an EMA."""
+    out = {}
+    for key, t, layout in entries:
+        v = t if tensors is None else tensors.get(id(t), t)
+        out["/".join(key)] = _TO_JAX[layout](v.detach().float().cpu().numpy())
+    return out
+
+
 @torch.no_grad()
 def load_vit_descriptor(model: VitDescriptor, variables) -> VitDescriptor:
-    p = _params(variables)
-    bb = p["backbone"]
-    vit = model.backbone
-    _conv(vit.patch_embed, bb["patch_embed"])
-    _copy(vit.cls_token, bb["cls_token"])
-    _copy(vit.pos_embed, bb["pos_embed"])
-    for i, block in enumerate(vit.blocks):
-        t = bb[f"block{i}"]
-        _ln(block.norm1, t["norm1"])
-        _attention(block.attn, t["attn"])
-        _ln(block.norm2, t["norm2"])
-        _dense(block.mlp.fc1, t["mlp"]["fc1_kernel"], t["mlp"]["fc1_bias"])
-        _dense(block.mlp.fc2, t["mlp"]["fc2_kernel"], t["mlp"]["fc2_bias"])
-    _ln(vit.norm, bb["norm"])
-    _dense(model.gem.proj, p["gem"]["proj"]["kernel"], p["gem"]["proj"]["bias"])
-    _dense(model.head, p["head"]["kernel"], p["head"]["bias"])
+    load_entries(vit_entries(model), variables)
     return model
 
 
@@ -93,29 +245,7 @@ def load_vit_descriptor(model: VitDescriptor, variables) -> VitDescriptor:
 def load_swinv2_descriptor(model: SwinTransformerV2, variables) -> SwinTransformerV2:
     """The JAX `SwinTransformerV2` tree (either block path: both declare
     it) into the port's model."""
-    p = _params(variables)
-    _conv(model.patch_embed, p["patch_embed"])
-    _ln(model.patch_norm, p["patch_norm"])
-    for s, blocks in enumerate(model.stages):
-        for i, block in enumerate(blocks):
-            t = p[f"stage{s}_block{i}"]
-            a, ta = block.attn, t["attn"]
-            _copy(a.logit_scale, ta["logit_scale"])
-            _copy(a.qkv_weight, np.asarray(ta["qkv_kernel"]).T)
-            _copy(a.q_bias, ta["q_bias"])
-            _copy(a.v_bias, ta["v_bias"])
-            _dense_tree(a.cpb_fc1, ta["cpb_fc1"])
-            _dense_tree(a.cpb_fc2, ta["cpb_fc2"])
-            _dense_tree(a.proj, ta["proj"])
-            _ln(block.norm1, t["norm1"])
-            _dense(block.mlp.fc1, t["mlp"]["fc1_kernel"], t["mlp"]["fc1_bias"])
-            _dense(block.mlp.fc2, t["mlp"]["fc2_kernel"], t["mlp"]["fc2_bias"])
-            _ln(block.norm2, t["norm2"])
-    for s, merge in enumerate(model.merges):
-        _dense_tree(merge.reduction, p[f"merge{s}"]["reduction"])
-        _ln(merge.norm, p[f"merge{s}"]["norm"])
-    _ln(model.norm, p["norm"])
-    _dense_tree(model.output_proj, p["output_proj"])
+    load_entries(swinv2_entries(model), variables)
     return model
 
 
@@ -139,21 +269,7 @@ def load_clip_visual(model: CLIPVisual, variables) -> CLIPVisual:
 
 @torch.no_grad()
 def load_video_score_model(model: VideoScoreModel, variables) -> VideoScoreModel:
-    p = _params(variables)
-    _dense(model.frame_proj, p["frame_proj"]["kernel"], p["frame_proj"]["bias"])
-    _ln(model.frame_norm, p["frame_norm"])
-    _copy(model.cls_emb, p["cls_emb"])
-    _copy(model.sep_emb, p["sep_emb"])
-    _copy(model.pos_embed, p["pos_embed"])
-    _ln(model.emb_norm, p["emb_norm"])
-    for i, layer in enumerate(model.layers):
-        t = p[f"layer{i}"]
-        _attention(layer.attn, t["attn"])
-        _ln(layer.ln_attn, t["ln_attn"])
-        _dense(layer.fc1, t["fc1"]["kernel"], t["fc1"]["bias"])
-        _dense(layer.fc2, t["fc2"]["kernel"], t["fc2"]["bias"])
-        _ln(layer.ln_mlp, t["ln_mlp"])
-    _dense(model.output_proj, p["output_proj"]["kernel"], p["output_proj"]["bias"])
+    load_entries(vsm_entries(model), variables)
     return model
 
 
@@ -164,77 +280,89 @@ def load_multi_head_attention(model: MultiHeadAttention, variables) -> MultiHead
     return model
 
 
-def _conv_bn(mod, params, stats) -> None:
-    """A JAX `ConvBNAct` / `ConvBN` ({Conv_0, BatchNorm_0}) into the port's."""
-    _copy(mod.conv.weight, np.asarray(params["Conv_0"]["kernel"]).transpose(3, 2, 0, 1))
-    bn, p, s = mod.bn, params["BatchNorm_0"], stats["BatchNorm_0"]
-    _copy(bn.weight, p["scale"])
-    _copy(bn.bias, p["bias"])
-    _copy(bn.mean, s["mean"])
-    _copy(bn.var, s["var"])
+def _e_conv_bn(key, mod) -> list:
+    """A JAX `ConvBNAct` / `ConvBN` ({Conv_0, BatchNorm_0}): the conv kernel
+    and BN scale and bias in `params`, the running mean and variance in
+    `batch_stats`."""
+    p, s = ("params",) + key, ("batch_stats",) + key
+    return [(p + ("Conv_0", "kernel"), mod.conv.weight, "conv"),
+            (p + ("BatchNorm_0", "scale"), mod.bn.weight, "id"),
+            (p + ("BatchNorm_0", "bias"), mod.bn.bias, "id"),
+            (s + ("BatchNorm_0", "mean"), mod.bn.mean, "id"),
+            (s + ("BatchNorm_0", "var"), mod.bn.var, "id")]
+
+
+def _dense_p(key, mod: Linear) -> list:
+    return _e_dense(("params",) + key, mod)
+
+
+def mobilenetv3_entries(model: MobileNetV3Small) -> list:
+    out = _e_conv_bn(("stem",), model.stem)
+    for i, block in enumerate(model.blocks):
+        for name in ("expand", "dw", "project"):
+            if getattr(block, name) is not None:
+                out += _e_conv_bn((f"block{i}", name), getattr(block, name))
+        if block.se is not None:
+            out += _dense_p((f"block{i}", "se", "fc1"), block.se.fc1)
+            out += _dense_p((f"block{i}", "se", "fc2"), block.se.fc2)
+    out += _e_conv_bn(("head_conv",), model.head_conv)
+    return out + _dense_p(("pre_logits",), model.pre_logits) + _dense_p(("classifier",),
+                                                                       model.classifier)
+
+
+def _hr_module_entries(key, mod) -> list:
+    out = []
+    for i, blocks in enumerate(mod.branches):
+        for b, block in enumerate(blocks):
+            t = key + (f"branch{i}_block{b}",)
+            out += _e_conv_bn(t + ("conv1",), block.conv1) + _e_conv_bn(t + ("conv2",),
+                                                                        block.conv2)
+    for name, f in mod.fuse.items():
+        if isinstance(f, torch.nn.ModuleList):
+            for k, step in enumerate(f):
+                out += _e_conv_bn(key + (f"fuse{name}_step{k}",), step)
+        else:
+            out += _e_conv_bn(key + (f"fuse{name}",), f)
+    return out
+
+
+def sam_hrnet_entries(model: SAMHRNet) -> list:
+    """The JAX `SAMHRNet` tree (either `s2d_branch0` setting: both declare it)."""
+    bb, k = model.backbone, ("backbone",)
+    out = []
+    for name in ("stem1", "stem2", "trans2", "trans3"):
+        out += _e_conv_bn(k + (name,), getattr(bb, name))
+    for b, block in enumerate(bb.layer1):
+        for name in ("conv1", "conv2", "conv3", "downsample"):
+            if getattr(block, name) is not None:
+                out += _e_conv_bn(k + (f"layer1_{b}", name), getattr(block, name))
+    for i, t in enumerate(bb.trans1):
+        out += _e_conv_bn(k + (f"trans1_{i}",), t)
+    for stage in ("stage2", "stage3", "stage4"):
+        for m, mod in enumerate(getattr(bb, stage)):
+            out += _hr_module_entries(k + (f"{stage}_m{m}",), mod)
+    p = ("params",)
+    return out + [(p + ("fuse1", "kernel"), model.fuse1_weight, "k00"),
+                  (p + ("fuse1", "bias"), model.fuse1_bias, "id"),
+                  (p + ("fuse2", "kernel"), model.fuse2_weight, "k00T"),
+                  (p + ("fuse2", "bias"), model.fuse2_bias, "id")]
 
 
 def _cnn_trees(variables):
     if "batch_stats" not in variables:
         raise ValueError("a BatchNorm CNN needs its batch_stats collection")
-    return variables["params"], variables["batch_stats"]
+    return variables
 
 
 @torch.no_grad()
 def load_mobilenetv3(model: MobileNetV3Small, variables) -> MobileNetV3Small:
-    p, s = _cnn_trees(variables)
-    _conv_bn(model.stem, p["stem"], s["stem"])
-    for i, block in enumerate(model.blocks):
-        bp, bs = p[f"block{i}"], s[f"block{i}"]
-        if (block.expand is None) != ("expand" not in bp) or (block.se is None) != ("se" not in bp):
-            raise ValueError(f"block{i}: the expand or SE layers differ")
-        for name in ("expand", "dw", "project"):
-            if getattr(block, name) is not None:
-                _conv_bn(getattr(block, name), bp[name], bs[name])
-        if block.se is not None:
-            _dense_tree(block.se.fc1, bp["se"]["fc1"])
-            _dense_tree(block.se.fc2, bp["se"]["fc2"])
-    _conv_bn(model.head_conv, p["head_conv"], s["head_conv"])
-    _dense_tree(model.pre_logits, p["pre_logits"])
-    _dense_tree(model.classifier, p["classifier"])
+    load_entries(mobilenetv3_entries(model), _cnn_trees(variables))
     return model
-
-
-def _hr_module(mod, p, s) -> None:
-    for i, blocks in enumerate(mod.branches):
-        for b, block in enumerate(blocks):
-            t = f"branch{i}_block{b}"
-            _conv_bn(block.conv1, p[t]["conv1"], s[t]["conv1"])
-            _conv_bn(block.conv2, p[t]["conv2"], s[t]["conv2"])
-    for key, f in mod.fuse.items():
-        if isinstance(f, torch.nn.ModuleList):
-            for k, step in enumerate(f):
-                _conv_bn(step, p[f"fuse{key}_step{k}"], s[f"fuse{key}_step{k}"])
-        else:
-            _conv_bn(f, p[f"fuse{key}"], s[f"fuse{key}"])
 
 
 @torch.no_grad()
 def load_sam_hrnet(model: SAMHRNet, variables) -> SAMHRNet:
     """The JAX `SAMHRNet` tree (either `s2d_branch0` setting: both declare
     it) into the port's model."""
-    p, s = _cnn_trees(variables)
-    bp, bs = p["backbone"], s["backbone"]
-    bb = model.backbone
-    for name in ("stem1", "stem2", "trans2", "trans3"):
-        _conv_bn(getattr(bb, name), bp[name], bs[name])
-    for b, block in enumerate(bb.layer1):
-        t = f"layer1_{b}"
-        for name in ("conv1", "conv2", "conv3", "downsample"):
-            if getattr(block, name) is not None:
-                _conv_bn(getattr(block, name), bp[t][name], bs[t][name])
-    for i, t in enumerate(bb.trans1):
-        _conv_bn(t, bp[f"trans1_{i}"], bs[f"trans1_{i}"])
-    for stage in ("stage2", "stage3", "stage4"):
-        for m, mod in enumerate(getattr(bb, stage)):
-            _hr_module(mod, bp[f"{stage}_m{m}"], bs[f"{stage}_m{m}"])
-    _copy(model.fuse1_weight, np.asarray(p["fuse1"]["kernel"])[0, 0])
-    _copy(model.fuse1_bias, p["fuse1"]["bias"])
-    _copy(model.fuse2_weight, np.asarray(p["fuse2"]["kernel"])[0, 0].T)
-    _copy(model.fuse2_bias, p["fuse2"]["bias"])
+    load_entries(sam_hrnet_entries(model), _cnn_trees(variables))
     return model

@@ -7,7 +7,8 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
 result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      and the build of every CUDA kernel from `vsc22_tpu_torch/csrc/`, one
-     nvcc per source, all started together;
+     nvcc per source, all started together, and beside them the g++ build
+     of the host library of the alignment methods (`vta_kernels.cpp`);
   2. each kernel against its plain PyTorch version on the card, in float32
      (TF32 off) and bfloat16: K1 and K2 at a full 128-frame chunk of each
      model (ViT-B/32, CLIP ViT-L/14), each naming the loop of its products
@@ -59,8 +60,9 @@ result line):
      `scripts/scaled_eval.py` (40,000 ref videos x 32 frames x 512-d on the
      card, 4,000 noise videos, 100 planted copies), on 1,000 query videos:
      score-norm, the exact global budget search of 1200 hits per query
-     (B5), the top 25 candidates, TN localization of the top 5 in a process
-     pool, candidate µAP > 0.95; B5's launches cover every 4096-row query
+     (B5), the top 25 candidates, TN localization of the top 5 (the host
+     library, in the calling process), candidate µAP > 0.95; B5's launches
+     cover every 4096-row query
      tile, all on the tensor-core route; for 256 sampled query rows
      `row_topk` on B5 equals the exact per-tile path; then the search alone
      at all 2,000 query videos, again all on the tensor-core route. Every
@@ -104,8 +106,28 @@ result line):
      the launches per step (K1 and K2 24 each; B7 48 on bf16 tensor cores,
      no B1 or B6), images/s, step ms, peak memory, model TFLOP/s; (e) one
      profiled step of each, device time by family and the idle share;
-  9. a JSON line of per-kernel numbers (B5's launches: phases 5 and 7),
+  9. the matching track's trainers (`train/matching.py`) and alignment
+     methods, with cuDNN's TF32 flag on: (a) three f32 steps of
+     MobileNetV3-Small (64^2, batch 8, dropout 0) and the tiny SAM (32^2,
+     batch 2), card against CPU (first-step gradients, losses, BN buffers,
+     params after); (b) MobileNetV3-Small at 160^2, batch 64, dropout 0.2
+     and (c) SAM HRNet-W18 at 128^2, batch 8, soft-band labels, both f32 at
+     AdamW lr 1e-4, wd 5e-5 on one fixed batch of planted and noise sim
+     images: a warm-up step, 8 (MobileNetV3) or 3 (SAM) timed steps
+     whose loss must fall, step ms,
+     images/s, peak memory and one profiled step's idle share; (d) the
+     training CLI (`train/matching_cli.py`) end to end on a planted corpus
+     of 6 queries x 2 candidates with both full-width models, its files
+     checked, and its four snapshots loaded into the inference CLI
+     (`pipelines/matching_cli.py`) and run over the same corpus; (e) native
+     TN equal to the Python DAG on phase 5's first 200 eval maps, the
+     native DP fill equal to numpy's bit for bit on 5, DTW, DP and HV each
+     finding a planted copy, and phase 5's TN wall;
+ 10. a JSON line of per-kernel numbers (B5's launches: phases 5 and 7),
      then the device line.
+
+With `--training-only` it runs phases 1, 8 and 9 alone (9(e) then on
+synthetic maps of phase 5's shape) and prints no result lines.
 
 Needs CUDA (it refuses to run without) and no network; builds in
 `vsc22_tpu_torch/_build/`. It imports nothing of JAX or of the JAX package.
@@ -1364,11 +1386,13 @@ def run_eval(device, wrappers, card: str, corpus, corpus_s: float) -> dict:
     """The descriptor-track eval path as `scripts/scaled_eval.py` runs it:
     score-norm (beta 1.2, nk 1), the global budget search of 1200 hits per
     query (f16 transfer), the top 25 candidates per query, TN localization
-    of the top 5 (score-normalised, a process pool), candidate µAP on the
+    of the top 5 (score-normalised, in this process: the host library
+    aligns the 5,000 pairs in ~1 s, a pool of 8 workers took ~10 s to
+    start on the card's host), candidate µAP on the
     planted copies. Then the B5 cross-check and the search alone at the
     full query count, on `corpus` (`make_corpus`'s, drawn in `corpus_s`
     seconds). Returns (the launches of the eval path, the corpus (queries,
-    refs, noise) for phase 7)."""
+    refs, noise) for phase 7, and phase 9's TN maps and the TN wall)."""
     from vsc22_tpu_torch.align.vta import BaseVtaModel
     from vsc22_tpu_torch.core.metrics import average_precision
     from vsc22_tpu_torch.core.types import CandidatePair
@@ -1382,7 +1406,7 @@ def run_eval(device, wrappers, card: str, corpus, corpus_s: float) -> dict:
     )
     from vsc22_tpu_torch.retrieval.search import QUERY_TILE  # one B5 launch per tile
 
-    sizes, concurrency = EVAL_SIZES, min(8, os.cpu_count() or 1)
+    sizes = EVAL_SIZES
     stages: dict = {}
     queries, refs, noise, gt = corpus
     stages["corpus_gen"] = corpus_s
@@ -1414,12 +1438,17 @@ def run_eval(device, wrappers, card: str, corpus, corpus_s: float) -> dict:
           "tensor-core route")
     with call_times([(BaseVtaModel, "forward_sim", "alignment")]) as tn_times:
         matches = timed_stage(stages, "tn_localization", lambda: localize_and_verify(
-            sn_q, sn_refs, candidates, score_normalization=True, concurrency=concurrency))
-    print(f"    split: TN alignment in {concurrency} worker processes "
-          f"{tn_times['alignment']:.3f} s, the rest (maps, matches, pool start and stop) "
-          f"{stages['tn_localization'] - tn_times['alignment']:.3f} s", flush=True)
+            sn_q, sn_refs, candidates, score_normalization=True))
+    print(f"    split: TN alignment (native, in this process) {tn_times['alignment']:.3f} s, "
+          f"the rest (maps, matches) {stages['tn_localization'] - tn_times['alignment']:.3f} s",
+          flush=True)
     ap = timed_stage(stages, "metrics", lambda: average_precision(gt_pairs, candidates)).ap
     launches = counts(wrappers)
+    # Phase 9's TN check: the maps the alignment got for the first candidates.
+    q_feats = {q.video_id: q.feature for q in sn_q}
+    r_feats = {r.video_id: r.feature for r in sn_refs}
+    tn_maps = [np.matmul(q_feats[c.query_id], r_feats[c.ref_id].T) + 0.5
+               for c in candidates[:TN_MAPS]]
     # K3 alone on the operands of that score-norm, with its products as
     # chunked f16 cuBLAS calls beside.
     q_rows, n_rows = (np.concatenate([f.feature for f in score_norm._prepare(v, low_var, True)])
@@ -1473,7 +1502,7 @@ def run_eval(device, wrappers, card: str, corpus, corpus_s: float) -> dict:
     check(0 < len(full) <= 25 * n_all and full_ap > 0.95, "full search: bad candidates")
     print(f"  stage walls on {card}: " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()),
           flush=True)
-    return launches, (queries, refs, noise)
+    return launches, (queries, refs, noise), (tn_maps, stages["tn_localization"])
 
 
 # --- phase 6: the CLIP block variants ------------------------------------------
@@ -2371,6 +2400,367 @@ def run_training(device, card: str) -> None:
     print(f"  8(d)-(e) took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# --- phase 9: the matching track's trainers and the alignment methods ---------------
+
+# Card against CPU, three f32 train steps of each matching CNN from the same
+# weights and batch, at the trainers' lr: the bars of
+# tests/test_torch_matching_train.py (the port against JAX on the CPU). The
+# first step's gradients per leaf within TRAIN_GRAD_TOL of the CPU leaf's max
+# |g| (a leaf that is rounding residue on the CPU, at most TRAIN_ROUNDING_GRAD
+# of the step's largest |g|, must be residue on the card too), its loss
+# TRAIN_LOSS_TOL relative and its BN buffers CNN_BN_ATOL; the later steps'
+# losses CNN_LATER_LOSS_TOL and buffers CNN_LATER_BN_ATOL (Adam's eps 1e-8
+# moves each rounding-noise element a full lr either way); the params after
+# three steps by phase 8's rule. cuDNN's TF32 flag is ON (torch's default)
+# for the whole phase: a convolution whose forward or backward ran in TF32
+# (~1e-3 relative) would fail the gradient bar.
+CNN_LR = 1e-4
+CNN_BN_ATOL = 1e-6
+CNN_LATER_LOSS_TOL = 1e-4
+CNN_LATER_BN_ATOL = 5e-5
+# Timed steps of 9(b) and 9(c), cut for the time budget (PERF.md §4): the
+# SAM's step is ~0.5 s, launch bound.
+CNN_TIMED_STEPS = {"mnv3": 8, "sam": 3}
+# 9(e): phase 5's eval maps whose boxes native TN and the Python DAG must
+# share, and the maps whose DP fills must be equal bit for bit.
+TN_MAPS = 200
+DP_MAPS = 5
+
+
+def planted_batch(rng, n, res):
+    """n sim-like [res, res, 3] images (`sim_like_images`); the even ones
+    carry a copy planted on a diagonal at 0.9. Returns (images, class
+    labels 1 planted / 0 not, soft-band labels as the refine trainer draws
+    them)."""
+    from vsc22_tpu_torch.train.matching import soft_band_label
+
+    x = sim_like_images(rng, n, res, res // 2, res + 1).numpy()
+    cls = np.zeros(n, np.int64)
+    band = np.zeros((n, res, res), np.float32)
+    for i in range(0, n, 2):
+        length = int(rng.integers(res // 8, res // 4 + 1))
+        q0, r0 = (int(v) for v in rng.integers(0, res // 4, 2))
+        d = np.arange(length)
+        x[i, q0 + d, r0 + d] = 0.9
+        cls[i] = 1
+        band[i] = soft_band_label((res, res), [(q0, q0 + length - 1, r0, r0 + length - 1)])
+    return torch.from_numpy(x), torch.from_numpy(cls), torch.from_numpy(band)
+
+
+def check_cnn_steps(device) -> None:
+    """9(a): three f32 steps of MobileNetV3-Small (64^2, batch 8, dropout 0)
+    and the tiny SAM (32^2, batch 2), card against CPU (see CNN_LR)."""
+    from vsc22_tpu_torch.models.hrnet import sam_hrnet_tiny_test
+    from vsc22_tpu_torch.models.mobilenetv3 import mobilenetv3_small
+    from vsc22_tpu_torch.train import matching as tm
+
+    gen, rng = torch.Generator().manual_seed(91), np.random.default_rng(91)
+    mnv3 = mobilenetv3_small(device="cpu", dropout=0.0)
+    lively_weights(mnv3, gen)
+    x, cls, _ = planted_batch(rng, 8, 64)
+    sam = sam_hrnet_tiny_test()
+    lively_weights(sam, gen)
+    xs, _, band = planted_batch(rng, 2, 32)
+    for label, cpu_model, images, targets, make in (
+            ("MobileNetV3-Small [8, 64, 64]", mnv3, x, cls, tm.make_classify_train_step),
+            ("SAM HRNet-tiny [2, 32, 32]", sam, xs, band, tm.make_refine_train_step)):
+        runs = []
+        for dev in ("cpu", device):
+            model = copy.deepcopy(cpu_model).to(dev)
+            tx = tm.make_cnn_optimizer(CNN_LR)
+            state, step = tm.create_cnn_state(model, tx), make(model, tx)
+            im, tg = images.to(dev), targets.to(dev)
+            seeds, losses, stats, grads = torch.Generator().manual_seed(0), [], [], None
+            for _ in range(3):
+                loss, g = step.gradients(im, tg, seeds)
+                state = step.update(state, g)
+                grads = g if grads is None else grads  # the first step's
+                losses.append(float(loss))
+                stats.append({k: v.detach().cpu().clone() for k, v in state.batch_stats.items()})
+            runs.append(([g.cpu() for g in grads], losses, stats,
+                         {k: v.cpu() for k, v in state.params.items()}))
+        (g_cpu, l_cpu, s_cpu, p_cpu), (g_card, l_card, s_card, p_card) = runs
+        top = max(float(g.abs().max()) for g in g_cpu)
+        grad_err, residue_ok = 0.0, True
+        for a, b in zip(g_cpu, g_card):
+            scale = float(a.abs().max())
+            if scale <= TRAIN_ROUNDING_GRAD * top:
+                residue_ok &= float(b.abs().max()) <= TRAIN_ROUNDING_GRAD * top
+            else:
+                grad_err = max(grad_err, float((a - b).abs().max()) / scale)
+        loss_err = [abs(a - b) / abs(a) for a, b in zip(l_cpu, l_card)]
+        bn_err = [max(float((a[k] - b[k]).abs().max()) for k in a) for a, b in zip(s_cpu, s_card)]
+        over, total, worst = 0, 0, 0.0
+        for (name, want), g in zip(p_cpu.items(), g_cpu):
+            err = (p_card[name] - want).abs()[g.abs() > TRAIN_ROUNDING_GRAD * top]
+            worst = max(worst, float(err.max()) if err.numel() else 0.0)
+            over += int((err > TRAIN_PARAM_ATOL).sum())
+            total += err.numel()
+        print(f"  {label} f32, 3 steps (lr {CNN_LR:g}, eps 1e-8, TF32 flag on), card vs CPU: "
+              f"first-step gradients {grad_err:.3e} of each leaf's max (tol {TRAIN_GRAD_TOL:g}; "
+              f"residue leaves {'stay residue' if residue_ok else 'DO NOT stay residue'}), losses "
+              f"{[round(v, 6) for v in l_card]} (rel {[f'{e:.1e}' for e in loss_err]}), BN "
+              f"buffers {[f'{e:.1e}' for e in bn_err]}, params worst {worst:.3e} (tol "
+              f"{TRAIN_PARAM_WORST:g}), {over} of {total} over {TRAIN_PARAM_ATOL:g}", flush=True)
+        check(grad_err <= TRAIN_GRAD_TOL and residue_ok, f"{label}: gradients on the card differ")
+        check(loss_err[0] <= TRAIN_LOSS_TOL and max(loss_err[1:]) <= CNN_LATER_LOSS_TOL,
+              f"{label}: losses on the card differ")
+        check(bn_err[0] <= CNN_BN_ATOL and max(bn_err[1:]) <= CNN_LATER_BN_ATOL,
+              f"{label}: BN buffers on the card differ")
+        check(worst <= TRAIN_PARAM_WORST and over <= TRAIN_PARAM_MAX_SHARE * total,
+              f"{label}: params on the card differ after three steps")
+
+
+def step_profile(run) -> float:
+    """run() once under torch.profiler: wall, device time, the idle share
+    and the largest kernels; returns the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    top = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                 reverse=True)
+    device_ms = sum(t[0] for t in top)
+    idle = 1 - device_ms / 1e3 / wall
+    print(f"    profiled step: wall {1e3 * wall:.1f} ms, device {device_ms:.1f} ms, idle "
+          f"{idle:.1%} of the wall (under the profiler); {sum(t[1] for t in top)} launches",
+          flush=True)
+    for ms, calls, key in top[:6]:
+        print(f"      {ms:8.2f} ms {ms / device_ms:6.1%} {calls:6d} calls  {key[:100]}", flush=True)
+    return idle
+
+
+def run_cnn_bench(label, model, images, targets, make, card: str, steps: int) -> dict:
+    """9(b)/(c): the trainer's step at the JAX defaults (f32, AdamW lr 1e-4,
+    wd 5e-5) on one fixed device batch: a warm-up step, `steps` timed
+    steps (the loss read after them), one profiled step."""
+    from vsc22_tpu_torch.models.layers import reset_parameters
+    from vsc22_tpu_torch.train import matching as tm
+
+    reset_parameters(model, torch.Generator().manual_seed(2023))  # as the fold trainers seed
+    device = images.device
+    model.to(device)
+    tx = tm.make_cnn_optimizer()
+    state, step = tm.create_cnn_state(model, tx), make(model, tx)
+    seeds = torch.Generator().manual_seed(2023)
+    t0 = time.perf_counter()
+    state, first = step(state, images, targets, seeds)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, loss = step(state, images, targets, seeds)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    losses = [float(first)] + [float(v) for v in losses]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = images.shape[0]
+    print(f"  {label}: warm-up step {warm:.2f} s; {steps} timed steps: step "
+          f"{step_ms:.2f} ms, {1e3 * n / step_ms:.1f} images/s, peak memory {peak:.3f} GiB on "
+          f"{card}", flush=True)
+    print(f"    losses (warm-up, then each timed step) {[round(v, 4) for v in losses]}",
+          flush=True)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{label}: the loss is not finite or did not fall: {losses}")
+    idle = step_profile(lambda: step(state, images, targets, seeds))
+    return {"step_ms": step_ms, "images_per_s": 1e3 * n / step_ms, "peak_gib": peak,
+            "idle": idle}
+
+
+def training_corpus(root: str, n_queries: int = 6, per_query: int = 2, dim: int = 64):
+    """A planted corpus for the training CLI, written as the CLIs read it:
+    n_queries + 2 ref and n_queries query videos of 40-79 unit frames, the
+    first half of the queries carrying a lightly noised 20-frame copy of
+    ref i, `per_query` candidates each (query i's own ref first), the
+    matching ground truth, and 32 noise videos for the inference CLI's
+    score-norm. Small, because the inference CLI refines every recalled
+    pair (all n_queries x refs of them on random features). Returns the
+    paths."""
+    from vsc22_tpu_torch.core.storage import store_features
+    from vsc22_tpu_torch.core.types import Match, VideoFeature, _write_rows
+
+    rng = np.random.default_rng(92)
+
+    def videos(prefix, count, start=0):
+        out = []
+        for i in range(count):
+            f = rng.standard_normal((int(rng.integers(40, 80)), dim)).astype(np.float32)
+            f /= np.linalg.norm(f, axis=1, keepdims=True)
+            out.append(VideoFeature(video_id=f"{prefix}{start + i:06d}", feature=f,
+                                    timestamps=np.arange(len(f), dtype=np.float32)))
+        return out
+
+    refs, queries, noise = videos("R", n_queries + 2), videos("Q", n_queries), \
+        videos("R", 32, start=1000)
+    gt, cands = [], []
+    for i, q in enumerate(queries):
+        if i < n_queries // 2:
+            r = refs[i].feature
+            q.feature[10:30] = r[5:25] + rng.normal(0, 0.05, (20, dim)).astype(np.float32)
+            q.feature /= np.linalg.norm(q.feature, axis=1, keepdims=True)
+            gt.append(Match(query_id=q.video_id, ref_id=refs[i].video_id, score=1.0,
+                            query_start=10.0, query_end=30.0, ref_start=5.0, ref_end=25.0))
+        others = rng.choice(np.delete(np.arange(len(refs)), i), per_query - 1, replace=False)
+        cands += [(q.video_id, refs[j].video_id) for j in [i, *others]]
+    paths = {k: os.path.join(root, f"{k}.npz") for k in ("queries", "refs", "noise")}
+    for k, v in (("queries", queries), ("refs", refs), ("noise", noise)):
+        store_features(paths[k], v)
+    paths["gt"] = os.path.join(root, "gt.csv")
+    Match.write_csv(gt, paths["gt"])
+    paths["candidates"] = os.path.join(root, "candidates.csv")
+    _write_rows(paths["candidates"], ["query_id", "ref_id", "score"],
+                ([q, r, "1.0"] for q, r in cands))
+    return paths, len(cands)
+
+
+def run_training_cli(card: str) -> None:
+    """9(d): `train/matching_cli.main` on the card with the full-width models
+    (1 classify and 1 refine epoch at 160^2 and 128^2) over
+    `training_corpus`, its files checked (threshold 0: every pair goes on to
+    the refine phase, whatever one epoch made of the classifier); then
+    `pipelines/matching_cli.main` with the four snapshots over the same
+    corpus."""
+    import tempfile
+
+    from vsc22_tpu_torch.core.types import _read_rows
+    from vsc22_tpu_torch.pipelines import matching_cli as infer_cli
+    from vsc22_tpu_torch.train import matching_cli as train_cli
+
+    with tempfile.TemporaryDirectory() as root:
+        paths, n_cands = training_corpus(root)
+        work = os.path.join(root, "run")
+        t0 = time.perf_counter()
+        result = train_cli.main([
+            "--query_features", paths["queries"], "--ref_features", paths["refs"],
+            "--candidates", paths["candidates"], "--gt", paths["gt"], "--work_dir", work,
+            "--cls_epochs", "1", "--refine_epochs", "1", "--cls_threshold", "0.0"])
+        train_s = time.perf_counter() - t0
+        scores = _read_rows(os.path.join(work, "candidate_scores.csv"))
+        with open(os.path.join(work, "summary.json")) as f:
+            summary = json.load(f)
+        snaps = {f"{k}_{t}": os.path.join(work, f"{k}_{t}.npz")
+                 for k in ("classify", "refine") for t in ("h1", "h2")}
+        with open(os.path.join(work, "val_matches.csv")) as f:
+            header = f.readline().strip().split(",")
+        print(f"  training CLI (MobileNetV3-Small + SAM HRNet-W18, f32, 1 + 1 epochs) on "
+              f"{n_cands} candidates: {train_s:.1f} s; {len(scores)} candidate scores, summary "
+              f"{summary}, snapshots {sorted(k for k, p in snaps.items() if os.path.isfile(p))}",
+              flush=True)
+        check(len(scores) == 2 * n_cands and all(0.0 <= float(r["prob"]) <= 1.0 for r in scores),
+              "training CLI: candidate_scores.csv")
+        check(header == infer_cli.COLUMNS and summary["pairs"] > 0
+              and summary["classify_ap"] == result["classify_ap"],
+              "training CLI: val_matches.csv or summary.json")
+        check(all(os.path.isfile(p) for p in snaps.values()), "training CLI: a snapshot is missing")
+        out = os.path.join(root, "matches.csv")
+        t0 = time.perf_counter()
+        infer_cli.main(["--query_features", paths["queries"], "--ref_features", paths["refs"],
+                        "--norm_refs", paths["noise"], "--out", out,
+                        "--cls_params", snaps["classify_h1"], snaps["classify_h2"],
+                        "--refine_params", snaps["refine_h1"], snaps["refine_h2"]])
+        rows = _read_rows(out)
+        print(f"  inference CLI on the four snapshots (each loaded with no key missing or "
+              f"extra): {len(rows)} match rows in {time.perf_counter() - t0:.1f} s", flush=True)
+        with open(out) as f:
+            check(f.readline().strip().split(",") == infer_cli.COLUMNS,
+                  "inference CLI on the trained snapshots: bad matches.csv")
+
+
+def check_alignment(tn_maps, tn_wall) -> None:
+    """9(e): native TN against the Python DAG on `tn_maps` (phase 5's eval
+    maps, at its settings), the native DP fill against numpy bit for bit on
+    DP_MAPS of them, DTW, DP and HV each finding a planted copy; phase 5's
+    TN wall (`tn_wall`, None when phase 5 did not run) printed beside the
+    Python DAG's."""
+    from vsc22_tpu_torch.align import vta
+
+    kw = dict(tn_max_step=5, min_length=4)
+    t0 = time.perf_counter()
+    native = [vta.tn(m, **kw) for m in tn_maps]
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = [vta.tn_reference(m, **kw) for m in tn_maps]
+    ref_s = time.perf_counter() - t0
+    same = sum(a == b for a, b in zip(native, ref))
+    print(f"  TN on {len(tn_maps)} eval maps ({tn_maps[0].shape[0]}x{tn_maps[0].shape[1]}): "
+          f"native {1e3 * native_s / len(tn_maps):.3f} ms a map, the Python DAG "
+          f"{1e3 * ref_s / len(tn_maps):.3f} ms ({ref_s / native_s:.1f}x) on this host's CPU; "
+          f"{same} of {len(tn_maps)} box lists identical, {sum(map(len, native))} boxes",
+          flush=True)
+    check(same == len(tn_maps), "native TN disagrees with the Python DAG")
+    for m in tn_maps[:DP_MAPS]:
+        shifted = np.asarray(m, np.float64) + 1.0
+        for a, b in zip(vta._dp_matrix(shifted, 3, 1.0), vta.dp_matrix_reference(shifted, 3, 1.0)):
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  "the native DP fill differs from numpy's")
+    print(f"  DP fill on {DP_MAPS} maps: native = numpy bit for bit (dp, accu, back)", flush=True)
+    rng = np.random.default_rng(93)
+    idx = np.arange(10, 40)
+    found = {}
+    for name, base, kwargs in (("dtw", 0.0, {"min_sim": 0.3}), ("dp", -0.5, {}),
+                               ("hv", 0.0, {})):
+        sim = rng.random((50, 50)) * 0.1 + base
+        sim[idx, idx] = 0.9
+        boxes = getattr(vta, name)(sim, **kwargs)
+        found[name] = boxes
+        check(any(q0 <= 12 and r0 <= 12 and q1 >= 37 and r1 >= 37 for q0, r0, q1, r1 in boxes),
+              f"{name} missed the planted copy: {boxes}")
+    print(f"  planted copy at q, r 10-39: {found}", flush=True)
+    if tn_wall is not None:
+        print(f"  phase 5's tn_localization wall {tn_wall:.3f} s (13.6-14.2 s on an H100 with "
+              "the Python DAG in 8 workers)", flush=True)
+
+
+def synthetic_tn_maps(n: int) -> list:
+    """Without phase 5: n maps as its eval gives TN (32x32 frame products of
+    unit 512-d rows + 0.5, half of them pairs with a planted copy)."""
+    queries, refs, _, _ = make_corpus(n, n, 0, 32, 512, planted=n // 2, seed=94)
+    return [q.feature @ r.feature.T + 0.5 for q, r in zip(queries, refs)]
+
+
+def run_matching_training(device, card: str, tn_maps, tn_wall) -> None:
+    """Phase 9 (see its constants), with cuDNN's TF32 flag on throughout."""
+    from vsc22_tpu_torch.models.hrnet import sam_hrnet_w18
+    from vsc22_tpu_torch.models.mobilenetv3 import mobilenetv3_small
+    from vsc22_tpu_torch.train import matching as tm
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        t0 = time.perf_counter()
+        check_cnn_steps(device)
+        print(f"  9(a) took {time.perf_counter() - t0:.1f} s", flush=True)
+        rng = np.random.default_rng(95)
+        t0 = time.perf_counter()
+        x, cls, _ = planted_batch(rng, 64, 160)
+        run_cnn_bench("9(b) MobileNetV3-Small [64, 160, 160] f32 dropout 0.2",
+                      mobilenetv3_small(device="cpu"), x.to(device), cls.to(device),
+                      tm.make_classify_train_step, card, CNN_TIMED_STEPS["mnv3"])
+        x, _, band = planted_batch(rng, 8, 128)
+        run_cnn_bench("9(c) SAM HRNet-W18 [8, 128, 128] f32 soft-band labels",
+                      sam_hrnet_w18(device="cpu"), x.to(device), band.to(device),
+                      tm.make_refine_train_step, card, CNN_TIMED_STEPS["sam"])
+        torch.cuda.empty_cache()
+        print(f"  9(b)-(c) took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        run_training_cli(card)
+        print(f"  9(d) took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        check_alignment(tn_maps if tn_maps is not None else synthetic_tn_maps(TN_MAPS), tn_wall)
+        print(f"  9(e) took {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
 LIBRARIES = ("attn_proj", "ln_mlp", "row_max", "window_attn", "swin_block", "extract_topk",
              "attn", "vit_block")
 # name -> (source, the TPU kernel it replaces, the phase-2 case reported)
@@ -2398,8 +2788,24 @@ KERNELS = {
 }
 
 
+def timed_host_build() -> float:
+    """Build (or load) the host library of the alignment methods; seconds."""
+    from vsc22_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.host_library("vta_kernels")
+    return time.perf_counter() - t0
+
+
+def phase_9(device, card: str, tn_maps, tn_wall) -> None:
+    print(f"phase 9: the matching trainers and the alignment methods ({card})", flush=True)
+    t0 = time.perf_counter()
+    run_matching_training(device, card, tn_maps, tn_wall)
+    print(f"  phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main(argv=None) -> int:
-    """With `--training-only`, phases 1 and 8 alone (the train step's
+    """With `--training-only`, phases 1, 8 and 9 alone (the train steps'
     checks and measurements; no result lines)."""
     training_only = "--training-only" in (sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
@@ -2431,14 +2837,17 @@ def main(argv=None) -> int:
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES) + 1) as pool:
+    with ThreadPoolExecutor(len(LIBRARIES) + 2) as pool:
         host = None if training_only else pool.submit(prepare_host, device)
+        host_lib = pool.submit(timed_host_build)
         list(pool.map(build.library, LIBRARIES))
         built = time.perf_counter() - t0
+        host_lib_s = host_lib.result()
         host = None if host is None else host.result()
     for name in LIBRARIES:
         print(build.build_log(name), file=sys.stderr)
-    print(f"  built {', '.join(LIBRARIES)} in {built:.1f} s", flush=True)
+    print(f"  built {', '.join(LIBRARIES)} in {built:.1f} s; the host library vta_kernels "
+          f"(g++, alignment) in {host_lib_s:.1f} s", flush=True)
     if host is not None:
         waited = time.perf_counter() - t0 - built
         print(f"  meanwhile on the host: the full-width slice's set-up {host['slice_s']:.1f} s, "
@@ -2448,8 +2857,9 @@ def main(argv=None) -> int:
         print(f"phase 8: training on the card ({card})", flush=True)
         t0 = time.perf_counter()
         run_training(device, card)
-        print(f"  phase 8 took {time.perf_counter() - t0:.1f} s; total "
-              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        print(f"  phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
+        phase_9(device, card, None, None)
+        print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
 
     print(f"phase 2: kernels vs plain on the card ({card})", flush=True)
@@ -2557,8 +2967,8 @@ def main(argv=None) -> int:
     launches["fused_mlp"] = path_launches["fused_mlp"]
 
     print(f"phase 5: the descriptor-track eval path ({card})", flush=True)
-    eval_launches, corpus = run_eval(device, wrappers, card, host.pop("corpus"),
-                                     host["corpus_s"])
+    eval_launches, corpus, (tn_maps, tn_wall) = run_eval(device, wrappers, card,
+                                                         host.pop("corpus"), host["corpus_s"])
     launches["extract_topk"] = eval_launches["extract_topk"]
 
     print(f"phase 6: the CLIP block variants ({card})", flush=True)
@@ -2578,6 +2988,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     run_training(device, card)
     print(f"  phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_9(device, card, tn_maps, tn_wall)
 
     kernels = []
     check(all(launches[name] > 0 for name in KERNELS), f"a kernel never ran: {launches}")

@@ -17,7 +17,9 @@ grid with the max in the last split, all-negative and zero maxima, and D
 padded to a multiple of 16; the outputs and gradients of K1, K2, B7, B9,
 B10, B8, B6 and B1 through their recompute VJPs against autograd of their
 plain versions, in f32 and bf16 at ragged shapes, and B5 and K3 raising on an
-operand that requires grad).
+operand that requires grad); and for the matching trainers, BatchNorm's
+train mode against the CPU and the float32 convolution's backward with
+TF32 kept off while the global flag is on).
 
 Needs a CUDA device; skips elsewhere. The shared conftest imports JAX,
 which the GPU host lacks, so run it there without it:
@@ -1102,3 +1104,66 @@ def test_dropout_masks_are_drawn_on_the_card(device):
         assert all(t.device.type == "cuda" for t in state.params.values())
         losses.append(run)
     assert losses[0] == losses[1]
+
+
+def test_batch_norm_train_mode_on_the_card(device):
+    """`layers.BatchNorm` in train mode (flax's fast variance, the running
+    buffers' update) on the card against the CPU: output and gradients
+    within 1e-5 of max |g| (f32 reductions in another order), buffers
+    within 1e-6."""
+    from vsc22_tpu_torch.models.layers import BatchNorm
+
+    gen = torch.Generator().manual_seed(18)
+    x = torch.randn((6, 9, 11, 24), generator=gen) * 1.5 + 0.3
+    cot = torch.randn(x.shape, generator=gen)
+    runs = []
+    for dev in ("cpu", device):
+        bn = BatchNorm(24)
+        with torch.no_grad():
+            bn.weight.uniform_(0.5, 1.5, generator=gen.manual_seed(19))
+            bn.bias.normal_(0, 0.1, generator=gen)
+            bn.var.uniform_(0.5, 1.5, generator=gen)
+        bn.to(dev)
+        xs = x.clone().to(dev).requires_grad_()
+        out = bn(xs, train=True)
+        out.backward(cot.to(dev))
+        runs.append([t.detach().cpu() for t in (out, xs.grad, bn.weight.grad, bn.bias.grad,
+                                                bn.mean, bn.var)])
+    for i, (want, got) in enumerate(zip(*runs)):
+        atol = 1e-6 if i >= 4 else 1e-5 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("groups", [1, 8])
+def test_conv_backward_keeps_tf32_off(device, groups):
+    """`layers.Conv` in float32 with cuDNN's TF32 flag ON (torch's default):
+    the forward and both gradients within 1e-5 of max |.| of float64 on the
+    CPU (TF32's 10-bit mantissa would leave ~1e-3), and the caller's flag
+    still on after the backward."""
+    from vsc22_tpu_torch.models.layers import Conv
+
+    gen = torch.Generator().manual_seed(20)
+    conv = Conv(64, 96, 3, stride=2, pad=1, groups=groups)
+    with torch.no_grad():
+        conv.weight.normal_(0, conv.weight[0].numel() ** -0.5, generator=gen)
+    x = torch.randn((4, 33, 40, 64), generator=gen)
+    cot = torch.randn((4, 17, 20, 96), generator=gen)
+    ref = Conv(64, 96, 3, stride=2, pad=1, groups=groups, dtype=torch.float64)
+    with torch.no_grad():
+        ref.weight.copy_(conv.weight.double())
+    x64 = x.double().requires_grad_()
+    want = ref(x64)
+    want.backward(cot.double())
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        conv.to(device)
+        xs = x.to(device).requires_grad_()
+        got = conv(xs)
+        got.backward(cot.to(device))
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    for g, w in ((got, want), (xs.grad, x64.grad), (conv.weight.grad, ref.weight.grad)):
+        err = float((g.detach().cpu().double() - w.detach()).abs().max())
+        assert err <= 1e-5 * float(w.detach().abs().max()), err

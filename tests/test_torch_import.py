@@ -38,13 +38,19 @@ MATCHING_MODULES = (
     "vsc22_tpu_torch.pipelines.query_extract",
     "vsc22_tpu_torch.pipelines.matching_infer",
     "vsc22_tpu_torch.pipelines.matching_cli",
+    "vsc22_tpu_torch.train.matching",
+    "vsc22_tpu_torch.train.matching_cli",
+    "vsc22_tpu_torch.align.vta",
+    "vsc22_tpu_torch.align.metrics",
+    "vsc22_tpu_torch.align.vcsl_io",
 )
 
 
 def test_matching_modules_each_import_alone_without_jax():
-    """Each module of the matching track, imported first in a fresh
-    interpreter, then `chip_smoke`: none loads JAX, the JAX package or
-    pandas, and the CLI's entry point is there."""
+    """Each module of the matching track (its inference, its trainers and
+    the alignment methods), imported first in a fresh interpreter, then
+    `chip_smoke`: none loads JAX, the JAX package or pandas, and both CLIs'
+    entry points are there."""
     code = (
         "import sys, importlib\n"
         f"for name in {MATCHING_MODULES!r} + ('chip_smoke',):\n"
@@ -53,6 +59,7 @@ def test_matching_modules_each_import_alone_without_jax():
         "                 or m.startswith(('jax.', 'flax', 'vsc22_tpu.', 'pandas.')))\n"
         "    assert not bad, (name, bad)\n"
         "assert callable(sys.modules['vsc22_tpu_torch.pipelines.matching_cli'].main)\n"
+        "assert callable(sys.modules['vsc22_tpu_torch.train.matching_cli'].main)\n"
         "print('ok')\n"
     )
     out = subprocess.run(

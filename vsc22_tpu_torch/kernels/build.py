@@ -10,6 +10,11 @@ CPU tests import every module and never reach `library`.
 Wrappers pass tensors as raw device pointers and PyTorch's current stream;
 each C entry point returns `cudaGetLastError()` after its launches, and
 `call` raises on anything but 0.
+
+`host_library` builds the one host library, `csrc/<name>.cpp` (plain C++
+for the CPU: the alignment methods' sequential fills), with g++ in the
+same way and into the same directory. It raises where g++ is missing or
+fails: no caller has another version to fall back to.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 _lock = threading.Lock()
 _name_locks: dict[str, threading.Lock] = {}
@@ -48,47 +54,76 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the host library cannot be built here")
+    return found
+
+
+def _digest(flags: tuple, sources: list) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _compile(name: str, out: Path) -> None:
+def _cuda_digest(name: str) -> str:
+    return _digest(NVCC_FLAGS, [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+
+
+def _compile(cmd: list, src: Path, out: Path) -> None:
+    """Run `cmd` (a compiler and its flags) on `src` into `out`: the
+    output goes to a file of this process's own and is renamed into place,
+    so that processes building the same library at once each load a whole
+    file."""
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [*cmd, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
     out.with_suffix(".log").write_text(log)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise RuntimeError(f"{Path(cmd[0]).name} failed for {src.name}:\n{log}")
     os.replace(tmp, out)
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed.
-    Different libraries may build at once, from several threads."""
+def _load(name: str, path_of, build) -> ctypes.CDLL:
+    """The loaded library `name` at `path_of()`, built by `build(path)`
+    first if the file is not there. Different libraries may build at once,
+    from several threads."""
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:
         lib = _libs.get(name)
         if lib is None:
-            path = BUILD_DIR / f"{name}-{_digest(name)}.so"
+            path = path_of()
             if not path.exists():
-                _compile(name, path)
+                build(path)
             lib = ctypes.CDLL(str(path))
-            lib.vsc22_error_string.argtypes = [ctypes.c_int]
-            lib.vsc22_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
 
 
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    src = CSRC / f"{name}.cu"
+    return _load(name, lambda: BUILD_DIR / f"{name}-{_cuda_digest(name)}.so",
+                 lambda path: _compile([_nvcc(), *NVCC_FLAGS], src, path))
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded host library of `csrc/<name>.cpp`, built with g++ first
+    if needed; raises if it cannot be built."""
+    src = CSRC / f"{name}.cpp"
+    return _load(name, lambda: BUILD_DIR / f"{name}-{_digest(GXX_FLAGS, [src])}.so",
+                 lambda path: _compile([_gxx(), *GXX_FLAGS], src, path))
+
+
 def build_log(name: str) -> str:
     """nvcc's output (ptxas register and shared-memory report) for `name`."""
-    return (BUILD_DIR / f"{name}-{_digest(name)}.log").read_text()
+    return (BUILD_DIR / f"{name}-{_cuda_digest(name)}.log").read_text()
 
 
 def call(lib_name: str, fn_name: str, argtypes: list, *args) -> None:
@@ -99,7 +134,10 @@ def call(lib_name: str, fn_name: str, argtypes: list, *args) -> None:
     fn.restype = ctypes.c_int
     rc = fn(*args)
     if rc != 0:
-        msg = lib.vsc22_error_string(rc).decode()
+        err = lib.vsc22_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        msg = err(rc).decode()
         raise RuntimeError(f"{fn_name} failed: CUDA error {rc} ({msg})")
 
 

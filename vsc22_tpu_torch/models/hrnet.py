@@ -15,6 +15,11 @@ accumulated in float32, upsampled and summed in float32, so the
 into two constants and applied in the compute dtype) on the branch-0
 blocks, at inference, for even H and W. The space-to-depth layout itself,
 a TPU lane-width device, is not kept: the convolutions are the same sums.
+
+`train=True` is flax's `train`: every BN normalises with the batch's
+statistics and updates its running ones. It runs on the unpacked path
+only: a model built with `s2d_branch0` raises in train mode, as the JAX
+packed branch asserts `not train`.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ HRNET_TINY_TEST = HRNetConfig(
 
 
 class ConvBN(nn.Module):
-    """Conv (timm's symmetric padding) + inference BN + optional relu."""
+    """Conv (timm's symmetric padding) + BN + optional relu."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  act: bool = True, dtype=torch.float32, device=None):
@@ -60,9 +65,9 @@ class ConvBN(nn.Module):
         self.bn = BatchNorm(cout, device)
         self.act = act
 
-    def forward(self, x, folded: bool = False):
+    def forward(self, x, folded: bool = False, train: bool = False):
         y = self.conv(x)
-        y = self.bn.folded(y) if folded else self.bn(y)
+        y = self.bn.folded(y) if folded else self.bn(y, train)
         return F.relu(y) if self.act else y
 
 
@@ -78,10 +83,10 @@ class Bottleneck(nn.Module):
             if cin != out_ch else None
         )
 
-    def forward(self, x):
-        y = self.conv3(self.conv2(self.conv1(x)))
+    def forward(self, x, train: bool = False):
+        y = self.conv3(self.conv2(self.conv1(x, train=train), train=train), train=train)
         if self.downsample is not None:
-            x = self.downsample(x)
+            x = self.downsample(x, train=train)
         return F.relu(x + y)
 
 
@@ -91,8 +96,8 @@ class BasicBlock(nn.Module):
         self.conv1 = ConvBN(planes, planes, 3, dtype=dtype, device=device)
         self.conv2 = ConvBN(planes, planes, 3, act=False, dtype=dtype, device=device)
 
-    def forward(self, x, folded: bool = False):
-        return F.relu(x + self.conv2(self.conv1(x, folded), folded))
+    def forward(self, x, folded: bool = False, train: bool = False):
+        return F.relu(x + self.conv2(self.conv1(x, folded, train), folded, train))
 
 
 def _nearest_up(x, factor: int):
@@ -131,12 +136,12 @@ class HRModule(nn.Module):
                     fuse[f"{i}_{j}"] = nn.ModuleList(steps)
         self.fuse = nn.ModuleDict(fuse)
 
-    def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, xs: List[torch.Tensor], train: bool = False) -> List[torch.Tensor]:
         ys = []
         for i, (x, blocks) in enumerate(zip(xs, self.branches)):
             folded = self.s2d_branch0 and i == 0 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0
             for block in blocks:
-                x = block(x, folded)
+                x = block(x, folded, train)
             ys.append(x)
         fused = []
         for i in range(len(ys)):
@@ -146,11 +151,11 @@ class HRModule(nn.Module):
                     continue
                 f = self.fuse[f"{i}_{j}"]
                 if j > i:
-                    t = _nearest_up(f(ys[j]), 2 ** (j - i))
+                    t = _nearest_up(f(ys[j], train=train), 2 ** (j - i))
                 else:
                     t = ys[j]
                     for step in f:
-                        t = step(t)
+                        t = step(t, train=train)
                 acc = acc + t
             fused.append(F.relu(acc))
         return fused
@@ -184,20 +189,20 @@ class HRNetFeatures(nn.Module):
             HRModule(ch, cfg.blocks_per_branch, dtype, device, s2d_branch0)
             for _ in range(cfg.stage_modules[2]))
 
-    def forward(self, x) -> List[torch.Tensor]:
-        stem_out = x = self.stem1(x)  # timm taps feature 0 before conv2
-        x = self.stem2(x)
+    def forward(self, x, train: bool = False) -> List[torch.Tensor]:
+        stem_out = x = self.stem1(x, train=train)  # timm taps feature 0 before conv2
+        x = self.stem2(x, train=train)
         for block in self.layer1:
-            x = block(x)
-        xs = [t(x) for t in self.trans1]
+            x = block(x, train)
+        xs = [t(x, train=train) for t in self.trans1]
         for m in self.stage2:
-            xs = m(xs)
-        xs.append(self.trans2(xs[-1]))
+            xs = m(xs, train)
+        xs.append(self.trans2(xs[-1], train=train))
         for m in self.stage3:
-            xs = m(xs)
-        xs.append(self.trans3(xs[-1]))
+            xs = m(xs, train)
+        xs.append(self.trans3(xs[-1], train=train))
         for m in self.stage4:
-            xs = m(xs)
+            xs = m(xs, train)
         return [stem_out] + xs
 
 
@@ -213,6 +218,7 @@ class SAMHRNet(nn.Module):
                  dtype=torch.float32, device=None, s2d_branch0: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.s2d_branch0 = s2d_branch0
         self.backbone = HRNetFeatures(cfg, dtype, device, s2d_branch0)
         self.in_channels = (cfg.stem_channels, *cfg.branch_channels)
         total = sum(self.in_channels)
@@ -228,9 +234,11 @@ class SAMHRNet(nn.Module):
         nn.init.zeros_(self.fuse1_bias)
         nn.init.zeros_(self.fuse2_bias)
 
-    def forward(self, images):
+    def forward(self, images, train: bool = False):
+        if train and self.s2d_branch0:
+            raise ValueError("SAMHRNet: the packed branch 0 (s2d_branch0) is inference only")
         dt = self.dtype
-        feats = self.backbone(images.to(dt))
+        feats = self.backbone(images.to(dt), train)
         acc, start = None, 0
         for f, c, u in zip(feats, self.in_channels, self.ups):
             y = _nearest_up(matmul_f32(f, self.fuse1_weight[start : start + c].to(dt)), u)

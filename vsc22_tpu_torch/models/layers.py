@@ -16,6 +16,8 @@ masks, as JAX's passes reuse one `rng`.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -204,11 +206,48 @@ def reset_parameters(module: nn.Module, generator: torch.Generator,
             _normal_(p, embed_std, generator)
 
 
+@contextlib.contextmanager
+def _cudnn_ieee():
+    """cuDNN's float32 convolutions in full float32 (TF32 off) inside the
+    block; the caller's setting is back after it."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+class _ConvIEEE(torch.autograd.Function):
+    """`F.conv2d` (no bias, dilation 1) whose backward, like its forward,
+    runs with TF32 off: autograd's own conv backward would run later,
+    under whatever the caller's flag says (torch's default: TF32 on). The
+    backward is aten's `convolution_backward`, the one autograd calls."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride: int, pad: int, groups: int):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, pad, groups)
+        with _cudnn_ieee():
+            return F.conv2d(x, w, None, stride, pad, 1, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, pad, groups = ctx.conf
+        with _cudnn_ieee():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, [stride, stride], [pad, pad], [1, 1], False, [0, 0], groups,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None, None, None
+
+
 class Conv(nn.Module):
     """A flax `nn.Conv(use_bias=False)` over NHWC activations: weight OIHW
     [F, C / groups, k, k] in `dtype`, explicit symmetric padding `pad`
     (torch's `padding=`, which is not flax `SAME` at stride 2 on even
-    inputs). float32 convolutions run in full float32 (no TF32)."""
+    inputs). float32 convolutions run in full float32 (no TF32), their
+    backward too."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, pad: int = 0,
                  groups: int = 1, dtype=torch.float32, device=None):
@@ -222,19 +261,14 @@ class Conv(nn.Module):
 
     def forward(self, x):  # [B, H, W, C] -> [B, H', W', F]
         w = self.weight
-        saved = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            y = F.conv2d(x.to(w.dtype).permute(0, 3, 1, 2), w, None, self.stride, self.pad, 1,
-                         self.groups)
-        finally:
-            torch.backends.cudnn.allow_tf32 = saved
+        y = _ConvIEEE.apply(x.to(w.dtype).permute(0, 3, 1, 2), w, self.stride, self.pad,
+                            self.groups)
         return y.permute(0, 2, 3, 1)
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last axis, float32 scale, bias and
-    running mean and variance (eps 1e-5)."""
+    """flax `nn.BatchNorm` over the last axis (momentum 0.99, eps 1e-5):
+    float32 scale, bias and running mean and variance."""
 
     def __init__(self, features: int, device=None):
         super().__init__()
@@ -249,12 +283,27 @@ class BatchNorm(nn.Module):
         self.mean.zero_()
         self.var.fill_(1.0)
 
-    def forward(self, y):
-        """flax `nn.BatchNorm(use_running_average=True)` in y's dtype: the
-        statistics are float32, so (y - mean) * (rsqrt(var + eps) * scale)
-        + bias runs in float32 and rounds to y's dtype once."""
-        mul = torch.rsqrt(self.var + 1e-5) * self.weight
-        return ((y.float() - self.mean) * mul + self.bias).to(y.dtype)
+    def forward(self, y, train: bool = False):
+        """flax `nn.BatchNorm` in y's dtype: (y - mean) * (rsqrt(var + eps)
+        * scale) + bias in float32, rounded to y's dtype once. At inference
+        (`use_running_average=True`) mean and var are the running ones. In
+        training they are the batch's, over every axis but the last, in
+        float32 with flax's fast variance max(0, E[y^2] - E[y]^2) (not
+        `F.batch_norm`'s two-pass one), differentiated through; the running
+        buffers become 0.99 * running + 0.01 * batch, with that (biased)
+        variance."""
+        if not train:
+            mean, var = self.mean, self.var
+        else:
+            yf = y.float()
+            dims = tuple(range(y.ndim - 1))
+            mean = yf.mean(dims)
+            var = (yf.square().mean(dims) - mean.square()).clamp(min=0.0)
+            with torch.no_grad():
+                self.mean.copy_(0.99 * self.mean + (1.0 - 0.99) * mean)
+                self.var.copy_(0.99 * self.var + (1.0 - 0.99) * var)
+        mul = torch.rsqrt(var + 1e-5) * self.weight
+        return ((y.float() - mean) * mul + self.bias).to(y.dtype)
 
     def folded(self, y):
         """The BN folded into two constants, as the JAX HRNet's packed

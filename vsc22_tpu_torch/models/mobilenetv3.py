@@ -7,6 +7,10 @@ layers round where the flax modules round: every op of `hard_sigmoid` in
 the compute dtype, BN once after its float32 arithmetic, the SE and
 `pre_logits` Dense layers twice (`layers.dense`), the classifier in
 float32 over the rounded features.
+
+`train=True` is flax's `train`: every BN normalises with the batch's
+statistics and updates its running ones, and the head's dropout (0.2)
+acts, its mask drawn from the step's `layers.DropRng`.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vsc22_tpu_torch.core.device import resolve
-from vsc22_tpu_torch.models.layers import BatchNorm, Conv, Linear
+from vsc22_tpu_torch.models.layers import BatchNorm, Conv, Linear, dropout
 
 # (kernel, expansion, out_channels, se_reduce_ch, use_hswish, stride): timm
 # `mobilenetv3_small_100`, as `vsc22_tpu/models/mobilenetv3.py:32` lists it.
@@ -61,8 +65,8 @@ class ConvBNAct(nn.Module):
         self.bn = BatchNorm(cout, device)
         self.act = act
 
-    def forward(self, x):
-        x = self.bn(self.conv(x))
+    def forward(self, x, train: bool = False):
+        x = self.bn(self.conv(x), train)
         if self.act == "relu":
             return F.relu(x)
         if self.act == "hswish":
@@ -96,22 +100,23 @@ class InvertedResidual(nn.Module):
         self.se = SqueezeExcite(expansion, se_reduce, dtype, device) if se_reduce else None
         self.project = ConvBNAct(expansion, out_ch, 1, act=None, dtype=dtype, device=device)
 
-    def forward(self, x):
-        y = self.expand(x) if self.expand is not None else x
-        y = self.dw(y)
+    def forward(self, x, train: bool = False):
+        y = self.expand(x, train) if self.expand is not None else x
+        y = self.dw(y, train)
         if self.se is not None:
             y = self.se(y)
-        y = self.project(y)
+        y = self.project(y, train)
         return x + y if self.residual else y
 
 
 class MobileNetV3Small(nn.Module):
-    """[B, H, W, 3] images -> [B, num_classes] float32 logits (inference)."""
+    """[B, H, W, 3] images -> [B, num_classes] float32 logits."""
 
     def __init__(self, num_classes: int = 2, dtype=torch.float32, device=None,
-                 spec: Sequence = MNV3_SMALL_SPEC):
+                 spec: Sequence = MNV3_SMALL_SPEC, dropout: float = 0.2):
         super().__init__()
         self.dtype = dtype
+        self.dropout = dropout
         self.stem = ConvBNAct(3, 16, 3, 2, act="hswish", dtype=dtype, device=device)
         blocks, ch = [], 16
         for k, exp, out, se, hs, s in spec:
@@ -122,15 +127,22 @@ class MobileNetV3Small(nn.Module):
         self.pre_logits = Linear(576, 1024, dtype, device)
         self.classifier = Linear(1024, num_classes, torch.float32, device)
 
-    def forward(self, images):
-        x = self.stem(images.to(self.dtype))
+    def forward(self, images, train: bool = False, rng=None):
+        """`rng` (a `layers.DropRng`) draws the head's dropout mask; train
+        mode with a nonzero rate needs one."""
+        if train and self.dropout > 0.0 and rng is None:
+            raise ValueError("MobileNetV3Small: train mode with dropout needs a DropRng")
+        x = self.stem(images.to(self.dtype), train)
         for block in self.blocks:
-            x = block(x)
-        x = _spatial_mean(self.head_conv(x))
-        return self.classifier(hard_swish(self.pre_logits(x)))  # dropout: inference only
+            x = block(x, train)
+        x = _spatial_mean(self.head_conv(x, train))
+        x = hard_swish(self.pre_logits(x))
+        if train:
+            x = dropout(x, self.dropout, rng, (self, "head"))
+        return self.classifier(x)
 
 
-def mobilenetv3_small(num_classes: int = 2, dtype=torch.float32,
-                      device="cuda") -> MobileNetV3Small:
+def mobilenetv3_small(num_classes: int = 2, dtype=torch.float32, device="cuda",
+                      dropout: float = 0.2) -> MobileNetV3Small:
     """On the card unless `device` says otherwise."""
-    return MobileNetV3Small(num_classes, dtype, resolve(device))
+    return MobileNetV3Small(num_classes, dtype, resolve(device), dropout=dropout)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's query, eval, matching and training paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's query, eval, matching, training and offline paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -64,8 +64,7 @@ result line):
      library, in the calling process), candidate µAP > 0.95; B5's launches
      cover every 4096-row query
      tile, all on the tensor-core route; for 256 sampled query rows
-     `row_topk` on B5 equals the exact per-tile path; then the search alone
-     at all 2,000 query videos, again all on the tensor-core route. Every
+     `row_topk` on B5 equals the exact per-tile path. Every
      stage's wall time is printed, and the K3 call inside each score-norm,
      and K3 alone on the eval score-norm's own operands ([32000,511] x
      [128000,511]) against its plain version and its chunked f16 products;
@@ -88,9 +87,10 @@ result line):
      videos against all 40,000 refs, score-norm against the 4,000 noise
      videos at beta 1.5, nk 10 (B5, FFMA route, D 511), 2 x
      MobileNetV3-Small-100 + 2 x SAM HRNet-W18 in bf16, refs normalised
-     once, a warm-up and three timed passes (median and all three videos/s,
-     the stage split; the third under torch.profiler, for the device's
-     idle share and its kernels); every planted pair recalled, every
+     once, a warm-up, one timed pass (videos/s and the stage split) and
+     one more under torch.profiler (the device's idle share and its
+     kernels; its wall is not in the rate);
+     every planted pair recalled, every
      probability and heatmap finite in [0, 1], every match row inside its
      videos, B5 launched, every model input on the card;
   8. the descriptor track's training step (`vsc22_tpu_torch/train/`): (a)
@@ -123,8 +123,28 @@ result line):
      TN equal to the Python DAG on phase 5's first 200 eval maps, the
      native DP fill equal to numpy's bit for bit on 5, DTW, DP and HV each
      finding a planted copy, and phase 5's TN wall;
- 10. a JSON line of per-kernel numbers (B5's launches: phases 5 and 7),
-     then the device line.
+ 10. the per-video query path and the offline CLIs
+     (`pipelines/query_extract.py`, `query_cli`, `ref_cli`, `ensemble_cli`,
+     `clip_features`): (a) which decoders the host has (cv2, ffmpeg, PIL,
+     torchvision); (b) OpenCV's cubic resize (360x640 to 384^2, 256^2,
+     224x398 and an FSD crop to 384^2), Canny(50, 400) and the float64 FSD
+     maps as the port computes them, the card's bits equal to the CPU's;
+     (c) the per-video `QueryPipeline` at full width on phase 3's models
+     and PCA (bf16), the exact host FSD on the card, over phase 3's first 8
+     videos (one letterboxed, one a 2-up stack that FSD splits) + query
+     score-norm (nk 1): videos/s, the launches of K1, K2, B1 and K3 against
+     the models' depths, and K1, K2 and B1 against their plain versions at
+     phase 2's bf16 bar on the operands of a full 48-frame chunk; (d) the
+     offline flow on phase 3's videos 8-23 as decoded frames: `ref_extract`
+     for each member in two shards and the merge, `ensemble_cli` (PCA 2048
+     -> 512 on the card, saved; mutual ref score-norm), `query_cli`'s query
+     function with that PCA and the train refs as the noise corpus, the
+     eval with 4 planted exact copies (candidate µAP; every planted copy
+     the VED did not gate ranks its ref first), a `clip_features` zip read
+     back; then, where the host has a decoder, `ref_cli` and `query_cli`
+     from mp4 files (a tiny member: the decode and the CLIs' plumbing);
+ 11. a JSON line of per-kernel numbers (B5's launches: phases 5 and 7;
+     `launches_per_video`: phase 10(c)), then the device line.
 
 With `--training-only` it runs phases 1, 8 and 9 alone (9(e) then on
 synthetic maps of phase 5's shape) and prints no result lines.
@@ -1119,19 +1139,18 @@ def stage_split(pipe, run) -> dict:
     return split
 
 
-def profile_pass(run, kernel_families=None, host_ops: bool = True) -> dict:
-    """run() under torch.profiler: device time by kernel (device events
-    only, so no kernel counts twice under the op that launched it), its
-    share of all device time, calls, and the device's idle share of the
-    wall clock under the profiler. Returns {family: (seconds, calls)} for
-    `kernel_families` (default KERNEL_FAMILIES). `host_ops=False` records
-    device activity only (a lighter trace for passes of many ops)."""
+def profile_pass(run, kernel_families=None) -> dict:
+    """run() under torch.profiler, recording device activity only (host ops
+    would make the trace of a pass of many ops several times heavier, and
+    only the device events are read): device time by kernel, its share of
+    all device time, calls, and the device's idle share of the wall clock
+    under the profiler. Returns {family: (seconds, calls)} for
+    `kernel_families` (default KERNEL_FAMILIES)."""
     kernel_families = KERNEL_FAMILIES if kernel_families is None else kernel_families
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
@@ -1227,12 +1246,12 @@ def check_swin_paths(device, wrappers) -> dict:
 
 # The reference operating point of `scripts/scaled_eval.py` (10k query
 # videos x 40k ref videos x 32 frames, 512-d, 4k noise videos, 100 planted
-# copies), cut to 2,000 query videos: the eval path runs on the first
-# 1,000, so that the host-side TN localization of 5 pairs per query fits
-# the time limit, and the search alone is timed at all 2,000 (10,000 until
-# the matching phase came, 5,000 until the training phase: `PERF.md` §4).
-EVAL_SIZES = dict(queries=2_000, eval_queries=1_000, refs=40_000, noise=4_000, frames=32,
-                  dim=512, planted=100)
+# copies), cut to 1,000 query videos, so that the host-side TN localization
+# of 5 pairs per query fits the time limit. Until the per-video phase came, a
+# second pass timed the search alone at a larger query count (10,000, then
+# 5,000 with the matching phase, 2,000 with the training phase: `PERF.md`
+# §4).
+EVAL_SIZES = dict(queries=1_000, refs=40_000, noise=4_000, frames=32, dim=512, planted=100)
 
 
 def make_corpus(n_queries, n_refs, n_noise, frames, dim, planted=100, seed=0):
@@ -1389,9 +1408,8 @@ def run_eval(device, wrappers, card: str, corpus, corpus_s: float) -> dict:
     of the top 5 (score-normalised, in this process: the host library
     aligns the 5,000 pairs in ~1 s, a pool of 8 workers took ~10 s to
     start on the card's host), candidate µAP on the
-    planted copies. Then the B5 cross-check and the search alone at the
-    full query count, on `corpus` (`make_corpus`'s, drawn in `corpus_s`
-    seconds). Returns (the launches of the eval path, the corpus (queries,
+    planted copies. Then the B5 cross-check, on `corpus` (`make_corpus`'s,
+    drawn in `corpus_s` seconds). Returns (the launches of the eval path, the corpus (queries,
     refs, noise) for phase 7, and phase 9's TN maps and the TN wall)."""
     from vsc22_tpu_torch.align.vta import BaseVtaModel
     from vsc22_tpu_torch.core.metrics import average_precision
@@ -1412,11 +1430,10 @@ def run_eval(device, wrappers, card: str, corpus, corpus_s: float) -> dict:
     stages["corpus_gen"] = corpus_s
     print(f"  corpus_gen: {corpus_s:.3f} s (drawn on the host while the kernels built)",
           flush=True)
-    n_eval = sizes["eval_queries"]
-    eval_q = queries[:n_eval]
+    n_eval, eval_q = len(queries), queries
     print(f"  corpus: {len(queries)} query x {len(refs)} ref videos of {sizes['frames']} "
-          f"frames, {sizes['dim']}-d, {len(noise)} noise videos, {len(gt)} planted; the eval "
-          f"path takes the first {n_eval} queries", flush=True)
+          f"frames, {sizes['dim']}-d, {len(noise)} noise videos, {len(gt)} planted",
+          flush=True)
     gt_pairs = [CandidatePair(query_id=q, ref_id=r, score=1.0) for q, r, *_ in gt]
     low_var = _min_variance_dim(noise)
 
@@ -1476,30 +1493,6 @@ def run_eval(device, wrappers, card: str, corpus, corpus_s: float) -> dict:
 
     check_b5_against_exact(sn_q, sn_refs, device)
 
-    n_all = len(queries)
-    with call_times(k3) as k3_times:
-        sn_all = timed_stage(stages, f"score_norm ({n_all} queries)",
-                             lambda: query_score_normalize(queries, noise, low_var_dim=low_var,
-                                                           beta=1.2, nk=1, device=device))
-    print(f"    split: K3 (one call, {sum(len(q.feature) for q in queries)} x "
-          f"{sum(len(n.feature) for n in noise)} rows, synchronised at both "
-          f"edges) {k3_times['K3']:.3f} s", flush=True)
-    zero_counts(wrappers)
-    full, _ = timed_stage(stages, f"search_1200_per_query ({n_all} x {len(refs)})",
-                          lambda: search_split(lambda: search(
-                              sn_all, sn_refs, transfer_dtype=np.float16, device=device)))
-    full_launches = extract_topk.launches
-    check(extract_topk.route_launches == {"mma": full_launches, "ffma": 0},
-          f"full search: B5 launches by route {extract_topk.route_launches}, not all on the "
-          "tensor-core route")
-    full_rows = sum(len(q.feature) for q in sn_all)
-    full_ap = average_precision(gt_pairs, full).ap
-    print(f"  search alone at {n_all} x {len(refs)} videos ({full_rows} x "
-          f"{sum(len(r.feature) for r in sn_refs)} rows, global_k {1200 * n_all}): "
-          f"{len(full)} candidates, candidate µAP {full_ap:.4f}, B5 launches {full_launches}, "
-          "all on the tensor-core route", flush=True)
-    check(full_launches >= -(-full_rows // QUERY_TILE), "full search: too few B5 launches")
-    check(0 < len(full) <= 25 * n_all and full_ap > 0.95, "full search: bad candidates")
     print(f"  stage walls on {card}: " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()),
           flush=True)
     return launches, (queries, refs, noise), (tn_maps, stages["tn_localization"])
@@ -1638,6 +1631,7 @@ MATCH_STAGES = ("score_norm", "recall", "pack_descriptors", "classify_simmats",
                 "classify_predict", "refine", "decode")
 # float32 card vs CPU: cuDNN's convolution algorithms (Winograd among them)
 # sum in other orders than the CPU's, through up to ~100 layers.
+MATCH_TIMED_PASSES = 1  # unprofiled; three until phase 10 needed the time (PERF.md §4)
 MATCH_PROB_TOL = 1e-4  # probabilities and heatmaps
 MATCH_SCORE_TOL = 1e-3  # match-row scores: max - std * ratio of heatmap values
 MATCH_RECALL_TOL = 2e-5  # recall scores: f32 products of unit vectors
@@ -1926,8 +1920,9 @@ def check_b5_matching(q, r, k: int = 16) -> None:
 def run_matching(device, wrappers, card: str, corpus, stage1_vps: float) -> int:
     """Phase 7 (see MATCH_QUERIES): the small check, the full-width f32
     cross-check, then the matching track at the reference corpus: refs
-    score-normalised once, a warm-up and three timed passes of query
-    score-norm + `matching_inference`. Returns B5's launches."""
+    score-normalised once, a warm-up and MATCH_TIMED_PASSES timed passes of
+    query score-norm + `matching_inference`, then one more under the
+    profiler for the device's idle share alone. Returns B5's launches."""
     from vsc22_tpu_torch.models.hrnet import sam_hrnet_w18
     from vsc22_tpu_torch.models.layers import reset_parameters
     from vsc22_tpu_torch.models.mobilenetv3 import mobilenetv3_small
@@ -2000,26 +1995,23 @@ def run_matching(device, wrappers, card: str, corpus, stage1_vps: float) -> int:
     zero_counts(wrappers)
     walls, splits = [], []
     with matching_spy() as seen:
-        for i in range(4):
+        for i in range(MATCH_TIMED_PASSES + 1):
             timer = StageTimer()
-            if i < 3:
-                rows, wall = timed_pass(timer)
-            else:  # the last timed pass also gives the device's idle share
-                print("  pass 3 runs under torch.profiler (device activity only; the trace is "
-                      "processed after its clock stops):", flush=True)
-                out = []
-                t0 = time.perf_counter()
-                profile_pass(lambda: out.append(timed_pass(timer)), {"extract_topk_kernel": "B5"},
-                             host_ops=False)
-                (rows, wall), = out
-                print(f"  (profiling pass 3 and processing its trace took "
-                      f"{time.perf_counter() - t0:.1f} s)", flush=True)
+            rows, wall = timed_pass(timer)
             print(f"  {'warm-up' if i == 0 else f'pass {i}'}: {wall:.3f} s, "
                   f"{len(q48) / wall:.3f} videos/s, {len(rows)} match rows; "
                   + ", ".join(f"{k} {v:.3f} s" for k, v in timer.seconds.items()), flush=True)
             if i:
                 walls.append(wall)
                 splits.append(timer.seconds)
+        print("  one more pass under torch.profiler, for the device's idle share alone (device "
+              "activity only; the trace is processed after its clock stops):", flush=True)
+        out, timer = [], StageTimer()
+        t0 = time.perf_counter()
+        profile_pass(lambda: out.append(timed_pass(timer)), {"extract_topk_kernel": "B5"})
+        (_, wall), = out
+        print(f"  (the profiled pass: {wall:.3f} s under the profiler, not in the rate below; "
+              f"with its trace {time.perf_counter() - t0:.1f} s)", flush=True)
     b5 = extract_topk.launches
     routes = dict(extract_topk.route_launches)
     launches = counts(wrappers)
@@ -2031,8 +2023,9 @@ def run_matching(device, wrappers, card: str, corpus, stage1_vps: float) -> int:
     rates = [len(q48) / w for w in walls]
     median = float(np.median(rates))
     mean_split = {k: float(np.mean([s.get(k, 0.0) for s in splits])) for k in MATCH_STAGES}
-    print(f"  matching_stages2_6 on {card}: median {median:.3f} videos/s over 3 timed passes "
-          f"({', '.join(f'{r:.3f}' for r in rates)}); per pass (mean of 3, synchronised at "
+    print(f"  matching_stages2_6 on {card}: median {median:.3f} videos/s over {len(rates)} "
+          f"unprofiled timed pass(es) ({', '.join(f'{r:.3f}' for r in rates)}); per pass (mean of "
+          f"{len(rates)}, synchronised at "
           "each stage edge): " + ", ".join(f"{k} {v:.3f} s" for k, v in mean_split.items())
           + f", rest {np.mean(walls) - sum(mean_split.values()):.3f} s", flush=True)
     print(f"  matching_stage1 {stage1_vps:.3f} videos/s (phase 3); combined serial "
@@ -2761,6 +2754,371 @@ def run_matching_training(device, card: str, tn_maps, tn_wall) -> None:
         torch.backends.cudnn.allow_tf32 = saved
 
 
+# --- phase 10: the per-video path and the offline CLIs ---------------------------
+#
+# The per-video `QueryPipeline` (`pipelines/query_extract.py`) at full width
+# on phase 3's models, PCA and first 8 videos (kinds 0-7 of `synth_videos`:
+# 6 letterboxed, 7 a 2-up stack that FSD splits into 48 + 16 frame chunks),
+# with the exact host FSD (the float64 variance and the port's own Canny)
+# and OpenCV's cubic resize computed on the card; then the offline flow on
+# phase 3's videos 8-23 as decoded frames: `ref_extract` for each member in
+# two shards, `ensemble_cli`, `query_cli`'s query function, the eval with
+# planted exact copies, and a `clip_features` zip.
+
+PER_VIDEO = 8
+OFFLINE_TRAIN, OFFLINE_TEST = range(8, 16), range(16, 24)
+OFFLINE_PLANTED = 4  # queries 0-3 are exact copies of test refs 16-19
+CV2_CHECK_FRAMES = 6
+
+
+def probe_decoders() -> list:
+    """Print which decoders the host has; return the usable backends of
+    `data/frames.read_frames` (empty: no decoder)."""
+    import importlib.util
+    import shutil
+
+    from vsc22_tpu_torch.data import frames
+
+    found = {name: importlib.util.find_spec(name) is not None
+             for name in ("cv2", "PIL", "torchvision")}
+    found["ffmpeg"] = shutil.which("ffmpeg")
+    if found["cv2"]:
+        import cv2
+
+        found["cv2"] = cv2.__version__
+    backends = frames.available_backends()
+    print(f"  (a) decoders on this host: {found}; read_frames backends {backends or 'none'}",
+          flush=True)
+    return backends
+
+
+def check_cv2_arithmetic(device, video: np.ndarray, card: str) -> None:
+    """(b) OpenCV's resize and Canny as the port computes them: the card's
+    bits equal the CPU's on the first frames of a letterboxed 360x640 video
+    (FSD needs 5)."""
+    from vsc22_tpu_torch.data import fsd
+    from vsc22_tpu_torch.data.transforms import resize_cubic_u8, resize_normalize_frames
+
+    frames = list(video[:CV2_CHECK_FRAMES])
+    t0 = time.perf_counter()
+    maps = {dev: fsd.variance_and_edges_host(frames, dev) for dev in (device, "cpu")}
+    for a, b in zip(maps[device], maps["cpu"]):
+        check(bool((a == b).all()), "FSD maps: the card's differ from the CPU's")
+    changed, boxes = fsd.image_process_boxes(frames, maps[device])
+    check(changed, f"FSD kept the letterboxed video whole: {boxes}")
+    sh, eh, sw, ew = (int(v) for v in boxes[0])
+    x = torch.from_numpy(video[:CV2_CHECK_FRAMES])
+    cases = [(x, 384, 384), (x, 256, 256), (x, 224, 398),
+             (x[:, sh:eh, sw:ew].contiguous(), 384, 384)]
+    for src, oh, ow in cases:
+        check(torch.equal(resize_cubic_u8(src.to(device), oh, ow).cpu(),
+                          resize_cubic_u8(src, oh, ow)),
+              f"resize to {oh}x{ow}: the card's bits differ from the CPU's")
+    check(torch.equal(resize_normalize_frames(x.to(device), 384, "vit").cpu(),
+                      resize_normalize_frames(x, 384, "vit")),
+          "the resize's normalization: the card's bits differ from the CPU's")
+    edges = fsd.canny_edges(x.to(device)).cpu()
+    check(torch.equal(edges, fsd.canny_edges(x)), "Canny: the card's bits differ from the CPU's")
+    print(f"  (b) card = CPU bit for bit on {CV2_CHECK_FRAMES} 360x640 frames: cubic resize "
+          "to 384^2, 256^2, "
+          f"224x398 and of the FSD crop {(sh, eh, sw, ew)} to 384^2, and its normalization; "
+          f"Canny(50, 400) "
+          f"({int(edges.sum())} edge pixels); the float64 variance and the edge map; "
+          f"{time.perf_counter() - t0:.1f} s with the CPU side ({card})", flush=True)
+
+
+@contextlib.contextmanager
+def capture_chunk_operands(frames: int, vit_tokens: int, swin_windows: int):
+    """The first K1 and K2 call of the ViT member's blocks on a `frames`-row
+    chunk and the first B1 call on `swin_windows` windows (a SwinV2 member's
+    stage 1 on such a chunk), each as (wrapper, reference, args)."""
+    from vsc22_tpu_torch.models import layers, swinv2
+    from vsc22_tpu_torch.ops import attn_proj, mlp, swin_block
+
+    seen = {}
+    targets = [
+        (layers, "attn_proj_residual", "K1", attn_proj.attn_proj_residual_reference,
+         lambda a: a[0].dim() == 3 and a[0].shape[0] == frames),
+        (layers, "ln_mlp_residual", "K2", mlp.ln_mlp_residual_reference,
+         lambda a: a[0].shape[0] == frames * vit_tokens),
+        (swinv2, "swin_block", "B1", swin_block.swin_block_reference,
+         lambda a: a[0].shape[0] == swin_windows),
+    ]
+    saved = [(m, n, getattr(m, n)) for m, n, *_ in targets]
+
+    def spy(real, label, ref, want):
+        def call(*args):
+            if label not in seen and want(args):
+                seen[label] = (real, ref, args)
+            return real(*args)
+        return call
+
+    for (m, n, label, ref, want), (_, _, real) in zip(targets, saved):
+        setattr(m, n, spy(real, label, ref, want))
+    try:
+        yield seen
+    finally:
+        for m, n, real in saved:
+            setattr(m, n, real)
+
+
+def members(models) -> list:
+    """(name, model, input size, preset) of phase 3's four members."""
+    return [("vit", models["vit"], models["vit"].backbone.cfg.img_size, "efficientnet")] + [
+        (f"swin{i}", m, m.cfg.img_size, "vit") for i, m in enumerate(models["swins"])]
+
+
+def per_video_pipeline(device, models, pca, ved_model=None, threshold: float = 0.0):
+    from vsc22_tpu_torch.pipelines.query_extract import (
+        DescriptorExtractor,
+        QueryPipeline,
+        VideoEditDetector,
+    )
+
+    extractors = [DescriptorExtractor(m, size, preset, device=device)
+                  for _, m, size, preset in members(models)]
+    vsm = ved_model or models["vsm"]
+    ved = VideoEditDetector(models["clip"], vsm, vsm.cfg.max_frames, device=device)
+    return QueryPipeline(extractors, pca=pca, ved=ved, score_threshold=threshold, out_dim=512,
+                         device=device)
+
+
+def run_per_video(device, wrappers, models, pca, videos, noise, card: str) -> dict:
+    """(c) The per-video pass over 8 videos and query score-norm (nk 1):
+    videos/s, the launches of K1, K2, B1 and K3, and K1, K2 and B1 held to
+    their plain versions on the operands of a full 48-frame chunk."""
+    from vsc22_tpu_torch.data import fsd
+    from vsc22_tpu_torch.pipelines.query_extract import (
+        LEN_THRESHOLD,
+        DescriptorExtractor,
+        VideoEditDetector,
+        calculate_low_var_dim,
+    )
+    from vsc22_tpu_torch.retrieval import score_norm
+
+    pipe = per_video_pipeline(device, models, pca)
+    names = [f"Q{i:06d}" for i in range(PER_VIDEO)]
+    vit_cfg, swin_cfg = models["vit"].backbone.cfg, models["swins"][0].cfg
+    res = swin_cfg.img_size // swin_cfg.patch_size  # stage 1: res^2 tokens
+    swin_windows = LEN_THRESHOLD * (res // min(swin_cfg.window_size, res)) ** 2
+    with capture_chunk_operands(LEN_THRESHOLD, vit_cfg.num_patches + 1, swin_windows) as ops:
+        t0 = time.perf_counter()
+        pipe.process_video("warm-up", list(videos[7]))  # the 2-up stack: 48 + 16 frames
+        torch.cuda.synchronize()
+    print(f"  (c) warm-up on the 2-up stack {time.perf_counter() - t0:.2f} s ({card})",
+          flush=True)
+    check(set(ops) == {"K1", "K2", "B1"}, f"no full {LEN_THRESHOLD}-frame chunk: {sorted(ops)}")
+    chunks = {k: [] for k in ("vit", "clip", "swin")}
+    hooks = [m.register_forward_pre_hook(lambda mod, a, k=k: chunks[k].append(int(a[0].shape[0])))
+             for k, m in (("vit", models["vit"]), ("clip", models["clip"]),
+                          ("swin", models["swins"][0]))]
+    low_var = calculate_low_var_dim(noise)
+    stages = [(VideoEditDetector, "score", "VED"), (fsd, "image_process", "FSD"),
+              (DescriptorExtractor, "extract", "extract (4 members)"),
+              (score_norm, "query_score_normalize", "score-norm")]
+    zero_counts(wrappers)
+    with call_times(stages) as split:
+        t0 = time.perf_counter()
+        runs = [pipe.process_video(n, list(v)) for n, v in zip(names, videos[:PER_VIDEO])]
+        feats = [f for f, _ in runs]
+        normed = score_norm.query_score_normalize(feats, noise, pipe.video_scores, 0.0,
+                                                  low_var, beta=1.2, nk=1, device=device)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    launches = counts(wrappers)
+    for h in hooks:
+        h.remove()
+    for f, g in zip(feats, normed):
+        check(f.feature.shape[1] == 512 and len(f.feature) > 0
+              and bool(np.isfinite(f.feature).all()) and bool(np.isfinite(g.feature).all()),
+              f"per-video {f.video_id}: bad features {f.feature.shape}")
+    per_block = vit_cfg.depth * len(chunks["vit"]) + len(models["clip"].blocks) * len(
+        chunks["clip"])
+    want = dict(attn_proj_residual=per_block, ln_mlp_residual=per_block,
+                swin_block=sum(swin_cfg.depths) * len(chunks["swin"]) * 3, row_max_gemm=1)
+    path = {k: launches[k] for k in want}
+    cut = [n for n, (_, subs) in zip(names, runs) if len(subs[0].feature) > 32]
+    print(f"  (c) per-video pass: {PER_VIDEO} videos (FSD split {cut}) + query score-norm "
+          f"in {elapsed:.3f} s = "
+          f"{PER_VIDEO / elapsed:.3f} videos/s on {card}; chunks ViT {chunks['vit']}, CLIP "
+          f"{chunks['clip']}, SwinV2 {chunks['swin']} (x3); launches {path} (expected {want}); "
+          f"B6/B7/B5/B8/B9/B10 {[launches[k] for k in launches if k not in want]}", flush=True)
+    print("  (c) its split (synchronised at each stage edge): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+          + f", rest (uploads, dedup, PCA) {elapsed - sum(split.values()):.3f} s ({card})",
+          flush=True)
+    check(path == want, "per-video pass: launch counts")
+    check(all(v == 0 for k, v in launches.items() if k not in want),
+          "per-video pass: a kernel off its path ran")
+    check(LEN_THRESHOLD in chunks["vit"] and LEN_THRESHOLD in chunks["swin"],
+          "per-video pass: no full 48-frame chunk")
+    with torch.inference_mode():  # the captured operands are inference tensors
+        hold_chunk_operands(ops, card)
+    return dict(path, vps=PER_VIDEO / elapsed)
+
+
+def hold_chunk_operands(ops, card: str) -> None:
+    """K1, K2 and B1 against their plain versions on the captured operands,
+    at phase 2's bf16 bar."""
+    real, ref, a = ops["K1"]
+    b, l, c = a[0].shape
+    compare(f"attn_proj_residual ViT bf16 [{b},{l},{c}] (a 48-frame chunk of the pass, {card})",
+            lambda: real(*a), lambda: ref(*a), work=work_attn_proj(b, l, c, a[4], 2),
+            dtype=torch.bfloat16, reps=3)
+    real, ref, a = ops["K2"]
+    m, c = a[0].shape
+    compare(f"ln_mlp_residual ViT bf16 [{m},{c}] (the same chunk, {card})", lambda: real(*a),
+            lambda: ref(*a), work=work_mlp(m, c, a[3].shape[0], 2), dtype=torch.bfloat16, reps=3)
+    real, ref, a = ops["B1"]
+    w, n, c = a[0].shape
+    compare(f"swin_block stage1 bf16 [{w},{n},{c}] (the same chunk, SwinV2 member 1, {card})",
+            lambda: real(*a), lambda: ref(*a), block=True,
+            work=work_swin_block(w, n, c, a[16], 4 * c, a[17], 2), dtype=torch.bfloat16, reps=3)
+
+
+def write_mp4(path: str, frames: np.ndarray, fps: int = 8) -> None:
+    import cv2
+
+    out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                          (frames.shape[2], frames.shape[1]))
+    for f in frames:
+        out.write(np.ascontiguousarray(f[:, :, ::-1]))
+    out.release()
+
+
+def run_offline_flow(device, models, videos, backends, card: str) -> None:
+    """(d) The offline flow on decoded frames, then (where the host has a
+    decoder) `ref_cli` and `query_cli` from mp4 files with a tiny member
+    (the full-width members ran on the same frames above)."""
+    import copy as copy_mod
+    import tempfile
+
+    from vsc22_tpu_torch.core.storage import load_features
+    from vsc22_tpu_torch.core.types import CandidatePair, Match
+    from vsc22_tpu_torch.ops.pca import PCAModel
+    from vsc22_tpu_torch.pipelines import clip_features, descriptor_eval, ensemble_cli
+    from vsc22_tpu_torch.pipelines import query_cli, ref_cli
+    from vsc22_tpu_torch.pipelines.query_extract import SCORE_THRESHOLD, DescriptorExtractor
+    from vsc22_tpu_torch.pipelines.ref_extract import extract_references, merge_shards
+
+    sets = {"train": [(f"R1{i:05d}", videos[i]) for i in OFFLINE_TRAIN],
+            "test": [(f"R2{i:05d}", videos[i]) for i in OFFLINE_TEST]}
+    queries = ([(f"Q{i:05d}", videos[OFFLINE_TEST[i]]) for i in range(OFFLINE_PLANTED)]
+               + [(f"Q{i:05d}", videos[i]) for i in range(OFFLINE_PLANTED, PER_VIDEO)])
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        files = {}
+        for name, model, size, preset in members(models):
+            ext = DescriptorExtractor(model, size, preset, device=device)
+            for split, vids in sets.items():
+                prefix = os.path.join(root, f"{name}_{split}_refs")
+                for k in range(2):
+                    extract_references(vids, ext, prefix, process_index=k, process_count=2)
+                files[name, split] = merge_shards(prefix)
+        refs_s = time.perf_counter() - t0
+        merged = load_features(files["vit", "test"])
+        check([f.video_id for f in merged] == [v for v, _ in sets["test"]]
+              and all(len(f) == 32 for f in merged), "merged ref shards")
+        t0 = time.perf_counter()
+        fused = os.path.join(root, "fused")
+        names = [m[0] for m in members(models)]
+        dim = sum(m[1].out_dim for m in members(models))
+        ensemble_cli.main(["--train_refs", *(files[n, "train"] for n in names),
+                           "--test_refs", *(files[n, "test"] for n in names),
+                           "--out_dir", fused, "--components", str(min(512, dim))])
+        # (the PCA fit runs on the card: the CLI's default)
+        ens_s = time.perf_counter() - t0
+        pca = PCAModel.load(os.path.join(fused, "pca_model.npz"))
+        check(pca.components.shape == (min(512, dim), dim), f"PCA {pca.components.shape}")
+
+        # The VED's video-score head shifted so that the median query scores
+        # 0.5: with random weights the gate would otherwise drop every video
+        # or none, by chance.
+        vsm = copy_mod.deepcopy(models["vsm"])
+        probe = per_video_pipeline(device, models, pca, vsm)
+        logits = [float(np.log(p / (1 - p))) for p in
+                  (min(max(probe.ved.score(list(v)), 1e-6), 1 - 1e-6) for _, v in queries)]
+        with torch.no_grad():
+            vsm.output_proj.bias -= float(np.median(logits))
+        pipe = per_video_pipeline(device, models, pca, vsm, SCORE_THRESHOLD)
+        t0 = time.perf_counter()
+        q_path = query_cli.extract_queries(queries, pipe, names, os.path.join(root, "query"),
+                                           "test", os.path.join(fused, "train_refs.npz"))
+        query_s = time.perf_counter() - t0
+        gt = [Match(f"Q{i:05d}", f"R2{OFFLINE_TEST[i]:05d}", 1.0, 0.0, 32.0, 0.0, 32.0)
+              for i in range(OFFLINE_PLANTED)]
+        gt_path = os.path.join(root, "gt.csv")
+        Match.write_csv(gt, gt_path)
+        t0 = time.perf_counter()
+        res = descriptor_eval.run(q_path, os.path.join(fused, "test_refs_sn.npz"),
+                                  os.path.join(root, "eval"), ground_truth=gt_path,
+                                  device=device)
+        eval_s = time.perf_counter() - t0
+        best = {}
+        for c in CandidatePair.read_csv(res.candidate_file):
+            if c.score > best.get(c.query_id, (None, -np.inf))[1]:
+                best[c.query_id] = (c.ref_id, c.score)
+        gated = sorted(q for q, s in pipe.video_scores.items() if s < SCORE_THRESHOLD)
+        ungated = [m for m in gt if m.query_id not in gated]
+        wrong = [(m.query_id, m.ref_id, best.get(m.query_id)) for m in ungated
+                 if best.get(m.query_id, (None,))[0] != m.ref_id]
+        print(f"  (d) ref_extract, 4 members x (8 train + 8 test videos) in 2 shards each + "
+              f"merge {refs_s:.1f} s; ensemble_cli (PCA 2048 -> 512 on the card, ref "
+              f"score-norm) {ens_s:.1f} s; query_cli's query function on {len(queries)} videos "
+              f"{query_s:.1f} s; descriptor_eval {eval_s:.1f} s ({card})", flush=True)
+        print(f"  (d) VED gated {gated or 'none'} of {len(queries)}; candidate µAP "
+              f"{res.candidate_uap:.4f} over {len(gt)} planted pairs; every planted, "
+              f"ungated copy ({len(ungated)} of {len(gt)}) ranks its ref first: "
+              f"{'yes' if not wrong else wrong} ({card})", flush=True)
+        check(len(ungated) >= 1 and not wrong, "the offline flow: a planted copy missed")
+
+        ext = clip_features.ClipFeatureExtractor(models["clip"], chunk=32, device=device)
+        zip_path = clip_features.extract_clip_features(queries[:2], ext,
+                                                       os.path.join(root, "feats.zip"))
+        back = clip_features.read_feats_zip(zip_path)
+        for vid, frames in queries[:2]:
+            want = ext.extract(list(frames)).astype(np.float16).astype(np.float32)
+            check(vid in back and np.array_equal(back[vid], want)
+                  and want.shape == (len(frames), models["clip"].cfg.width),
+                  f"clip_features zip: {vid}")
+        print(f"  (d) clip_features: feats.zip of 2 videos read back equal "
+              f"({[list(v.shape) for v in back.values()]}, f16; {card})", flush=True)
+
+        if "opencv" not in backends:
+            print("  (d) no decoder on this host: decoding mp4 files is covered by the CPU "
+                  "tests only (tests/test_torch_offline_cli.py)", flush=True)
+            return
+        t0 = time.perf_counter()
+        for split, vids in (("refs", sets["test"][:4]), ("queries", queries[:4])):
+            os.makedirs(os.path.join(root, split))
+            for vid, frames in vids:
+                write_mp4(os.path.join(root, split, f"{vid}.mp4"), frames)
+        spec = "vit_tiny_test:-:64:efficientnet"  # the decode and the CLIs' plumbing
+        ref_out = ref_cli.main(["--videos", os.path.join(root, "refs"), "--out",
+                                os.path.join(root, "cli_refs"), "--model", spec, "--fps", "8"])
+        q_out = query_cli.main(["--videos", os.path.join(root, "queries"), "--out_dir",
+                                os.path.join(root, "cli_query"), "--model", f"vit:{spec}",
+                                "--norm_refs", ref_out, "--fps", "8"])
+        got_r, got_q = load_features(ref_out), load_features(q_out)
+        check(len(got_r) == 4 and len(got_q) == 4 and all(
+            np.isfinite(f.feature).all() for f in got_r + got_q), "the CLIs from mp4 files")
+        print(f"  (d) from mp4 files: ref_cli {len(got_r)} videos "
+              f"({sum(len(f) for f in got_r)} frames), query_cli {len(got_q)} videos, "
+              f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+
+
+def phase_10(device, card: str, wrappers, models, pca, videos, noise) -> dict:
+    print(f"phase 10: the per-video query path and the offline CLIs ({card})", flush=True)
+    t0 = time.perf_counter()
+    backends = probe_decoders()
+    check_cv2_arithmetic(device, videos[6], card)
+    launches = run_per_video(device, wrappers, models, pca, videos, noise, card)
+    run_offline_flow(device, models, videos, backends, card)
+    torch.cuda.empty_cache()
+    print(f"  phase 10 took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return launches
+
+
 LIBRARIES = ("attn_proj", "ln_mlp", "row_max", "window_attn", "swin_block", "extract_topk",
              "attn", "vit_block")
 # name -> (source, the TPU kernel it replaces, the phase-2 case reported)
@@ -2804,10 +3162,17 @@ def phase_9(device, card: str, tn_maps, tn_wall) -> None:
     print(f"  phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def phase_took(n: int, t0: float) -> float:
+    now = time.perf_counter()
+    print(f"  phase {n} took {now - t0:.1f} s", flush=True)
+    return now
+
+
 def main(argv=None) -> int:
     """With `--training-only`, phases 1, 8 and 9 alone (the train steps'
     checks and measurements; no result lines)."""
-    training_only = "--training-only" in (sys.argv[1:] if argv is None else argv)
+    args = sys.argv[1:] if argv is None else argv
+    training_only = "--training-only" in args
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 2
@@ -2863,14 +3228,18 @@ def main(argv=None) -> int:
         return 0
 
     print(f"phase 2: kernels vs plain on the card ({card})", flush=True)
+    t_phase = time.perf_counter()
     kres = check_kernels(device)
     kres.update(check_swin_kernels(device))
     kres.update(check_topk_kernel(device))
     kres.update(check_row_max_kernel(device))
     kres.update(check_block_kernels(device))
+    t_phase = phase_took(2, t_phase)
 
     print(f"phase 3: the slice ({card})", flush=True)
+    t0 = time.perf_counter()
     check_small_slice(device, wrappers)
+    print(f"  (the small slice took {time.perf_counter() - t0:.1f} s)", flush=True)
 
     pipe, noise, models, videos, dev_videos = host.pop("slice")
     names = [f"Q{i:06d}" for i in range(len(videos))]
@@ -2928,7 +3297,10 @@ def main(argv=None) -> int:
           f"off the tensor-core loop: {len(off_mma)}", flush=True)
     check(sum(by_width.values()) == 2 * per_pass and not off_mma,
           f"a K1 or K2 call of the bf16 query pass left the tensor-core loop: {off_mma[:3]}")
+    t0 = time.perf_counter()
     families = profile_pass(lambda: run_slice(pipe, noise, names, videos, device, dev_videos))
+    print(f"  (profiling that pass and processing its trace took {time.perf_counter() - t0:.1f} s)",
+          flush=True)
     want_mma = 3 * per_pass + 3 * swin_pass
     print(f"  profiled launches: gemm_mma_kernel {families['gemm_mma_kernel'][1]} (K1 + 2 K2 + "
           f"3 B1 = {want_mma}), ln_rows_kernel {families['ln_rows_kernel'][1]} (K2 {per_pass}), "
@@ -2958,18 +3330,22 @@ def main(argv=None) -> int:
     kres[("row_max_gemm", "score_norm", "f32")] = check_row_max(
         "score_norm f32 (the pass's own operands)", q, r)
     ved = pipe.ved  # phase 6 runs the VED gate again, on each CLIP block path
-    del pipe, models, row_max_calls, q, r
+    pca = pipe.pca  # phase 10 runs the per-video path on the same models and PCA
+    del pipe, row_max_calls, q, r
     torch.cuda.empty_cache()
+    t_phase = phase_took(3, t_phase)
 
     print(f"phase 4: the SwinV2 block paths ({card})", flush=True)
     path_launches = check_swin_paths(device, wrappers)
     launches["window_attention"] = path_launches["window_attention"]
     launches["fused_mlp"] = path_launches["fused_mlp"]
+    t_phase = phase_took(4, t_phase)
 
     print(f"phase 5: the descriptor-track eval path ({card})", flush=True)
     eval_launches, corpus, (tn_maps, tn_wall) = run_eval(device, wrappers, card,
                                                          host.pop("corpus"), host["corpus_s"])
     launches["extract_topk"] = eval_launches["extract_topk"]
+    phase_took(5, t_phase)
 
     print(f"phase 6: the CLIP block variants ({card})", flush=True)
     t0 = time.perf_counter()
@@ -2989,6 +3365,7 @@ def main(argv=None) -> int:
     run_training(device, card)
     print(f"  phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
     phase_9(device, card, tn_maps, tn_wall)
+    per_video = phase_10(device, card, wrappers, models, pca, videos, noise)
 
     kernels = []
     check(all(launches[name] > 0 for name in KERNELS), f"a kernel never ran: {launches}")
@@ -2999,6 +3376,7 @@ def main(argv=None) -> int:
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], case=f"{tag} {dn}",
+            launches_per_video=per_video.get(name, 0),
             **{k: r[k] for k in ("products_cublas_ms", "ln_rows_ms", "routes", "loop")
                if k in r},
         ))

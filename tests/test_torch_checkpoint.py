@@ -186,3 +186,33 @@ def test_cnn_snapshot_both_ways(tmp_path):
     fresh = tckpt.load_cnn_snapshot(back, hrnet.sam_hrnet_tiny_test())
     for (n, a), b in zip(pm.state_dict().items(), fresh.state_dict().values()):
         assert torch.equal(a, b), n
+
+
+def test_clip_snapshot_both_ways(tmp_path):
+    """A JAX CLIP snapshot (the `--clip` file of `query_cli`: the JAX
+    package's `save_ema_snapshot` of `clip_vit_l14().init(...)`, here the
+    tiny config) loads into the port's CLIPVisual with the same CLS
+    features, and the port's snapshot of it loads back into the JAX model
+    with every array unchanged."""
+    import types
+
+    from vsc22_tpu.models import clip as jclip
+    from vsc22_tpu_torch.models import clip as pclip
+
+    jm = jclip.clip_tiny_test()
+    imgs = np.random.default_rng(7).standard_normal((2, 32, 32, 3)).astype(np.float32)
+    variables = jax.device_get(jm.init(jax.random.PRNGKey(0), jnp.asarray(imgs)))
+    variables = {"params": randomized_params(variables["params"], seed=8)}
+    path = str(tmp_path / "clip.params.npz")
+    jckpt.save_ema_snapshot(path, types.SimpleNamespace(params=variables, ema_params=None))
+    pm = pclip.clip_tiny_test()
+    masters = tckpt.load_params_snapshot(path, pm)
+    want = np.asarray(jm.apply(variables, jnp.asarray(imgs)))[:, 0]
+    with torch.no_grad():
+        got = pm(torch.from_numpy(imgs))[:, 0].numpy()
+    np.testing.assert_allclose(got, want, atol=DESC_TOL, rtol=DESC_TOL)
+    back = str(tmp_path / "port_clip.npz")
+    tckpt.save_ema_snapshot(back, types.SimpleNamespace(params=masters, ema_params=None), pm)
+    loaded = jckpt.load_params_snapshot(back, variables)
+    for a, b in zip(jax.tree_util.tree_leaves(loaded), jax.tree_util.tree_leaves(variables)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -17,9 +17,12 @@ grid with the max in the last split, all-negative and zero maxima, and D
 padded to a multiple of 16; the outputs and gradients of K1, K2, B7, B9,
 B10, B8, B6 and B1 through their recompute VJPs against autograd of their
 plain versions, in f32 and bf16 at ragged shapes, and B5 and K3 raising on an
-operand that requires grad); and for the matching trainers, BatchNorm's
+operand that requires grad); for the matching trainers, BatchNorm's
 train mode against the CPU and the float32 convolution's backward with
-TF32 kept off while the global flag is on).
+TF32 kept off while the global flag is on; and for the per-video path,
+OpenCV's resize and Canny arithmetic bit for bit as on the CPU, the tiny
+per-video `QueryPipeline` against the CPU, and the offline CLIs on the
+card by default).
 
 Needs a CUDA device; skips elsewhere. The shared conftest imports JAX,
 which the GPU host lacks, so run it there without it:
@@ -30,6 +33,7 @@ which the GPU host lacks, so run it there without it:
 import functools
 import hashlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -1167,3 +1171,107 @@ def test_conv_backward_keeps_tf32_off(device, groups):
     for g, w in ((got, want), (xs.grad, x64.grad), (conv.weight.grad, ref.weight.grad)):
         err = float((g.detach().cpu().double() - w.detach()).abs().max())
         assert err <= 1e-5 * float(w.detach().abs().max()), err
+
+
+# --- the per-video path: OpenCV's arithmetic and the pipeline on the card --------
+
+
+def test_cv2_resize_and_canny_same_bits_on_the_card(device):
+    """`resize_cubic_u8` (integer and float32 elementwise) and `canny_edges`
+    (integer and boolean) give the CPU's bits on the card, and so do the
+    normalization after the resize and the float64 maps of
+    `variance_and_edges_host` (divisions by a device tensor, not a host
+    scalar)."""
+    from vsc22_tpu_torch.data import fsd
+    from vsc22_tpu_torch.data.transforms import clip_preprocess_frames, resize_cubic_u8
+
+    videos = chip_smoke.synth_videos(8, 6, 120, 200, seed=3)
+    x = torch.from_numpy(videos[6])  # letterboxed
+    for oh, ow in [(384, 384), (224, 373), (37, 61), (120, 200)]:
+        assert torch.equal(resize_cubic_u8(x.to(device), oh, ow).cpu(), resize_cubic_u8(x, oh, ow))
+    assert torch.equal(clip_preprocess_frames(x.to(device), 224).cpu(),
+                       clip_preprocess_frames(x, 224))
+    assert torch.equal(fsd.canny_edges(x.to(device)).cpu(), fsd.canny_edges(x))
+    for v in videos[5:]:
+        cpu = fsd.variance_and_edges_host(list(v), "cpu")
+        card = fsd.variance_and_edges_host(list(v), device)
+        for a, b in zip(cpu, card):
+            assert (a == b).all()
+
+
+def tiny_query_pipeline(device):
+    from vsc22_tpu_torch.models import clip, swinv2, vit, vsm
+    from vsc22_tpu_torch.models.layers import reset_parameters
+    from vsc22_tpu_torch.ops.pca import pca_fit
+    from vsc22_tpu_torch.pipelines import query_extract as q
+
+    gen = torch.Generator().manual_seed(21)
+    models = [vit.vit_tiny_test_descriptor(), swinv2.swinv2_tiny_test_descriptor(),
+              clip.clip_tiny_test(),
+              vsm.VideoScoreModel(vsm.VSMConfig(feat_dim=32, hidden=32, layers=1, heads=2,
+                                                max_frames=8))]
+    for m in models:
+        reset_parameters(m, gen)
+        m.to(device)
+    rng = torch.Generator().manual_seed(22)
+    pca = pca_fit(torch.randn((200, 24), generator=rng).numpy(), 8, "cpu")
+    return q.QueryPipeline(
+        [q.DescriptorExtractor(models[0], 64, "efficientnet", chunk=4, device=device),
+         q.DescriptorExtractor(models[1], 32, "vit", chunk=4, device=device)],
+        pca=pca, ved=q.VideoEditDetector(models[2], models[3], max_frames=8, chunk=4,
+                                         device=device),
+        score_threshold=0.0, out_dim=8, device=device)
+
+
+def test_per_video_pipeline_card_equals_cpu(device):
+    """The tiny per-video `QueryPipeline` (VED, exact FSD, two members, PCA)
+    in float32 on the card against the CPU: the same timestamps (so the same
+    FSD crops and dedup), features within 1e-4 and VED scores within 1e-5
+    (f32 sums in other orders through the kernels)."""
+    videos = chip_smoke.synth_videos(8, 6, 256, 256, seed=4)  # 7: a 2-up stack
+    runs = []
+    for dev in ("cpu", device):
+        pipe = tiny_query_pipeline(dev)
+        runs.append(([pipe.process_video(f"Q{i:06d}", list(v)) for i, v in enumerate(videos)],
+                     pipe.video_scores))
+    (want, want_s), (got, got_s) = runs
+    assert len(want[7][1][0].feature) == 12  # FSD split the stack
+    for (g, gsub), (w, wsub) in zip(got, want):
+        np.testing.assert_array_equal(g.timestamps, w.timestamps)
+        np.testing.assert_allclose(g.feature, w.feature, atol=1e-4, rtol=0)
+        for a, b in zip(gsub, wsub):
+            np.testing.assert_allclose(a.feature, b.feature, atol=1e-4, rtol=0)
+        assert abs(got_s[g.video_id] - want_s[w.video_id]) <= 1e-5
+
+
+def test_offline_clis_default_to_the_card(device, tmp_path, monkeypatch):
+    """Without `--device`, `ref_cli`, `query_cli` and `ensemble_cli` run on
+    the card (the decode replaced by in-memory frames: the card host may
+    have no decoder)."""
+    from vsc22_tpu_torch.core.storage import load_features
+    from vsc22_tpu_torch.pipelines import ensemble, ensemble_cli, query_cli, ref_cli
+
+    videos = chip_smoke.synth_videos(3, 6, 48, 64, seed=5)
+    seen = []
+
+    def fake_decode(videos_dir, fps):
+        return [(f"{videos_dir[-1]}{i:05d}", list(v)) for i, v in enumerate(videos)]
+
+    monkeypatch.setattr(query_cli, "decoded_videos", fake_decode)
+    monkeypatch.setattr(ref_cli, "decoded_videos", fake_decode)
+    real_fit = ensemble.pca_fit
+    monkeypatch.setattr(ensemble, "pca_fit",
+                        lambda x, k, dev: seen.append(dev) or real_fit(x, k, dev))
+    refs = {}
+    for split in ("a", "b"):
+        refs[split] = ref_cli.main(["--videos", f"R{split}", "--out", str(tmp_path / split),
+                                    "--model", "vit_tiny_test:-:64:vit"])
+    ensemble_cli.main(["--train_refs", refs["a"], "--test_refs", refs["b"], "--out_dir",
+                       str(tmp_path / "fused"), "--components", "8"])
+    assert seen and all(torch.device(d).type == "cuda" for d in seen)
+    out = query_cli.main(["--videos", "Q", "--out_dir", str(tmp_path / "q"), "--model",
+                          "m:vit_tiny_test:-:64:vit", "--pca", str(tmp_path / "fused" /
+                                                                   "pca_model.npz"),
+                          "--norm_refs", str(tmp_path / "fused" / "train_refs.npz")])
+    feats = load_features(out)
+    assert len(feats) == 3 and all(np.isfinite(f.feature).all() for f in feats)

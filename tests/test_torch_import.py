@@ -105,6 +105,59 @@ def test_train_modules_each_import_alone_without_jax():
         assert path.with_suffix(".py").is_file() or (path / "__init__.py").is_file(), name
 
 
+OFFLINE_MODULES = (
+    "vsc22_tpu_torch.ops.pca",
+    "vsc22_tpu_torch.data.transforms",
+    "vsc22_tpu_torch.data.fsd",
+    "vsc22_tpu_torch.data.frames",
+    "vsc22_tpu_torch.pipelines.preprocess",
+    "vsc22_tpu_torch.models.registry",
+    "vsc22_tpu_torch.pipelines.query_extract",
+    "vsc22_tpu_torch.pipelines.query_cli",
+    "vsc22_tpu_torch.pipelines.ref_extract",
+    "vsc22_tpu_torch.pipelines.ref_cli",
+    "vsc22_tpu_torch.pipelines.ensemble",
+    "vsc22_tpu_torch.pipelines.ensemble_cli",
+    "vsc22_tpu_torch.pipelines.clip_features",
+    "vsc22_tpu_torch.pipelines.dev_tools",
+)
+
+
+def test_offline_modules_each_import_alone_without_jax_or_opencv():
+    """Each module of the offline CLIs' path, imported first in a fresh
+    interpreter: none loads JAX, the JAX package, pandas or OpenCV (the
+    decoder imports OpenCV only when it decodes), and the CLIs' entry
+    points are there."""
+    code = (
+        "import sys, importlib\n"
+        f"for name in {OFFLINE_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "    bad = sorted(m for m in sys.modules if m in ('jax', 'vsc22_tpu', 'pandas', 'cv2')\n"
+        "                 or m.startswith(('jax.', 'flax', 'vsc22_tpu.', 'pandas.', 'cv2.')))\n"
+        "    assert not bad, (name, bad)\n"
+        "for cli in ('query_cli', 'ref_cli', 'ensemble_cli'):\n"
+        "    assert callable(sys.modules['vsc22_tpu_torch.pipelines.' + cli].main)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    for name in OFFLINE_MODULES:
+        assert (ROOT / (name.replace(".", "/") + ".py")).is_file(), name
+
+
+def test_only_the_decoder_imports_opencv():
+    """The resize and the Canny are the port's own arithmetic: no line of
+    the offline path's modules but the decoder's imports cv2."""
+    for name in OFFLINE_MODULES:
+        f = ROOT / (name.replace(".", "/") + ".py")
+        for line in f.read_text().splitlines():
+            mod = _imported_module(line.strip())
+            if mod is not None and mod.split(".")[0] == "cv2":
+                assert f == ROOT / "vsc22_tpu_torch" / "data" / "frames.py", (f, line)
+
+
 def _imported_module(line: str):
     """The module an `import x` / `from x import y` line names, else None."""
     words = line.split()

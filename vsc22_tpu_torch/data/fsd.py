@@ -9,6 +9,12 @@ decision profiles are computed from the rounded maps, as the JAX package
 does (`fsd.py:248`, `:263-266`). The cut decisions are tiny 1-D threshold
 scans on the host; they are numpy and are copied from the JAX module,
 which cannot be imported without JAX.
+
+The exact path of the per-video pipeline (`variance_and_edges_host`,
+`image_process`) computes the reference's own arithmetic without OpenCV:
+the variance in float64 and `canny_edges`, cv2.Canny(50, 400) on colour
+frames bit for bit, both in torch on the frames' device. The 8-round
+`edge_map` stays as the twin of the JAX device path.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from vsc22_tpu_torch.core.device import resolve
 
 Array = np.ndarray
 Box = Tuple[int, int, int, int]  # (start_h, end_h, start_w, end_w)
@@ -53,34 +61,6 @@ def _sobel(ch_u8):
         - (top[:, :, :-2] + 2.0 * top[:, :, 1:-1] + top[:, :, 2:])
     )
     return gx, gy
-
-
-def _shift_by(a, d: int, dim: int):
-    """Shift `a` by signed d along `dim`, False-filled (no wrap)."""
-    n = a.shape[dim]
-    out = torch.zeros_like(a)
-    if d >= 0:
-        out.narrow(dim, d, n - d).copy_(a.narrow(dim, 0, n - d))
-    else:
-        out.narrow(dim, 0, n + d).copy_(a.narrow(dim, -d, n + d))
-    return out
-
-
-def _line_flood(s, weak, dim: int):
-    """Propagate marks the full length of contiguous weak runs along `dim`,
-    both directions (carry-lookahead doubling of f[j] = s[j] | (w[j] &
-    f[j-1]))."""
-    n = s.shape[dim]
-    gf, pf = s, weak
-    gb, pb = s, weak
-    d = 1
-    while d < n:
-        gf = gf | (pf & _shift_by(gf, d, dim))
-        pf = pf & _shift_by(pf, d, dim)
-        gb = gb | (pb & _shift_by(gb, -d, dim))
-        pb = pb & _shift_by(pb, -d, dim)
-        d *= 2
-    return gf | gb
 
 
 def _dilate(m):
@@ -119,11 +99,127 @@ def edge_map(frames_u8):
     strong = keep & (mag > 400.0)  # Canny high threshold
     weak = keep & (mag > 50.0)  # Canny low threshold
     for _ in range(_FLOOD_ROUNDS):
-        strong = _line_flood(strong, weak, dim=2)
-        strong = _line_flood(strong, weak, dim=1)
+        strong = _run_flood(strong, weak, dim=2)
+        strong = _run_flood(strong, weak, dim=1)
         for _ in range(2):
             strong = strong | (weak & _dilate(strong))
     return strong.float().mean(dim=0)
+
+
+# ---------------------------------------------------------------------------
+# The exact host path: cv2.Canny(50, 400) and the float64 variance
+# ---------------------------------------------------------------------------
+#
+# OpenCV's Canny (imgproc/src/canny.cpp, aperture 3, L1 norm) on a colour
+# frame: 3x3 Sobel per channel with replicated borders (int16, exact); per
+# pixel the channel of the largest |dx| + |dy| (the first on ties); the
+# magnitude is zero outside the frame; non-maximum suppression in 15-bit
+# fixed point (tan 22.5 deg = 13573 / 2^15) with strict and non-strict
+# comparisons as below; candidates above floor(low), seeds above
+# floor(high); hysteresis floods the candidates 8-connected to a seed, to
+# convergence. All integer or boolean, so any device gives the same bits.
+
+_CANNY_TG22 = 13573
+
+
+def canny_edges(frames_u8: torch.Tensor, low: float = 50, high: float = 400) -> torch.Tensor:
+    """[N, H, W, 3] uint8 -> [N, H, W] bool: `cv2.Canny(frame, low, high) > 0`
+    for each frame, bit for bit, on the frames' device."""
+    def sobel(c):  # integer-valued f32, exact
+        return (g.to(torch.int32) for g in _sobel(frames_u8[..., c]))
+
+    dx, dy = sobel(0)
+    mag = dx.abs() + dy.abs()
+    for c in range(1, frames_u8.shape[-1]):
+        dx_c, dy_c = sobel(c)
+        mag_c = dx_c.abs() + dy_c.abs()
+        better = mag_c > mag  # ties keep the earliest channel
+        dx = torch.where(better, dx_c, dx)
+        dy = torch.where(better, dy_c, dy)
+        mag = torch.where(better, mag_c, mag)
+    h, w = mag.shape[1:]
+    padded = F.pad(mag, (1, 1, 1, 1))  # the magnitude is zero outside the frame
+
+    def at(oy, ox):
+        return padded[:, 1 + oy : 1 + oy + h, 1 + ox : 1 + ox + w]
+
+    ax = dx.abs()
+    ay = dy.abs() << 15
+    tg22x = ax * _CANNY_TG22
+    horizontal = ay < tg22x
+    vertical = ~horizontal & (ay > tg22x + (ax << 16))
+    same_sign = (dx < 0) == (dy < 0)
+    keep_h = (mag > at(0, -1)) & (mag >= at(0, 1))
+    keep_v = (mag > at(-1, 0)) & (mag >= at(1, 0))
+    keep_d = torch.where(
+        same_sign, (mag > at(-1, -1)) & (mag > at(1, 1)), (mag > at(-1, 1)) & (mag > at(1, -1))
+    )
+    keep = torch.where(horizontal, keep_h, torch.where(vertical, keep_v, keep_d))
+    weak = keep & (mag > int(np.floor(low)))
+    strong = weak & (mag > int(np.floor(high)))
+    while True:  # each round: whole runs along rows, then columns, then one 3x3 step
+        grown = _run_flood(strong, weak, dim=2)
+        grown = _run_flood(grown, weak, dim=1)
+        grown = grown | (weak & _dilate(grown))
+        if torch.equal(grown, strong):
+            return strong
+        strong = grown
+
+
+def _run_flood(s, w, dim: int):
+    """Every pixel of each contiguous run of `w` along `dim` that holds a
+    mark of `s` (s within w): the runs numbered by a running sum of their
+    starts, a scatter-add of the marks per run, a gather back: a fixed
+    dozen launches whatever the run lengths."""
+    w_t = w.movedim(dim, -1).contiguous()
+    starts = w_t.clone()
+    starts[..., 1:] &= ~w_t[..., :-1]
+    ids = torch.cumsum(starts.reshape(-1), 0)
+    hits = torch.zeros(ids.numel() + 1, dtype=torch.int32, device=w.device)
+    hits.scatter_add_(0, ids, s.movedim(dim, -1).reshape(-1).to(torch.int32))
+    return (w_t & (hits[ids] > 0).reshape(w_t.shape)).movedim(-1, dim)
+
+
+def _frames_on(frames, device) -> torch.Tensor:
+    """A frame sequence (or an [N, H, W, 3] tensor) as one uint8 tensor on
+    `device`."""
+    if isinstance(frames, torch.Tensor):
+        return frames.to(device)
+    if frames and isinstance(frames[0], torch.Tensor):
+        return torch.stack(list(frames)).to(device)
+    return torch.from_numpy(np.stack([np.asarray(f) for f in frames])).to(device)
+
+
+def _over(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x / n, correctly rounded on every device (CUDA divides by a host
+    scalar as a product with its reciprocal, which can round otherwise)."""
+    return x / torch.tensor(float(n), dtype=x.dtype, device=x.device)
+
+
+def edge_map_cv2(frames, device="cuda") -> Array:
+    """Average binarized cv2.Canny(50, 400) edge map of `frames`, float64
+    [H, W] (`fsd.edge_map_cv2`), computed by `canny_edges` on `device`."""
+    stack = _frames_on(frames, resolve(device))
+    return _over(canny_edges(stack).sum(dim=0).double(), stack.shape[0]).cpu().numpy()
+
+
+def variance_and_edges_host(frames, device="cuda") -> Tuple[Array, Array]:
+    """The reference's map arithmetic (`fsd.variance_and_edges_host`): the
+    per-pixel temporal variance in float64 summed over RGB, in numpy's
+    order of summation, and the average Canny map of the sampled frames;
+    on `device`, returned as host float64 arrays."""
+    stack = _frames_on(frames, resolve(device))
+    x = stack.double()
+    n = x.shape[0]
+    mean = _over(x.sum(dim=0), n)  # integer sums: exact in any order
+    sq = (x[0] - mean) ** 2
+    for i in range(1, n):  # frame by frame, as numpy reduces axis 0
+        d = x[i] - mean
+        sq = sq + d * d
+    var = _over(sq, n)
+    var = (var[..., 0] + var[..., 1] + var[..., 2]).cpu().numpy()
+    idx = torch.tensor(sample_edge_frames(n), device=stack.device)
+    return var, edge_map_cv2(stack.index_select(0, idx), stack.device)
 
 
 def _quantile_linear(a, q: float):
@@ -410,8 +506,67 @@ def image_process_boxes(
     computed beforehand, outside any fallback handler, so a device error
     propagates instead of being read as "no edit"."""
     n = len(img_list)
-    h, w = np.asarray(img_list[0]).shape[:2]
+    h, w = (int(d) for d in img_list[0].shape[:2])
     img_var, avg_canny = precomputed_maps
     boxes = clean_boxes(img_var, avg_canny, n, (0, h, 0, w))
     changed = len(boxes) > 1 or boxes[0] != (0, h, 0, w)
     return changed, boxes
+
+
+def remove_edges(
+    imgs: List, img_var: Array, avg_canny: Array
+) -> Tuple[List, Array, Array]:
+    """Strip static letterbox/pillarbox borders (array-returning wrapper)."""
+    sh, eh, sw, ew = remove_edges_box(img_var, avg_canny)
+    return (
+        [x[sh:eh, sw:ew, :] for x in imgs],
+        img_var[sh:eh, sw:ew],
+        avg_canny[sh:eh, sw:ew],
+    )
+
+
+def split_imgs(
+    imgs: List, img_var: Array, avg_canny: Array, gap: int = 5, min_size: int = 120
+) -> List[Tuple[List, Array, Array]]:
+    """Array-returning wrapper over `split_boxes`."""
+    return [
+        (
+            [img[sh:eh, sw:ew, :] for img in imgs],
+            img_var[sh:eh, sw:ew],
+            avg_canny[sh:eh, sw:ew],
+        )
+        for sh, eh, sw, ew in split_boxes(img_var, avg_canny, gap, min_size)
+    ]
+
+
+def clean_imgs(imgs: List, img_var: Array, avg_canny: Array) -> List[List]:
+    """Box recursion applied to the frames."""
+    h, w = imgs[0].shape[:2]
+    boxes = clean_boxes(img_var, avg_canny, len(imgs), (0, h, 0, w))
+    return [[img[sh:eh, sw:ew, :] for img in imgs] for sh, eh, sw, ew in boxes]
+
+
+def image_process(
+    img_list: Sequence, device="cuda", precomputed_maps: Optional[Tuple[Array, Array]] = None
+) -> Tuple[bool, List]:
+    """FSD over one video's frames (`fsd.image_process` on its exact host
+    path): (processed?, frames), where `frames` is the concatenation of
+    every scene crop's frame stream when borders or splits were found, and
+    the input frames otherwise. The frames may be numpy arrays or tensors
+    (crops are views of them). The maps (`variance_and_edges_host` on
+    `device`) are computed first, outside the fallback, so a device error
+    propagates; a failure in the cut decisions keeps the raw frames (the
+    reference robustness contract)."""
+    maps = precomputed_maps
+    if maps is None:
+        maps = variance_and_edges_host(img_list, device)
+    try:
+        changed, boxes = image_process_boxes(img_list, maps)
+        if changed:
+            out = []
+            for sh, eh, sw, ew in boxes:
+                out.extend([img[sh:eh, sw:ew, :] for img in img_list])
+            return True, out
+    except Exception:
+        pass
+    return False, list(img_list)

@@ -4,7 +4,9 @@ Counterpart of `vsc22_tpu/ops/pca.py`: exact PCA from the eigendecomposition
 of the D x D covariance, with sklearn's `svd_flip` sign rule (the
 largest-|loading| entry of each component made positive). The fit runs in
 float64 on the given device; `PCAModel` and its transform are numpy, as in
-the JAX package, so a JAX-fitted model's arrays carry over unchanged.
+the JAX package, so a JAX-fitted model's arrays carry over unchanged; its
+npz file (`save`, `load`) has the JAX package's keys, so a PCA written by
+either package loads in the other.
 """
 
 from __future__ import annotations
@@ -25,6 +27,23 @@ class PCAModel:
 
     def transform(self, x: np.ndarray) -> np.ndarray:
         return (np.asarray(x, np.float32) - self.mean) @ self.components.T
+
+    def save(self, path: str) -> None:
+        np.savez(
+            path,
+            mean=self.mean,
+            components=self.components,
+            explained_variance=self.explained_variance,
+        )
+
+    @classmethod
+    def load(cls, path: str) -> "PCAModel":
+        with np.load(path) as data:
+            return cls(
+                mean=data["mean"],
+                components=data["components"],
+                explained_variance=data["explained_variance"],
+            )
 
 
 def pca_fit(x: np.ndarray, n_components: int, device="cuda") -> PCAModel:

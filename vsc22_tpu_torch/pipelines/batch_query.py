@@ -44,14 +44,10 @@ from vsc22_tpu_torch.pipelines.query_extract import (
     LEN_THRESHOLD,
     MAX_CLIP_FRAMES,
     SCORE_THRESHOLD,
+    _chunked,
     _l2,
     near_duplicate_keep_indices,
 )
-
-
-def _chunked(model: nn.Module, flat: torch.Tensor, chunk: int) -> torch.Tensor:
-    """model over `flat` in chunks of `chunk` rows (outputs are per row)."""
-    return torch.cat([model(flat[s : s + chunk]) for s in range(0, flat.shape[0], chunk)])
 
 
 @dataclasses.dataclass

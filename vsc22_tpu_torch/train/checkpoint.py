@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vsc22_tpu_torch.models.clip import CLIPVisual
 from vsc22_tpu_torch.models.hrnet import SAMHRNet
 from vsc22_tpu_torch.models.mobilenetv3 import MobileNetV3Small
 from vsc22_tpu_torch.models.swinv2 import SwinTransformerV2
@@ -110,6 +111,8 @@ def _entries(model) -> list:
         return jax_params.swinv2_entries(model)
     if isinstance(model, VideoScoreModel):
         return jax_params.vsm_entries(model)
+    if isinstance(model, CLIPVisual):
+        return jax_params.clip_entries(model)
     if isinstance(model, MobileNetV3Small):
         return jax_params.mobilenetv3_entries(model)
     if isinstance(model, SAMHRNet):

@@ -12,8 +12,8 @@ scale and bias come from `params` and its running mean and variance from
 (which casts it to that parameter's dtype and device). A shape that does
 not fit raises. Nothing here imports JAX.
 
-The other direction, for the ViT and SwinV2 descriptors, the VSM and the
-matching CNNs: `jax_flat_params` writes a port model's tensors (or its
+The other direction, for the ViT and SwinV2 descriptors, CLIP, the VSM and
+the matching CNNs: `jax_flat_params` writes a port model's tensors (or its
 EMA) under the flat `/`-joined keys and in the layouts of the JAX
 package's `save_ema_snapshot` and `save_cnn_snapshot`, so that a port
 snapshot loads into the JAX model and a JAX snapshot into the port's
@@ -79,7 +79,7 @@ def _params(variables) -> dict:
 
 # --- both directions from one table ------------------------------------------
 #
-# For the ViT and SwinV2 descriptors, the VSM and the matching CNNs, an
+# For the ViT and SwinV2 descriptors, CLIP, the VSM and the matching CNNs, an
 # entry list names every JAX leaf: (its key path from the collection down,
 # the port tensor it fills, the layout between them). `load_*` fills the
 # model from a tree; `jax_flat_params` writes the flat `/`-joined keys of
@@ -162,6 +162,23 @@ def swinv2_entries(model: SwinTransformerV2) -> list:
         out += _e_ln(p + (f"merge{s}", "norm"), merge.norm)
     return out + _e_ln(p + ("norm",), model.norm) + _e_dense(p + ("output_proj",),
                                                             model.output_proj)
+
+
+def clip_entries(model: CLIPVisual) -> list:
+    """The JAX `CLIPVisual` tree (`load_clip_visual`'s keys)."""
+    p = ("params",)
+    out = _e_conv(p + ("conv1",), model.conv1)
+    out += [(p + ("class_embedding",), model.class_embedding, "id"),
+            (p + ("positional_embedding",), model.positional_embedding, "id")]
+    out += _e_ln(p + ("ln_pre",), model.ln_pre)
+    for i, block in enumerate(model.blocks):
+        t = p + (f"block{i}",)
+        out += _e_ln(t + ("ln_1",), block.ln_1)
+        out += _e_dense(t + ("attn", "qkv"), block.attn.qkv)
+        out += _e_dense(t + ("attn", "proj"), block.attn.proj)
+        out += _e_ln(t + ("ln_2",), block.ln_2)
+        out += _e_dense(t + ("c_fc",), block.c_fc) + _e_dense(t + ("c_proj",), block.c_proj)
+    return out + _e_ln(p + ("ln_post",), model.ln_post)
 
 
 def vsm_entries(model: VideoScoreModel) -> list:
@@ -251,19 +268,7 @@ def load_swinv2_descriptor(model: SwinTransformerV2, variables) -> SwinTransform
 
 @torch.no_grad()
 def load_clip_visual(model: CLIPVisual, variables) -> CLIPVisual:
-    p = _params(variables)
-    _conv(model.conv1, p["conv1"])
-    _copy(model.class_embedding, p["class_embedding"])
-    _copy(model.positional_embedding, p["positional_embedding"])
-    _ln(model.ln_pre, p["ln_pre"])
-    for i, block in enumerate(model.blocks):
-        t = p[f"block{i}"]
-        _ln(block.ln_1, t["ln_1"])
-        _attention(block.attn, t["attn"])
-        _ln(block.ln_2, t["ln_2"])
-        _dense(block.c_fc, t["c_fc"]["kernel"], t["c_fc"]["bias"])
-        _dense(block.c_proj, t["c_proj"]["kernel"], t["c_proj"]["bias"])
-    _ln(model.ln_post, p["ln_post"])
+    load_entries(clip_entries(model), variables)
     return model
 
 

@@ -50,7 +50,10 @@ result line):
      version on the operands score-norm gave it in the warm-up pass (its
      bound at the f16 peak: its products are f16 x f16); and the matching
      track's stage 1, the same extractors and PCA without the VED gate,
-     one warm pass (`matching_stage1` videos/s);
+     one warm pass (`matching_stage1` videos/s); and the pipeline's other
+     FSD setting (`use_device_fsd_maps=False`: the exact maps) on the
+     letterboxed and the 2-up video: boxes inside the frame, finite rows,
+     whether the boxes equal the default's;
   4. the SwinV2 path cross-check: one SwinV2-Base member in float32 on 16
      frames, with the default block dispatch (B1, and B6 + B7 in stage 4)
      and with `fused_block=False` (B6 + B7 everywhere): the L2-normalised
@@ -88,8 +91,8 @@ result line):
      videos at beta 1.5, nk 10 (B5, FFMA route, D 511), 2 x
      MobileNetV3-Small-100 + 2 x SAM HRNet-W18 in bf16, refs normalised
      once, a warm-up, one timed pass (videos/s and the stage split) and
-     one more under torch.profiler (the device's idle share and its
-     kernels; its wall is not in the rate);
+     one more over the first 8 query videos under torch.profiler (the
+     device's idle share and its kernels; its wall is not in the rate);
      every planted pair recalled, every
      probability and heatmap finite in [0, 1], every match row inside its
      videos, B5 launched, every model input on the card;
@@ -102,7 +105,8 @@ result line):
      CPU (loss, gradients, params and EMA); (c) ViT-B/32@384 at 48 pairs
      and (d) SwinV2-Base@256 at 32 pairs (drop-path 0.2), bf16 with f32
      masters, FGM and EMA (`scripts/torch_perf_train.py`'s bench, lr 1e-4
-     without warm-up): a warm-up step, 8 timed steps whose loss must fall,
+     without warm-up): a warm-up step, 8 (ViT) or 4 (SwinV2) timed steps
+     whose loss must fall,
      the launches per step (K1 and K2 24 each; B7 48 on bf16 tensor cores,
      no B1 or B6), images/s, step ms, peak memory, model TFLOP/s; (e) one
      profiled step of each, device time by family and the idle share;
@@ -134,7 +138,10 @@ result line):
      videos (one letterboxed, one a 2-up stack that FSD splits) + query
      score-norm (nk 1): videos/s, the launches of K1, K2, B1 and K3 against
      the models' depths, and K1, K2 and B1 against their plain versions at
-     phase 2's bf16 bar on the operands of a full 48-frame chunk; (d) the
+     phase 2's bf16 bar on the operands of a full 48-frame chunk, and the
+     pipeline's other FSD setting (`use_device_fsd_maps=True`: the 8-round
+     device maps) on the letterboxed and the 2-up video, checked as in
+     phase 3; (d) the
      offline flow on phase 3's videos 8-23 as decoded frames: `ref_extract`
      for each member in two shards and the merge, `ensemble_cli` (PCA 2048
      -> 512 on the card, saved; mutual ref score-norm), `query_cli`'s query
@@ -143,10 +150,22 @@ result line):
      the VED did not gate ranks its ref first), a `clip_features` zip read
      back; then, where the host has a decoder, `ref_cli` and `query_cli`
      from mp4 files (a tiny member: the decode and the CLIs' plumbing);
- 11. a JSON line of per-kernel numbers (B5's launches: phases 5 and 7;
+ 11. the descriptor trainer's CLI (`train/descriptor_cli.py`) in process
+     on the port's data layer: a frame store built from JPEGs of 6 of
+     phase 3's synthetic videos (192 frames of 360x640; 3 queries, 3 refs,
+     a GT csv of 2 planted copies), `configs/vit_v68.py` (ViT-B/32@384,
+     bf16 with f32 masters) at 48 pairs with FGM and EMA, lr 1e-4: one
+     epoch (4 steps), then `--epochs 2 --resume` (4 more); every logged
+     loss finite, the step counter at 8, checkpoints 4 and 8 and both
+     epochs' EMA snapshots there, each snapshot loaded into a
+     VitDescriptor giving finite unit-norm 512-d rows, K1 and K2 24
+     launches a step, every batch on the card; images/s over each run's
+     steps after its first beside phase 8(c)'s fixed-batch rate, the CLI's
+     stage split (data, train_step, checkpoint) and peak memory;
+ 12. a JSON line of per-kernel numbers (B5's launches: phases 5 and 7;
      `launches_per_video`: phase 10(c)), then the device line.
 
-With `--training-only` it runs phases 1, 8 and 9 alone (9(e) then on
+With `--training-only` it runs phases 1, 8, 9 and 11 alone (9(e) then on
 synthetic maps of phase 5's shape) and prints no result lines.
 
 Needs CUDA (it refuses to run without) and no network; builds in
@@ -1632,27 +1651,20 @@ MATCH_STAGES = ("score_norm", "recall", "pack_descriptors", "classify_simmats",
 # float32 card vs CPU: cuDNN's convolution algorithms (Winograd among them)
 # sum in other orders than the CPU's, through up to ~100 layers.
 MATCH_TIMED_PASSES = 1  # unprofiled; three until phase 10 needed the time (PERF.md §4)
+# The pass profiled for the idle share alone: the first MATCH_PROFILED query
+# videos (all 48 until phase 11 needed the time; its trace took ~14 s to read).
+MATCH_PROFILED = 8
 MATCH_PROB_TOL = 1e-4  # probabilities and heatmaps
 MATCH_SCORE_TOL = 1e-3  # match-row scores: max - std * ratio of heatmap values
 MATCH_RECALL_TOL = 2e-5  # recall scores: f32 products of unit vectors
 
 
-class StageTimer:
+def stage_timer():
     """`matching_inference`'s timer: host seconds per stage, summed over
     calls, with a device sync at both edges of each stage."""
+    from vsc22_tpu_torch.utils.observability import StageTimer
 
-    def __init__(self):
-        self.seconds: dict = {}
-
-    @contextlib.contextmanager
-    def stage(self, name):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            torch.cuda.synchronize()
-            self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+    return StageTimer(sync=torch.cuda.synchronize)
 
 
 @contextlib.contextmanager
@@ -1921,8 +1933,9 @@ def run_matching(device, wrappers, card: str, corpus, stage1_vps: float) -> int:
     """Phase 7 (see MATCH_QUERIES): the small check, the full-width f32
     cross-check, then the matching track at the reference corpus: refs
     score-normalised once, a warm-up and MATCH_TIMED_PASSES timed passes of
-    query score-norm + `matching_inference`, then one more under the
-    profiler for the device's idle share alone. Returns B5's launches."""
+    query score-norm + `matching_inference`, then one more over the first
+    MATCH_PROFILED queries under the profiler for the device's idle share
+    alone. Returns B5's launches."""
     from vsc22_tpu_torch.models.hrnet import sam_hrnet_w18
     from vsc22_tpu_torch.models.layers import reset_parameters
     from vsc22_tpu_torch.models.mobilenetv3 import mobilenetv3_small
@@ -1977,18 +1990,18 @@ def run_matching(device, wrappers, card: str, corpus, stage1_vps: float) -> int:
           "run() redoes its 480 refs every pass; here the 40,000 refs are normalised once "
           "and the passes below exclude it", flush=True)
 
-    def one_pass(timer):
+    def one_pass(timer, queries):
         with timer.stage("score_norm"):
-            sn_q = query_score_normalize(q48, noise, low_var_dim=low_var, beta=1.5, nk=10,
+            sn_q = query_score_normalize(queries, noise, low_var_dim=low_var, beta=1.5, nk=10,
                                          device=device)
-        return matching_inference(q48, refs, sn_q, sn_refs, qlen, classify, refine,
-                                  cls_keep_fraction=0.05, max_candidates=25 * len(q48),
+        return matching_inference(queries, refs, sn_q, sn_refs, qlen, classify, refine,
+                                  cls_keep_fraction=0.05, max_candidates=25 * len(queries),
                                   timer=timer, device=device)
 
-    def timed_pass(timer):
+    def timed_pass(timer, queries=q48):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rows = one_pass(timer)
+        rows = one_pass(timer, queries)
         torch.cuda.synchronize()
         return rows, time.perf_counter() - t0
 
@@ -1996,19 +2009,21 @@ def run_matching(device, wrappers, card: str, corpus, stage1_vps: float) -> int:
     walls, splits = [], []
     with matching_spy() as seen:
         for i in range(MATCH_TIMED_PASSES + 1):
-            timer = StageTimer()
+            timer = stage_timer()
             rows, wall = timed_pass(timer)
             print(f"  {'warm-up' if i == 0 else f'pass {i}'}: {wall:.3f} s, "
                   f"{len(q48) / wall:.3f} videos/s, {len(rows)} match rows; "
-                  + ", ".join(f"{k} {v:.3f} s" for k, v in timer.seconds.items()), flush=True)
+                  + ", ".join(f"{k} {v:.3f} s" for k, v in timer.as_dict().items()), flush=True)
             if i:
                 walls.append(wall)
-                splits.append(timer.seconds)
-        print("  one more pass under torch.profiler, for the device's idle share alone (device "
-              "activity only; the trace is processed after its clock stops):", flush=True)
-        out, timer = [], StageTimer()
+                splits.append(timer.as_dict())
+        print(f"  one more pass, over the first {MATCH_PROFILED} query videos, under "
+              "torch.profiler, for the device's idle share alone (device activity only; the "
+              "trace is processed after its clock stops):", flush=True)
+        out, timer = [], stage_timer()
         t0 = time.perf_counter()
-        profile_pass(lambda: out.append(timed_pass(timer)), {"extract_topk_kernel": "B5"})
+        profile_pass(lambda: out.append(timed_pass(timer, q48[:MATCH_PROFILED])),
+                     {"extract_topk_kernel": "B5"})
         (_, wall), = out
         print(f"  (the profiled pass: {wall:.3f} s under the profiler, not in the rate below; "
               f"with its trace {time.perf_counter() - t0:.1f} s)", flush=True)
@@ -2034,9 +2049,12 @@ def run_matching(device, wrappers, card: str, corpus, stage1_vps: float) -> int:
           "nk 10 over the 128,000 noise rows, D 511, f32; ref score-norm runs no search)",
           flush=True)
 
-    planted = {(f"Q{i:06d}", f"R{i:06d}") for i in range(MATCH_PLANTED)}
     n_cand = [len(c) for c in seen["candidates"]]
-    for cands in seen["candidates"]:
+    pass_queries = [len(q48)] * (MATCH_TIMED_PASSES + 1) + [MATCH_PROFILED]
+    check(len(n_cand) == len(pass_queries), f"matching: {len(n_cand)} candidate lists")
+    for n, cands in zip(pass_queries, seen["candidates"]):
+        # the planted copies are the first MATCH_PLANTED query videos
+        planted = {(f"Q{i:06d}", f"R{i:06d}") for i in range(min(n, MATCH_PLANTED))}
         missing = planted - {(q, r) for q, r, _ in cands}
         check(not missing,
               f"matching: planted pairs not among the candidates: {sorted(missing)[:4]}")
@@ -2052,8 +2070,9 @@ def run_matching(device, wrappers, card: str, corpus, stage1_vps: float) -> int:
     for qid, rid, qs, qe, rs, re, score in rows:
         check(0 <= qs <= qe < qlen[qid] and 0 <= rs <= re < ref_len[rid] and np.isfinite(score),
               f"matching: a malformed match row {[qid, rid, qs, qe, rs, re, score]}")
-    print(f"  checks: candidates per pass {n_cand} (every one of the {MATCH_PLANTED} planted "
-          f"pairs in each), {n_maps} heatmaps and all probabilities finite in [0, 1], "
+    print(f"  checks: candidates per pass {n_cand} (every planted pair of the pass's queries "
+          f"in each: {MATCH_PLANTED} of {len(q48)}, {min(MATCH_PROFILED, MATCH_PLANTED)} of "
+          f"{MATCH_PROFILED}), {n_maps} heatmaps and all probabilities finite in [0, 1], "
           f"{len(rows)} match rows of the last pass well formed; model inputs on "
           f"{sorted(seen_devices)}", flush=True)
     check(b5 > 0 and sum(routes.values()) == b5, f"matching: B5 launches {b5}, routes {routes}")
@@ -2083,6 +2102,7 @@ TRAIN_PARAM_ATOL = 1e-6
 TRAIN_PARAM_MAX_SHARE = 1e-3
 TRAIN_PARAM_WORST = 1e-5
 TRAIN_ROUNDING_GRAD = 1e-6
+SWIN_TIMED_STEPS = 4  # 8(d); 8 until phase 11 needed the time (PERF.md §4)
 # Kernel names of the train step's profiled families.
 TRAIN_HAND_KERNELS = ("gemm_mma_kernel", "ln_rows_kernel", "gemm_bias_act_kernel",
                       "gemm128_bias_kernel", "gemm_tf32x3_kernel", "attn_core_mma_kernel",
@@ -2326,12 +2346,12 @@ def train_profile(run) -> dict:
     return {f: v[0] for f, v in fam.items()} | {"idle": 1 - device_ms / 1e3 / wall}
 
 
-def run_train_model(model: str, pairs: int, card: str, wrappers: dict) -> dict:
+def run_train_model(model: str, pairs: int, card: str, wrappers: dict, steps: int) -> dict:
     """8(c)/(d): `scripts/torch_perf_train.py`'s bench at full width, bf16
     with f32 masters, FGM and EMA on, lr 1e-4 with no warm-up: one warm-up
-    step, 8 timed steps (the launches of the path's kernels counted over
-    them), one profiled step (the step's parts, run apart: the script's
-    `--parts`)."""
+    step, `steps` timed steps (the launches of the path's kernels counted
+    over them), one profiled step (the step's parts, run apart: the
+    script's `--parts`)."""
     from scripts.torch_perf_train import measure, setup
 
     t0 = time.perf_counter()
@@ -2340,8 +2360,8 @@ def run_train_model(model: str, pairs: int, card: str, wrappers: dict) -> dict:
     torch.cuda.synchronize()
     print(f"  {model}: set-up and warm-up step {time.perf_counter() - t0:.1f} s", flush=True)
     zero_counts(wrappers.values())
-    res = measure(bench, 8)
-    res["launches_per_step"] = {k: w.launches / 8 for k, w in wrappers.items()}
+    res = measure(bench, steps)
+    res["launches_per_step"] = {k: w.launches / steps for k, w in wrappers.items()}
     losses = res["losses"]
     print(f"  {model} train step, {pairs} pairs ({2 * pairs} images a pass, FGM: 2 passes), "
           f"bf16, EMA: {res['train_images_per_sec']:.1f} images/s, step {res['step_ms']:.1f} ms, "
@@ -2357,8 +2377,9 @@ def run_train_model(model: str, pairs: int, card: str, wrappers: dict) -> dict:
     return res
 
 
-def run_training(device, card: str) -> None:
-    """Phase 8: the descriptor track's training step on the card."""
+def run_training(device, card: str) -> dict:
+    """Phase 8: the descriptor track's training step on the card; returns
+    8(c)'s ViT-B/32 result."""
     from vsc22_tpu_torch.models import swinv2 as swin_model
     from vsc22_tpu_torch.ops import attn_proj, mlp, swin_block, window_attn
     from vsc22_tpu_torch.ops.mlp import fused_mlp_routes
@@ -2371,7 +2392,7 @@ def run_training(device, card: str) -> None:
     print(f"  8(b) took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     vit_res = run_train_model("vit", 48, card, {"K1": attn_proj.attn_proj_residual,
-                                                 "K2": mlp.ln_mlp_residual})
+                                                 "K2": mlp.ln_mlp_residual}, steps=8)
     per_step = vit_res["launches_per_step"]
     check(per_step["K1"] == 24 and per_step["K2"] == 24,
           f"ViT-B/32: K1 and K2 launches per step {per_step}, not 12 per forward x 2 passes")
@@ -2380,7 +2401,8 @@ def run_training(device, card: str) -> None:
     b7 = lambda x, w1, b1, w2, b2: fused_mlp_routes(x, w1, w2)
     with spy_routes([(swin_model, "fused_mlp", "B7", b7)]) as calls:
         swin_res = run_train_model("swin", 32, card, {
-            "B7": mlp.fused_mlp, "B1": swin_block.swin_block, "B6": window_attn.window_attention})
+            "B7": mlp.fused_mlp, "B1": swin_block.swin_block, "B6": window_attn.window_attention},
+            steps=SWIN_TIMED_STEPS)
     per_step = swin_res["launches_per_step"]
     check(per_step["B7"] == 48 and per_step["B1"] == 0 and per_step["B6"] == 0,
           f"SwinV2-Base: launches per step {per_step}, not B7 24 per forward x 2 passes and "
@@ -2391,6 +2413,7 @@ def run_training(device, card: str) -> None:
     check(loops == {("mma", "mma")}, f"a B7 product of the train step left bf16 tensor cores: "
                                      f"{loops}")
     print(f"  8(d)-(e) took {time.perf_counter() - t0:.1f} s", flush=True)
+    return vit_res
 
 
 # --- phase 9: the matching track's trainers and the alignment methods ---------------
@@ -2868,7 +2891,8 @@ def members(models) -> list:
         (f"swin{i}", m, m.cfg.img_size, "vit") for i, m in enumerate(models["swins"])]
 
 
-def per_video_pipeline(device, models, pca, ved_model=None, threshold: float = 0.0):
+def per_video_pipeline(device, models, pca, ved_model=None, threshold: float = 0.0,
+                       use_device_fsd_maps: bool = False):
     from vsc22_tpu_torch.pipelines.query_extract import (
         DescriptorExtractor,
         QueryPipeline,
@@ -2880,7 +2904,7 @@ def per_video_pipeline(device, models, pca, ved_model=None, threshold: float = 0
     vsm = ved_model or models["vsm"]
     ved = VideoEditDetector(models["clip"], vsm, vsm.cfg.max_frames, device=device)
     return QueryPipeline(extractors, pca=pca, ved=ved, score_threshold=threshold, out_dim=512,
-                         device=device)
+                         use_device_fsd_maps=use_device_fsd_maps, device=device)
 
 
 def run_per_video(device, wrappers, models, pca, videos, noise, card: str) -> dict:
@@ -3113,10 +3137,220 @@ def phase_10(device, card: str, wrappers, models, pca, videos, noise) -> dict:
     backends = probe_decoders()
     check_cv2_arithmetic(device, videos[6], card)
     launches = run_per_video(device, wrappers, models, pca, videos, noise, card)
+    pipe = per_video_pipeline(device, models, pca, use_device_fsd_maps=True)
+    pair = [videos[6], videos[7]]  # letterboxed, 2-up
+    feats = [pipe.process_video(f"Q{i:06d}", list(v))[0] for i, v in zip((6, 7), pair)]
+    exact, dev = zip(*(fsd_box_lists(list(v), device) for v in pair))
+    check_fsd_setting("(c) per-video pipeline, use_device_fsd_maps=True", pair, list(dev),
+                      list(exact), feats, card)
+    del pipe
     run_offline_flow(device, models, videos, backends, card)
     torch.cuda.empty_cache()
     print(f"  phase 10 took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
     return launches
+
+
+def check_fsd_setting(label: str, videos, boxes: list, other: list, feats, card: str) -> None:
+    """A pipeline's other FSD setting (`use_device_fsd_maps`) on the
+    letterboxed and the 2-up video: every box inside its frame, every row
+    finite and 512-d; whether the boxes equal the default setting's."""
+    boxes, other = ([[tuple(int(c) for c in b) for b in bx] for bx in x] for x in (boxes, other))
+    for v, bx in zip(videos, boxes):
+        h, w = v.shape[1], v.shape[2]
+        check(len(bx) >= 1 and all(0 <= sh < eh <= h and 0 <= sw < ew <= w
+                                   for sh, eh, sw, ew in bx),
+              f"{label}: a box outside its {h}x{w} frame: {bx}")
+    for f in feats:
+        check(f.feature.ndim == 2 and f.feature.shape[1] == 512 and len(f.feature) > 0
+              and bool(np.isfinite(f.feature).all()),
+              f"{label}: bad rows {f.feature.shape}")
+    print(f"  {label}: boxes {boxes} ({'equal to' if boxes == other else 'not'} the default "
+          f"setting's {other}); {[f.feature.shape for f in feats]} finite rows ({card})",
+          flush=True)
+
+
+def fsd_box_lists(frames, device) -> tuple:
+    """The FSD boxes of one video on its exact maps and on its device maps."""
+    from vsc22_tpu_torch.data import fsd
+
+    return tuple(fsd.image_process_boxes(frames, maps_fn(frames, device))[1]
+                 for maps_fn in (fsd.variance_and_edges_host, fsd.variance_and_edges_device))
+
+
+# --- phase 11: the descriptor trainer's CLI -----------------------------------------------
+#
+# `train/descriptor_cli.main` in process on a frame store that the port builds
+# from JPEGs of phase 3's first CLI_VIDEOS synthetic videos (32 frames of
+# 360x640 each): queries Q000000-Q000002, refs R000003-R000005, two planted
+# copies in the GT csv (so `LabeledFramePairDataset` takes each of its
+# branches), `configs/vit_v68.py` (ViT-B/32@384, bf16 with f32 masters) at
+# phase 8(c)'s 48 pairs with FGM and EMA: one epoch of 4 steps, then a second
+# run with `--epochs 2 --resume` (4 more). The gap between its images/s and
+# phase 8(c)'s fixed-batch rate is the data layer's cost.
+
+CLI_VIDEOS = 6
+CLI_PAIRS = 48
+CLI_STEPS = 4  # an epoch: 192 frames / 48
+CLI_PLANTED = [  # (query, ref, query frames, ref frames): ref frames copied into the query
+    (0, 3, (8, 24), (0, 16)),
+    (1, 4, (0, 12), (10, 22)),
+]
+
+
+def cli_corpus(root: str, videos=None) -> tuple:
+    """The frame store and GT csv of phase 11 (paths), from `videos` (phase
+    3's, left as they are) or the same videos drawn anew."""
+    from vsc22_tpu_torch.data.store import FrameStore
+    from vsc22_tpu_torch.pipelines.preprocess import encode_jpegs
+
+    if videos is None:
+        videos = synth_videos(CLI_VIDEOS, 32, 360, 640)
+    videos = [np.array(v) for v in videos[:CLI_VIDEOS]]
+    names = [f"{'Q' if i < CLI_VIDEOS // 2 else 'R'}{i:06d}" for i in range(CLI_VIDEOS)]
+    rows = ["query_id,ref_id,query_start,query_end,ref_start,ref_end"]
+    for q, r, (qs, qe), (rs, re) in CLI_PLANTED:
+        videos[q][qs:qe] = videos[r][rs:re]
+        rows.append(f"{names[q]},{names[r]},{qs},{qe},{rs},{re}")
+    with ThreadPoolExecutor(8) as pool:
+        jpegs = list(pool.map(encode_jpegs, videos))
+    store = os.path.join(root, "frames.rec")
+    FrameStore.build(store, list(zip(names, jpegs)))
+    gt = os.path.join(root, "gt.csv")
+    with open(gt, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return store, gt
+
+
+@contextlib.contextmanager
+def cli_spy(cli):
+    """What `descriptor_cli.main` does inside: each model input's device and
+    batch (a forward pre-hook on the model it builds), its StageTimers, and
+    its log records."""
+    import logging
+
+    seen = dict(inputs=[], timers=[], records=[])
+    build, timer_cls = cli.build_backbone, cli.StageTimer
+
+    def spied_build(*a, **k):
+        model = build(*a, **k)
+        model.register_forward_pre_hook(
+            lambda mod, args: seen["inputs"].append((args[0].device.type, args[0].shape[0])))
+        return model
+
+    class Timer(timer_cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen["timers"].append(self)
+
+    class Records(logging.Handler):
+        def emit(self, record):
+            if record.name == "descriptor_train":
+                seen["records"].append(record)
+
+    handler = Records()
+    logging.getLogger().addHandler(handler)
+    cli.build_backbone, cli.StageTimer = spied_build, Timer
+    try:
+        yield seen
+    finally:
+        cli.build_backbone, cli.StageTimer = build, timer_cls
+        logging.getLogger().removeHandler(handler)
+
+
+def cli_rate(records) -> float:
+    """images/s over one run's steps after its first: the logged steps
+    (`--print_freq 1`, each after a sync) by their log times."""
+    times = [r.created for r in records if r.msg.startswith("Epoch %d Batch")]
+    return (len(times) - 1) * 2 * CLI_PAIRS / (times[-1] - times[0])
+
+
+def run_descriptor_cli(device, card: str, fixed_rate: float, videos=None) -> None:
+    """Phase 11 (see its constants); `fixed_rate` is phase 8(c)'s images/s,
+    `videos` phase 3's (None: drawn here)."""
+    import tempfile
+
+    from vsc22_tpu_torch.models.layers import l2_normalize
+    from vsc22_tpu_torch.models.vit import vit_base_patch32_384_descriptor
+    from vsc22_tpu_torch.ops import attn_proj, mlp
+    from vsc22_tpu_torch.train import descriptor_cli
+    from vsc22_tpu_torch.train.checkpoint import CheckpointManager, load_params_snapshot
+
+    kernels = (attn_proj.attn_proj_residual, mlp.ln_mlp_residual)
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "vit_v68.py")
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        store, gt = cli_corpus(root, videos)
+        print(f"  frame store of {CLI_VIDEOS} videos x 32 frames (JPEG, 360x640) and a GT csv "
+              f"of {len(CLI_PLANTED)} planted pairs: {time.perf_counter() - t0:.1f} s", flush=True)
+        work = os.path.join(root, "run")
+        argv = ["--config", config, "--store", store, "--work_dir", work, "--ann_path", gt,
+                "--batch_size", str(CLI_PAIRS), "--num_workers", "8", "--do_ema", "--do_fgm",
+                "--lr", "1e-4", "--print_freq", "1"]
+        runs = []
+        zero_counts(kernels)
+        for extra in (["--epochs", "1"], ["--epochs", "2", "--resume"]):
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            with cli_spy(descriptor_cli) as seen:
+                state = descriptor_cli.main(argv + extra)
+            torch.cuda.synchronize(device)
+            runs.append(dict(seen, state_step=state.step, wall=time.perf_counter() - t0,
+                             peak=torch.cuda.max_memory_allocated(device) / 2**30))
+            del state
+        launches = counts(kernels)
+        steps = [r.args for run in runs for r in run["records"]
+                 if r.msg.startswith("Epoch %d Batch")]
+        inputs = [x for run in runs for x in run["inputs"]]
+        ckpts = CheckpointManager(os.path.join(work, "checkpoints")).all_steps()
+        for i, run in enumerate(runs):
+            split = run["timers"][0].as_dict()
+            print(f"  run {i + 1} (--epochs {i + 1}{' --resume' if i else ''}): step "
+                  f"{run['state_step']}, wall "
+                  f"{run['wall']:.1f} s, {cli_rate(run['records']):.1f} images/s over the steps "
+                  f"after its first ({2 * CLI_PAIRS} images a step, FGM: 2 passes); split "
+                  + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+                  + f"; peak memory {run['peak']:.2f} GiB ({card})", flush=True)
+        print(f"  phase 8(c)'s fixed noise batch at {CLI_PAIRS} pairs: {fixed_rate:.1f} images/s "
+              f"({card})", flush=True)
+        print(f"  losses {[round(a[2], 4) for a in steps]}; checkpoints {ckpts}; launches "
+              f"{launches} ({len(steps)} steps); model inputs {len(inputs)}, devices "
+              f"{sorted({d for d, _ in inputs})}, batches {sorted({b for _, b in inputs})}",
+              flush=True)
+        check(all(np.isfinite(a[2:]).all() for a in steps), "descriptor CLI: a loss not finite")
+        check([a[:2] for a in steps] == [(e, b) for e in (0, 1) for b in range(CLI_STEPS)],
+              f"descriptor CLI: logged steps {[a[:2] for a in steps]}")
+        check(runs[0]["state_step"] == CLI_STEPS and runs[1]["state_step"] == 2 * CLI_STEPS,
+              "descriptor CLI: the step counter")
+        check(ckpts == [CLI_STEPS, 2 * CLI_STEPS], f"descriptor CLI: checkpoints {ckpts}")
+        check(all(n == 24 * 2 * CLI_STEPS for n in launches.values()),
+              f"descriptor CLI: K1 and K2 launches {launches}, not 24 a step")
+        check(len(inputs) == 2 * 2 * CLI_STEPS and all(d == "cuda" and b == 2 * CLI_PAIRS
+                                                        for d, b in inputs),
+              "descriptor CLI: a batch did not reach the model on the card")
+        gen = torch.Generator(device=device).manual_seed(5)
+        images = torch.randn((8, 384, 384, 3), generator=gen, device=device)
+        model = vit_base_patch32_384_descriptor(device=device)
+        for e in (0, 1):
+            snap = os.path.join(work, f"epoch_{e}_ema.npz")
+            check(os.path.isfile(snap), f"descriptor CLI: {snap} missing")
+            load_params_snapshot(snap, model)
+            with torch.inference_mode():
+                rows = l2_normalize(model(images).float())
+            norms = torch.linalg.vector_norm(rows, dim=1)
+            check(rows.shape == (8, 512) and bool(torch.isfinite(rows).all())
+                  and bool(((norms - 1).abs() < 1e-3).all()),
+                  f"descriptor CLI: epoch_{e}_ema.npz gives bad rows")
+        print(f"  both EMA snapshots load into a VitDescriptor: finite unit-norm 512-d rows on "
+              f"{len(images)} images", flush=True)
+        del model, images
+    torch.cuda.empty_cache()
+
+
+def phase_11(device, card: str, fixed_rate: float, videos=None) -> None:
+    print(f"phase 11: the descriptor trainer's CLI ({card})", flush=True)
+    t0 = time.perf_counter()
+    run_descriptor_cli(device, card, fixed_rate, videos)
+    print(f"  phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 LIBRARIES = ("attn_proj", "ln_mlp", "row_max", "window_attn", "swin_block", "extract_topk",
@@ -3169,8 +3403,8 @@ def phase_took(n: int, t0: float) -> float:
 
 
 def main(argv=None) -> int:
-    """With `--training-only`, phases 1, 8 and 9 alone (the train steps'
-    checks and measurements; no result lines)."""
+    """With `--training-only`, phases 1, 8, 9 and 11 alone (the train
+    steps' checks and measurements, the trainer's CLI; no result lines)."""
     args = sys.argv[1:] if argv is None else argv
     training_only = "--training-only" in args
     if not torch.cuda.is_available():
@@ -3221,9 +3455,10 @@ def main(argv=None) -> int:
     if training_only:
         print(f"phase 8: training on the card ({card})", flush=True)
         t0 = time.perf_counter()
-        run_training(device, card)
+        vit_res = run_training(device, card)
         print(f"  phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
         phase_9(device, card, None, None)
+        phase_11(device, card, vit_res["train_images_per_sec"])
         print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
 
@@ -3323,7 +3558,14 @@ def main(argv=None) -> int:
               for f in stage1_feats), "matching stage 1: bad features")
     print(f"  matching_stage1 (the same extractors and PCA, ved=None, one warm pass): "
           f"{stage1_vps:.3f} videos/s on {card}", flush=True)
-    del stage1, stage1_feats
+    exact = BatchedQueryPipeline(pipe.extractors, pca=pipe.pca, ved=None, use_fsd=True,
+                                 use_device_fsd_maps=False, out_dim=512, device=device)
+    pair, dev_pair = videos[6:8], dev_videos[6:8]  # letterboxed, 2-up
+    check_fsd_setting("batched pipeline, use_device_fsd_maps=False", pair,
+                      exact._fsd_boxes(pair, dev_pair, [1.0, 1.0]),
+                      stage1._fsd_boxes(pair, dev_pair, [1.0, 1.0]),
+                      exact.process_batch(names[6:8], pair, device_videos=dev_pair), card)
+    del stage1, stage1_feats, exact
 
     # K3 on the very operands score-norm gave it in the warm-up pass.
     q, r = row_max_calls[0]
@@ -3362,10 +3604,13 @@ def main(argv=None) -> int:
 
     print(f"phase 8: training on the card ({card})", flush=True)
     t0 = time.perf_counter()
-    run_training(device, card)
+    vit_res = run_training(device, card)
     print(f"  phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
     phase_9(device, card, tn_maps, tn_wall)
     per_video = phase_10(device, card, wrappers, models, pca, videos, noise)
+    del models, pca, noise
+    phase_11(device, card, vit_res["train_images_per_sec"], videos)
+    del videos
 
     kernels = []
     check(all(launches[name] > 0 for name in KERNELS), f"a kernel never ran: {launches}")

@@ -147,6 +147,58 @@ def test_offline_modules_each_import_alone_without_jax_or_opencv():
         assert (ROOT / (name.replace(".", "/") + ".py")).is_file(), name
 
 
+DATA_LAYER_MODULES = (
+    "vsc22_tpu_torch.utils.config",
+    "vsc22_tpu_torch.utils.observability",
+    "vsc22_tpu_torch.data.store",
+    "vsc22_tpu_torch.data.augment",
+    "vsc22_tpu_torch.data.datasets",
+    "vsc22_tpu_torch.pipelines.preprocess",
+    "vsc22_tpu_torch.train.descriptor_cli",
+)
+
+
+def test_data_layer_modules_each_import_alone_without_jax():
+    """Each module of the training data layer and the descriptor trainer's
+    CLI, imported first in a fresh interpreter, then `chip_smoke`: none
+    loads JAX, the JAX package or pandas; the CLIs' entry points and the
+    record store's source are there."""
+    code = (
+        "import sys, importlib\n"
+        f"for name in {DATA_LAYER_MODULES!r} + ('chip_smoke',):\n"
+        "    importlib.import_module(name)\n"
+        "    bad = sorted(m for m in sys.modules if m in ('jax', 'vsc22_tpu', 'pandas')\n"
+        "                 or m.startswith(('jax.', 'flax', 'vsc22_tpu.', 'pandas.')))\n"
+        "    assert not bad, (name, bad)\n"
+        "assert callable(sys.modules['vsc22_tpu_torch.train.descriptor_cli'].main)\n"
+        "assert callable(sys.modules['vsc22_tpu_torch.pipelines.preprocess'].main)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    for name in DATA_LAYER_MODULES:
+        assert (ROOT / (name.replace(".", "/") + ".py")).is_file(), name
+    assert (ROOT / "vsc22_tpu_torch" / "csrc" / "recordstore.cpp").is_file()
+
+
+def test_loader_workers_load_without_torch():
+    """A spawned loader worker rebuilds its dataset from the data layer and
+    opens the record store's host library: none of it imports torch."""
+    code = (
+        "import sys\n"
+        "import vsc22_tpu_torch.data.datasets, vsc22_tpu_torch.data.store as store\n"
+        "store.library()\n"
+        "assert 'torch' not in sys.modules\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 def test_only_the_decoder_imports_opencv():
     """The resize and the Canny are the port's own arithmetic: no line of
     the offline path's modules but the decoder's imports cv2."""

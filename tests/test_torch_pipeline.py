@@ -169,3 +169,46 @@ def test_pipeline_defaults_to_the_card():
 def test_chip_smoke_synth_videos_is_the_bench_corpus():
     for a, b in zip(chip_smoke.synth_videos(9, 3, 48, 40), bench.synth_videos(9, 3, 48, 40)):
         np.testing.assert_array_equal(a, b)
+
+
+def test_fsd_maps_setting_defaults_as_in_jax():
+    import inspect
+
+    from vsc22_tpu.pipelines import query_extract as jq
+    from vsc22_tpu_torch.pipelines import query_extract as pq
+
+    for j, p in ((jbq.BatchedQueryPipeline, pbq.BatchedQueryPipeline),
+                 (jq.QueryPipeline, pq.QueryPipeline)):
+        want = inspect.signature(j).parameters["use_device_fsd_maps"].default
+        assert inspect.signature(p).parameters["use_device_fsd_maps"].default == want
+    assert pbq.BatchedQueryPipeline([], device="cpu").use_device_fsd_maps is True
+
+
+def test_exact_fsd_maps_setting_cuts_as_jax():
+    """`use_device_fsd_maps=False`: every video cut on its exact maps, the
+    port's boxes and frame counts those of the JAX pipeline (OpenCV's IPP
+    route off around the JAX call), on the bench corpus and the
+    letterboxed and stacked videos of `test_torch_cv2_numerics`."""
+    import cv2
+
+    from test_torch_cv2_numerics import make_video
+
+    videos = bench.synth_videos(8, 6, 128, 128) + [
+        np.stack(make_video(k, 30 + i)[:6]) for i, k in enumerate(
+            ["letterbox", "letterbox_gray", "pillarbox", "vstack", "hstack", "grid2x2"])]
+    names = [f"Q{i:06d}" for i in range(len(videos))]
+    jpipe = jbq.BatchedQueryPipeline([], ved=None, use_fsd=True, use_device_fsd_maps=False)
+    saved = cv2.ipp.useIPP()
+    cv2.ipp.setUseIPP(False)
+    try:
+        ctx = jpipe._prepare(names, videos)
+    finally:
+        cv2.ipp.setUseIPP(saved)
+    want = [[tuple(int(c) for c in box) for _, box in p] for p in ctx["proc"]]
+    ppipe = pbq.BatchedQueryPipeline([], ved=None, use_fsd=True, use_device_fsd_maps=False,
+                                     device="cpu")
+    got = ppipe._fsd_boxes(videos, [torch.from_numpy(v) for v in videos], [1.0] * len(videos))
+    assert [[tuple(int(c) for c in b) for b in boxes] for boxes in got] == want
+    assert sum(len(b) > 1 for b in want) >= 3  # stacks were split
+    assert sum(len(b) == 1 and b[0] != (0, v.shape[1], 0, v.shape[2])
+               for b, v in zip(want, videos)) >= 2  # borders were removed

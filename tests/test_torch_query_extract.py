@@ -84,12 +84,16 @@ def port_side(params, pca, ved_threshold):
     )
 
 
+def videos_of_kinds():
+    return [make_video(k, 20 + i)[:8] for i, k in enumerate(KINDS)]
+
+
 @pytest.fixture(scope="module")
 def runs():
     saved = cv2.ipp.useIPP()
     cv2.ipp.setUseIPP(False)
     try:
-        videos = [make_video(k, 20 + i)[:8] for i, k in enumerate(KINDS)]
+        videos = videos_of_kinds()
         names = [f"Q{i:06d}" for i in range(len(videos))]
         pipe0, params = jax_side(0.0)
         scores = [pipe0.ved.score(v) for v in videos]
@@ -156,3 +160,33 @@ def test_pipeline_defaults_to_the_card():
         pq.QueryPipeline([])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pq.DescriptorExtractor(vit.vit_tiny_test_descriptor(), 64)
+
+
+def test_device_fsd_maps_setting_matches_jax(runs):
+    """`use_device_fsd_maps=True`: FSD cuts on the 8-round device maps, the
+    port's crops those of the JAX package's `image_process`, and the
+    pipeline's features those of the JAX pipeline with the same setting
+    (on the fixture's extractors and PCA, without the VED gate)."""
+    videos = videos_of_kinds()
+    saved = cv2.ipp.useIPP()
+    cv2.ipp.setUseIPP(False)
+    try:
+        want_fsd = [jfsd.image_process(v, use_device_maps=True) for v in videos]
+        jpipe = jq.QueryPipeline(runs["jpipe"].extractors, pca=runs["jpipe"].pca, ved=None,
+                                 out_dim=8, use_device_fsd_maps=True)
+        want = [jpipe.process_video(f"Q{i:06d}", videos[i]) for i in (1, 2)]
+    finally:
+        cv2.ipp.setUseIPP(saved)
+    assert any(w[0] for w in want_fsd)
+    for v, (wc, wf) in zip(videos, want_fsd):
+        gc, gf = fsd.image_process(v, "cpu", use_device_maps=True)
+        assert gc == wc and [f.shape for f in gf] == [f.shape for f in wf]
+        for a, b in zip(gf, wf):
+            np.testing.assert_array_equal(a, b)
+    ppipe = pq.QueryPipeline(runs["ppipe"].extractors, pca=runs["ppipe"].pca, ved=None,
+                             out_dim=8, use_device_fsd_maps=True, device="cpu")
+    for i, (w, wsub) in zip((1, 2), want):  # the letterboxed and the stacked video
+        g, gsub = ppipe.process_video(f"Q{i:06d}", videos[i])
+        np.testing.assert_array_equal(g.timestamps, w.timestamps)
+        np.testing.assert_allclose(g.feature, w.feature, atol=FEAT_TOL, rtol=0)
+        assert [len(s.feature) for s in gsub] == [len(s.feature) for s in wsub]

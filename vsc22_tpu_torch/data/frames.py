@@ -5,7 +5,8 @@ same order: an `ffmpeg` binary when one is on the PATH (the reference's
 `-r fps` resampling), else OpenCV's `cv2.VideoCapture` (nearest-timestamp
 selection). Both import OpenCV lazily (ffmpeg's JPEGs are read with
 `cv2.imread`), so the rest of the port needs no OpenCV. Frames are RGB
-uint8 [H, W, 3].
+uint8 [H, W, 3]. `encode_jpeg` and `decode_jpeg` are the frame stores'
+codec (`data/store.py`, `pipelines/preprocess.py`), OpenCV's as well.
 
 A video that fails to decode or times out gives `[]` and the caller skips
 it, as in the JAX package. Where no backend exists at all, `read_frames`
@@ -90,6 +91,27 @@ def read_frames_ffmpeg(path: str, fps: float = 1.0, timeout_s: float = 60.0) -> 
             if img is not None:
                 frames.append(img[:, :, ::-1].copy())
         return frames
+
+
+def encode_jpeg(frame: np.ndarray, quality: int = 90) -> bytes:
+    """An RGB uint8 frame as JPEG bytes (OpenCV's encoder, as the JAX
+    package's frame stores write them)."""
+    import cv2
+
+    ok, buf = cv2.imencode(".jpg", frame[:, :, ::-1], [cv2.IMWRITE_JPEG_QUALITY, quality])
+    if not ok:
+        raise IOError("jpeg encode failed")
+    return buf.tobytes()
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes as an RGB uint8 frame (OpenCV's decoder)."""
+    import cv2
+
+    img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    if img is None:
+        raise IOError("jpeg decode failed")
+    return img[:, :, ::-1].copy()
 
 
 def available_backends() -> List[str]:

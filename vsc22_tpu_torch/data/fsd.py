@@ -222,6 +222,18 @@ def variance_and_edges_host(frames, device="cuda") -> Tuple[Array, Array]:
     return var, edge_map_cv2(stack.index_select(0, idx), stack.device)
 
 
+def variance_and_edges_device(frames, device="cuda") -> Tuple[Array, Array]:
+    """The device maps of one video (`fsd.variance_and_edges_device`): the
+    per-pixel temporal variance in float32 summed over RGB and the 8-round
+    `edge_map` of the sampled frames, on `device`, returned as host float32
+    arrays (not rounded to f16, unlike `batch_maps_profiles`)."""
+    stack = _frames_on(frames, resolve(device))
+    xf = stack.float()
+    var = ((xf - xf.mean(dim=0, keepdim=True)) ** 2).mean(dim=0).sum(dim=-1)
+    idx = torch.tensor(sample_edge_frames(int(stack.shape[0])), device=stack.device)
+    return var.cpu().numpy(), edge_map(stack.index_select(0, idx)).cpu().numpy()
+
+
 def _quantile_linear(a, q: float):
     """Row-wise linear-interpolation quantile of [V, n] f32, in f32 as
     `jnp.quantile` computes it (no input-size limit, unlike
@@ -547,19 +559,22 @@ def clean_imgs(imgs: List, img_var: Array, avg_canny: Array) -> List[List]:
 
 
 def image_process(
-    img_list: Sequence, device="cuda", precomputed_maps: Optional[Tuple[Array, Array]] = None
+    img_list: Sequence, device="cuda", precomputed_maps: Optional[Tuple[Array, Array]] = None,
+    use_device_maps: bool = False,
 ) -> Tuple[bool, List]:
-    """FSD over one video's frames (`fsd.image_process` on its exact host
-    path): (processed?, frames), where `frames` is the concatenation of
-    every scene crop's frame stream when borders or splits were found, and
-    the input frames otherwise. The frames may be numpy arrays or tensors
-    (crops are views of them). The maps (`variance_and_edges_host` on
-    `device`) are computed first, outside the fallback, so a device error
-    propagates; a failure in the cut decisions keeps the raw frames (the
-    reference robustness contract)."""
+    """FSD over one video's frames (`fsd.image_process`): (processed?,
+    frames), where `frames` is the concatenation of every scene crop's
+    frame stream when borders or splits were found, and the input frames
+    otherwise. The frames may be numpy arrays or tensors (crops are views
+    of them). The maps (`variance_and_edges_host`, the exact path, or with
+    `use_device_maps` `variance_and_edges_device`, on `device`) are
+    computed first, outside the fallback, so a device error propagates; a
+    failure in the cut decisions keeps the raw frames (the reference
+    robustness contract)."""
     maps = precomputed_maps
     if maps is None:
-        maps = variance_and_edges_host(img_list, device)
+        maps_fn = variance_and_edges_device if use_device_maps else variance_and_edges_host
+        maps = maps_fn(img_list, device)
     try:
         changed, boxes = image_process_boxes(img_list, maps)
         if changed:

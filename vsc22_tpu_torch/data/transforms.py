@@ -26,13 +26,7 @@ import functools
 import numpy as np
 import torch
 
-PRESETS = {
-    # name: (mean, std)
-    "imagenet": ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
-    "clip": ((0.48145466, 0.4578275, 0.40821073), (0.26862954, 0.26130258, 0.27577711)),
-    "vit": ((0.5, 0.5, 0.5), (0.5, 0.5, 0.5)),
-    "efficientnet": ((0.5, 0.5, 0.5), (0.5, 0.5, 0.5)),
-}
+from vsc22_tpu_torch.data.presets import PRESETS
 
 
 def _keys_cubic(x: np.ndarray) -> np.ndarray:

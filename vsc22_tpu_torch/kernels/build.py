@@ -11,10 +11,11 @@ Wrappers pass tensors as raw device pointers and PyTorch's current stream;
 each C entry point returns `cudaGetLastError()` after its launches, and
 `call` raises on anything but 0.
 
-`host_library` builds the one host library, `csrc/<name>.cpp` (plain C++
-for the CPU: the alignment methods' sequential fills), with g++ in the
-same way and into the same directory. It raises where g++ is missing or
-fails: no caller has another version to fall back to.
+`host_library` builds a host library, `csrc/<name>.cpp` (plain C++ for
+the CPU: the alignment methods' sequential fills, the record store), with
+g++ in the same way and into the same directory. It raises where g++ is
+missing or fails: no caller has another version to fall back to. Only
+the CUDA helpers import torch, so a host library loads without it.
 """
 
 from __future__ import annotations
@@ -26,8 +27,10 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import TYPE_CHECKING
 
-import torch
+if TYPE_CHECKING:  # the CUDA helpers below import torch where they use it
+    import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
@@ -146,10 +149,9 @@ PTR = ctypes.c_void_p
 INT = ctypes.c_int
 FLOAT = ctypes.c_float
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
 def stream_ptr(device: torch.device) -> int:
+    import torch
+
     return torch.cuda.current_stream(device).cuda_stream
 
 
@@ -168,7 +170,9 @@ def check_cuda(name: str, t: torch.Tensor, device: torch.device, dtype: torch.dt
 
 def working_dtype(t: torch.Tensor) -> int:
     """The C dtype code of `t`; raise for types the kernels do not take."""
-    code = DTYPE_CODES.get(t.dtype)
+    import torch
+
+    code = {torch.float32: 0, torch.bfloat16: 1}.get(t.dtype)
     if code is None:
         raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
     return code

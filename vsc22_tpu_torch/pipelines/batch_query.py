@@ -8,7 +8,9 @@ one device. Per batch of videos:
      [V, max_frames, D] batch for the video-score model -> sigmoid;
   2. FSD: device maps + level-0 profiles per same-shape group; videos the
      profile screen cannot clear fetch their maps for the host cut logic.
-     The device work runs outside the keep-the-raw-box fallback handlers,
+     With `use_device_fsd_maps=False` every ungated video is cut on its
+     exact maps (`fsd.variance_and_edges_host`) instead, unscreened. The
+     device work runs outside the keep-the-raw-box fallback handlers,
      so a device error propagates;
   3. every (video, crop box) stream is cropped + resized on the device from
      the original frames; extractors sharing (size, preset, dtype) share
@@ -115,6 +117,7 @@ class BatchedQueryPipeline:
         pca: Optional[PCAModel] = None,
         ved: Optional[BatchedVED] = None,
         use_fsd: bool = True,
+        use_device_fsd_maps: bool = True,
         score_threshold: float = SCORE_THRESHOLD,
         frame_threshold: float = FRAME_THRESHOLD,
         out_dim: int = 512,
@@ -124,6 +127,7 @@ class BatchedQueryPipeline:
         self.pca = pca
         self.ved = ved
         self.use_fsd = use_fsd
+        self.use_device_fsd_maps = use_device_fsd_maps
         self.score_threshold = score_threshold
         self.frame_threshold = frame_threshold
         self.out_dim = out_dim
@@ -212,6 +216,14 @@ class BatchedQueryPipeline:
             boxes.append(None if gated else [(0, int(vid.shape[1]), 0, int(vid.shape[2]))])
         if not self.use_fsd:
             return boxes
+        if not self.use_device_fsd_maps:
+            # The exact maps of every ungated video (`batch_query.py:556-566`
+            # of the JAX package with use_device_maps=False): no screen.
+            for i, vid in enumerate(device_videos):
+                if boxes[i] is not None:
+                    self._cut(boxes, i, videos_u8[i],
+                              fsd.variance_and_edges_host(vid, self.device))
+            return boxes
         by_shape: Dict[Tuple, List[int]] = {}
         for i, vid in enumerate(device_videos):
             by_shape.setdefault(tuple(vid.shape), []).append(i)
@@ -235,16 +247,18 @@ class BatchedQueryPipeline:
             fetched = maps16.index_select(0, sel).float().cpu().numpy()
             k = len(flagged)
             for t, j in enumerate(flagged):
-                i = idxs[j]
-                try:
-                    changed, fsd_boxes = fsd.image_process_boxes(
-                        videos_u8[i], (fetched[t], fetched[k + t])
-                    )
-                    if changed:
-                        boxes[i] = fsd_boxes
-                except Exception:
-                    pass  # reference robustness contract: keep the raw frame
+                self._cut(boxes, idxs[j], videos_u8[idxs[j]], (fetched[t], fetched[k + t]))
         return boxes
+
+    @staticmethod
+    def _cut(boxes, i: int, frames, maps) -> None:
+        """boxes[i] = the FSD crops of video i from its `maps`, where it was cut."""
+        try:
+            changed, fsd_boxes = fsd.image_process_boxes(frames, maps)
+            if changed:
+                boxes[i] = fsd_boxes
+        except Exception:
+            pass  # reference robustness contract: keep the raw frame
 
     def _weights(self, in_size: int, out_size: int, start: int, stop: int) -> torch.Tensor:
         return torch.from_numpy(cubic_resize_weights(in_size, out_size, start, stop)).to(

@@ -5,7 +5,8 @@ corpus's minimum-variance dimension.
 Counterpart of `vsc22_tpu/pipelines/query_extract.py` (reference contract
 D1/infer/extract_query_feats.py:54-244). One video at a time, on one
 device (the card unless the caller names another): the frames go to the
-device once; the VED gate, the exact FSD maps (`fsd.image_process`) and
+device once; the VED gate, the FSD maps (`fsd.image_process`: the exact
+maps, or the 8-round device maps with `use_device_fsd_maps`) and
 each member's resize (`transforms.resize_normalize_frames`, OpenCV's cubic
 arithmetic) run there. Each member runs LEN_THRESHOLD-frame chunks; the
 last chunk runs unpadded (the JAX version zero-pads it to a fixed shape for
@@ -154,6 +155,7 @@ class QueryPipeline:
         score_threshold: float = SCORE_THRESHOLD,
         frame_threshold: float = FRAME_THRESHOLD,
         out_dim: int = 512,
+        use_device_fsd_maps: bool = False,
         device="cuda",
     ):
         self.extractors = list(extractors)
@@ -163,6 +165,7 @@ class QueryPipeline:
         self.score_threshold = score_threshold
         self.frame_threshold = frame_threshold
         self.out_dim = out_dim
+        self.use_device_fsd_maps = use_device_fsd_maps
         self.device = resolve(device)
         self.rnd_idx = 0
         self.video_scores: Dict[str, float] = {}
@@ -184,7 +187,8 @@ class QueryPipeline:
 
         proc_frames = dev_frames
         if self.use_fsd:
-            _, proc_frames = fsd.image_process(dev_frames, self.device)
+            _, proc_frames = fsd.image_process(
+                dev_frames, self.device, use_device_maps=self.use_device_fsd_maps)
 
         sub_feats_raw = [_l2(e.extract(proc_frames)) for e in self.extractors]
         features = np.concatenate(sub_feats_raw, axis=1)

@@ -162,7 +162,21 @@ result line):
      launches a step, every batch on the card; images/s over each run's
      steps after its first beside phase 8(c)'s fixed-batch rate, the CLI's
      stage split (data, train_step, checkpoint) and peak memory;
- 12. a JSON line of per-kernel numbers (B5's launches: phases 5 and 7;
+ 12. (run after phase 10, while phase 3's models are alive) the reference's
+     checkpoints and the export (`utils/port_weights.py`,
+     `utils/export.py`): (a) the ViT-B/32@384 member written as the v68
+     checkpoint (timm + SSCD head under `module.backbone.model.`) and its
+     backbone as an AugReg npz, a SwinV2-Base@256 member in the official
+     keys, CLIP ViT-L/14 as OpenAI's visual tower under `visual.` and the
+     VSM as the BERT MS checkpoint under `module.`, each in f32 to a file
+     and read back into a fresh module: every tensor bit for bit, and the
+     outputs on one full 128-frame chunk (the VSM: two 256-frame clips) bit
+     for bit, K1 and K2 (ViT 12, CLIP 24) and B1 (24) launched as the
+     depths say; (b) the ViT member exported at a 128-frame bf16 chunk and
+     reloaded: 12 K1 and 12 K2 op nodes in the program, as many launches,
+     the eager output bit for bit, another batch size refused; export and
+     load seconds, eager and exported ms per chunk in turns;
+ 13. a JSON line of per-kernel numbers (B5's launches: phases 5 and 7;
      `launches_per_video`: phase 10(c)), then the device line.
 
 With `--training-only` it runs phases 1, 8, 9 and 11 alone (9(e) then on
@@ -3353,6 +3367,287 @@ def phase_11(device, card: str, fixed_rate: float, videos=None) -> None:
     print(f"  phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# --- phase 12: reference checkpoints in, a member exported ------------------------------
+#
+# Each full-width member's weights written in the layout the reference ships
+# (f32, as its checkpoints are), read back through `utils/port_weights` into
+# a fresh module; then the ViT member exported with `utils/export` at the
+# query pass's chunk.
+
+CHUNK = 128  # frames: the batched query pass's chunk
+
+
+def _host(t) -> torch.Tensor:
+    return t.detach().float().cpu()
+
+
+def _weight_bias(sd: dict, name: str, mod) -> None:
+    """A Linear's or LayerNorm's weight, and its bias where it has one,
+    under `name.`."""
+    sd[f"{name}.weight"] = mod.weight
+    if getattr(mod, "bias", None) is not None:
+        sd[f"{name}.bias"] = mod.bias
+
+
+def timm_sscd_layout(model) -> dict:
+    """A `VitDescriptor` as the reference's v68 checkpoint: timm ViT keys
+    under `backbone.` and the SSCD head (`embeddings.0.conv`, a Conv1d
+    k=1; `embeddings.1`), behind the DDP prefix `module.backbone.model.`."""
+    vit = model.backbone
+    sd = {"backbone.patch_embed.proj.weight": vit.patch_embed.weight,
+          "backbone.patch_embed.proj.bias": vit.patch_embed.bias,
+          "backbone.cls_token": vit.cls_token, "backbone.pos_embed": vit.pos_embed}
+    for i, blk in enumerate(vit.blocks):
+        for name, mod in (("norm1", blk.norm1), ("attn.qkv", blk.attn.qkv),
+                          ("attn.proj", blk.attn.proj), ("norm2", blk.norm2),
+                          ("mlp.fc1", blk.mlp.fc1), ("mlp.fc2", blk.mlp.fc2)):
+            _weight_bias(sd, f"backbone.blocks.{i}.{name}", mod)
+    _weight_bias(sd, "backbone.norm", vit.norm)
+    sd["embeddings.0.conv.weight"] = model.gem.proj.weight[:, :, None]
+    sd["embeddings.0.conv.bias"] = model.gem.proj.bias
+    _weight_bias(sd, "embeddings.1", model.head)
+    return {f"module.backbone.model.{k}": _host(v) for k, v in sd.items()}
+
+
+def augreg_layout(vit) -> dict:
+    """A `VisionTransformer` as timm's AugReg npz (HWIO patch kernel, q, k
+    and v kernels [C, H, hd], the output kernel [H, hd, C])."""
+    c, h = vit.cfg.embed_dim, vit.cfg.num_heads
+    n = lambda t: _host(t).numpy()  # noqa: E731
+    npz = {"embedding/kernel": n(vit.patch_embed.weight.permute(2, 3, 1, 0)),
+           "embedding/bias": n(vit.patch_embed.bias), "cls": n(vit.cls_token),
+           "Transformer/posembed_input/pos_embedding": n(vit.pos_embed),
+           "Transformer/encoder_norm/scale": n(vit.norm.weight),
+           "Transformer/encoder_norm/bias": n(vit.norm.bias)}
+    for i, blk in enumerate(vit.blocks):
+        b = f"Transformer/encoderblock_{i}"
+        for ln, mod in (("LayerNorm_0", blk.norm1), ("LayerNorm_2", blk.norm2)):
+            npz[f"{b}/{ln}/scale"], npz[f"{b}/{ln}/bias"] = n(mod.weight), n(mod.bias)
+        att = f"{b}/MultiHeadDotProductAttention_1"
+        qkv_k, qkv_b = n(blk.attn.qkv.weight).T, n(blk.attn.qkv.bias)
+        for j, name in enumerate(("query", "key", "value")):
+            npz[f"{att}/{name}/kernel"] = qkv_k[:, j * c:(j + 1) * c].reshape(c, h, c // h)
+            npz[f"{att}/{name}/bias"] = qkv_b[j * c:(j + 1) * c].reshape(h, c // h)
+        npz[f"{att}/out/kernel"] = n(blk.attn.proj.weight).T.reshape(h, c // h, c)
+        npz[f"{att}/out/bias"] = n(blk.attn.proj.bias)
+        for d, fc in (("Dense_0", blk.mlp.fc1), ("Dense_1", blk.mlp.fc2)):
+            npz[f"{b}/MlpBlock_3/{d}/kernel"] = n(fc.weight).T
+            npz[f"{b}/MlpBlock_3/{d}/bias"] = n(fc.bias)
+    return npz
+
+
+def swinv2_layout(model) -> dict:
+    """A `SwinTransformerV2` in the official (Microsoft) keys, with one of
+    the torch buffers that the loader does not read."""
+    sd = {"patch_embed.proj.weight": model.patch_embed.weight,
+          "patch_embed.proj.bias": model.patch_embed.bias}
+    _weight_bias(sd, "patch_embed.norm", model.patch_norm)
+    for s, blocks in enumerate(model.stages):
+        for i, blk in enumerate(blocks):
+            t, a = f"layers.{s}.blocks.{i}", blk.attn
+            sd.update({f"{t}.attn.logit_scale": a.logit_scale, f"{t}.attn.qkv.weight": a.qkv_weight,
+                       f"{t}.attn.q_bias": a.q_bias, f"{t}.attn.v_bias": a.v_bias,
+                       f"{t}.attn.relative_position_index": torch.zeros(1)})
+            for name, mod in (("norm1", blk.norm1), ("norm2", blk.norm2),
+                              ("attn.cpb_mlp.0", a.cpb_fc1), ("attn.cpb_mlp.2", a.cpb_fc2),
+                              ("attn.proj", a.proj), ("mlp.fc1", blk.mlp.fc1),
+                              ("mlp.fc2", blk.mlp.fc2)):
+                _weight_bias(sd, f"{t}.{name}", mod)
+        if s < len(model.merges):
+            _weight_bias(sd, f"layers.{s}.downsample.reduction", model.merges[s].reduction)
+            _weight_bias(sd, f"layers.{s}.downsample.norm", model.merges[s].norm)
+    _weight_bias(sd, "norm", model.norm)
+    _weight_bias(sd, "output_proj", model.output_proj)
+    return {k: _host(v) for k, v in sd.items()}
+
+
+def openai_clip_layout(model) -> dict:
+    """A `CLIPVisual` as a whole OpenAI CLIP checkpoint's visual tower,
+    under `visual.` (q|k|v rows in `in_proj_weight`; a projection the
+    loader does not read)."""
+    w = model.ln_pre.weight.shape[0]
+    sd = {"conv1.weight": model.conv1.weight, "class_embedding": model.class_embedding,
+          "positional_embedding": model.positional_embedding, "proj": torch.zeros(w, 768)}
+    _weight_bias(sd, "ln_pre", model.ln_pre)
+    _weight_bias(sd, "ln_post", model.ln_post)
+    for i, blk in enumerate(model.blocks):
+        t = f"transformer.resblocks.{i}"
+        sd[f"{t}.attn.in_proj_weight"] = blk.attn.qkv.weight
+        sd[f"{t}.attn.in_proj_bias"] = blk.attn.qkv.bias
+        for name, mod in (("ln_1", blk.ln_1), ("ln_2", blk.ln_2), ("attn.out_proj", blk.attn.proj),
+                          ("mlp.c_fc", blk.c_fc), ("mlp.c_proj", blk.c_proj)):
+            _weight_bias(sd, f"{t}.{name}", mod)
+    return {f"visual.{k}": _host(v) for k, v in sd.items()}
+
+
+def bert_vsm_layout(model, vocab: int = 21128, positions: int = 512) -> dict:
+    """A `VideoScoreModel` as the reference's MS checkpoint over
+    chinese-roberta-wwm-ext (a BERT of `vocab` words and `positions`
+    positions; [CLS]/[SEP] the word rows 101/102, token type 0 zero),
+    behind `module.`."""
+    hid = model.cfg.hidden
+    word = torch.zeros(vocab, hid)
+    word[101], word[102] = _host(model.cls_emb), _host(model.sep_emb)
+    pos = torch.zeros(positions, hid)
+    pos[:model.pos_embed.shape[0]] = _host(model.pos_embed)
+    sd = {"bert.embeddings.word_embeddings.weight": word,
+          "bert.embeddings.position_embeddings.weight": pos,
+          "bert.embeddings.token_type_embeddings.weight": torch.zeros(2, hid)}
+    _weight_bias(sd, "frame_proj.0", model.frame_proj)
+    _weight_bias(sd, "frame_proj.1", model.frame_norm)
+    _weight_bias(sd, "bert.embeddings.LayerNorm", model.emb_norm)
+    for i, layer in enumerate(model.layers):
+        t = f"bert.encoder.layer.{i}"
+        for j, name in enumerate(("query", "key", "value")):
+            sd[f"{t}.attention.self.{name}.weight"] = layer.attn.qkv.weight[j * hid:(j + 1) * hid]
+            sd[f"{t}.attention.self.{name}.bias"] = layer.attn.qkv.bias[j * hid:(j + 1) * hid]
+        for name, mod in (("attention.output.dense", layer.attn.proj),
+                          ("attention.output.LayerNorm", layer.ln_attn),
+                          ("intermediate.dense", layer.fc1), ("output.dense", layer.fc2),
+                          ("output.LayerNorm", layer.ln_mlp)):
+            _weight_bias(sd, f"{t}.{name}", mod)
+    _weight_bias(sd, "output_proj", model.output_proj)
+    return {f"module.{k}": _host(v) for k, v in sd.items()}
+
+
+def same_weights(name: str, member, fresh) -> int:
+    """Every parameter and buffer of `fresh` bit for bit `member`'s; the
+    count of tensors compared."""
+    want, got = member.state_dict(), fresh.state_dict()
+    check(want.keys() == got.keys(), f"{name}: the fresh module's tensors differ in name")
+    off = [k for k in want if want[k].dtype != got[k].dtype or not torch.equal(want[k], got[k])]
+    check(not off, f"{name}: {len(off)} tensors read back differ, e.g. {off[:3]}")
+    return len(want)
+
+
+def round_trip(device, wrappers, models, root: str) -> None:
+    """12(a): each member's weights through its reference layout, a file,
+    and `utils/port_weights` into a fresh module: the same bits, and the
+    same outputs on one full chunk (the ViT's and SwinV2's through K1, K2
+    and B1, each launched as the depths say)."""
+    from vsc22_tpu_torch.models import clip, swinv2, vit, vsm
+    from vsc22_tpu_torch.utils import port_weights as pw
+
+    gen = torch.Generator(device).manual_seed(12)
+    dt = torch.bfloat16
+    vit_m, swin_m = models["vit"], models["swins"][0]
+    chunk = {s: torch.randn((CHUNK, s, s, 3), generator=gen, device=device).to(dt)
+             for s in (vit_m.backbone.cfg.img_size, swin_m.cfg.img_size,
+                       models["clip"].cfg.img_size)}
+    feats = torch.randn((2, models["vsm"].cfg.max_frames, models["vsm"].cfg.feat_dim),
+                        generator=gen, device=device).to(dt)
+    cases = [  # name, member, its reference layout, the loader, a fresh module, input, launches
+        ("ViT-B/32@384 (timm + SSCD)", vit_m, timm_sscd_layout, pw.port_vit_torch_state_dict,
+         lambda: vit.vit_base_patch32_384_descriptor(dt, device),
+         chunk[vit_m.backbone.cfg.img_size], dict(attn_proj_residual=12, ln_mlp_residual=12)),
+        ("ViT-B/32@384 backbone (AugReg npz)", vit_m.backbone, augreg_layout,
+         pw.port_vit_augreg_npz, lambda: vit.VisionTransformer(vit.VIT_BASE_PATCH32_384, dt, device),
+         chunk[vit_m.backbone.cfg.img_size], dict(attn_proj_residual=12, ln_mlp_residual=12)),
+        ("SwinV2-Base@256 (Microsoft)", swin_m, swinv2_layout, pw.port_swinv2_torch_state_dict,
+         lambda: swinv2.swinv2_base_256_descriptor(dt, device), chunk[swin_m.cfg.img_size],
+         dict(swin_block=24)),
+        ("CLIP ViT-L/14 (OpenAI, visual.)", models["clip"], openai_clip_layout,
+         pw.port_clip_torch_state_dict, lambda: clip.clip_vit_l14(dt, device),
+         chunk[models["clip"].cfg.img_size], dict(attn_proj_residual=24, ln_mlp_residual=24)),
+        ("VSM base (BERT, module.)", models["vsm"], bert_vsm_layout, pw.port_vsm_torch_state_dict,
+         lambda: vsm.vsm_base(dt, device), feats, {}),
+    ]
+    for name, member, layout, port, fresh_of, x, want in cases:
+        t0 = time.perf_counter()
+        ref = layout(member)
+        path = os.path.join(root, "ref.npz" if layout is augreg_layout else "ref.pt")
+        if layout is augreg_layout:
+            np.savez(path, **ref)
+            ref = np.load(path)
+        else:
+            torch.save(ref, path)
+            ref = torch.load(path, map_location="cpu", weights_only=True)
+        size = os.path.getsize(path)
+        fresh = port(ref, fresh_of())
+        del ref
+        os.remove(path)
+        loaded = time.perf_counter() - t0
+        n = same_weights(name, member, fresh)
+        with torch.no_grad():
+            want_out = member(x)
+            zero_counts(wrappers)
+            got_out = fresh(x)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in counts(wrappers).items() if v}
+        check(launched == want, f"{name}: launches {launched}, expected {want}")
+        check(torch.equal(got_out, want_out), f"{name}: outputs differ after the round trip")
+        print(f"  (a) {name}: {n} tensors bit for bit, written, read back and ported in "
+              f"{loaded:.2f} s ({size / 2**20:.0f} MiB file); outputs on {tuple(x.shape)} "
+              f"bit for bit; launches {launched or 'none (no kernel)'}", flush=True)
+        del fresh, want_out, got_out
+    torch.cuda.empty_cache()
+
+
+def export_member(device, wrappers, vit_m, card: str, root: str) -> None:
+    """12(b): the ViT member exported at the query pass's chunk in bf16
+    and reloaded: 12 K1 and 12 K2 nodes in the program, as many launches
+    by the wrappers' counters, the eager member's output bit for bit, and
+    another batch refused; export and load seconds, eager and exported ms
+    per chunk."""
+    import collections
+
+    from vsc22_tpu_torch.utils.export import export_model, load_exported
+
+    size = vit_m.backbone.cfg.img_size
+    shape = (CHUNK, size, size, 3)
+    t0 = time.perf_counter()
+    params_path, path = export_model(os.path.join(root, "vit_b32"), vit_m, shape, torch.bfloat16)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    call = load_exported(path)
+    load_s = time.perf_counter() - t0
+    nodes = collections.Counter(str(n.target) for n in call.program.graph.nodes
+                                if n.op == "call_function" and str(n.target).startswith("vsc22."))
+    depth = vit_m.backbone.cfg.depth
+    want = {"vsc22.attn_proj_residual.default": depth, "vsc22.ln_mlp_residual.default": depth}
+    check(dict(nodes) == want, f"exported program's kernel nodes {dict(nodes)}, expected {want}")
+    gen = torch.Generator(device).manual_seed(13)
+    x = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+    with torch.no_grad():
+        eager = vit_m(x)
+    zero_counts(wrappers)
+    got = call(x)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in counts(wrappers).items() if v}
+    check(launched == dict(attn_proj_residual=depth, ln_mlp_residual=depth),
+          f"the exported member's launches {launched}")
+    check(torch.equal(got, eager), "the exported member's output differs from the eager one")
+    try:
+        call(x[:CHUNK // 2])
+        check(False, "the exported member took another batch size")
+    except ValueError:
+        pass
+    def eager_fwd(images):
+        with torch.no_grad():
+            return vit_m(images)
+
+    ms = [cuda_ms(lambda f=f: f(x)) for f in (eager_fwd, call, call, eager_fwd)]  # in turns
+    print(f"  (b) ViT-B/32@384 exported at {shape} bf16: program + params npz written in "
+          f"{export_s:.2f} s ({os.path.getsize(path) / 2**20:.0f} + "
+          f"{os.path.getsize(params_path) / 2**20:.0f} MiB), loaded in {load_s:.2f} s; "
+          f"kernel nodes {dict(nodes)}; launches {launched}; output bit for bit; another "
+          f"batch refused", flush=True)
+    print(f"  (b) ms per {CHUNK}-frame chunk, in turns: eager {ms[0]:.3f}, exported {ms[1]:.3f}, "
+          f"exported {ms[2]:.3f}, eager {ms[3]:.3f} on {card}", flush=True)
+
+
+def phase_12(device, card: str, wrappers, models) -> None:
+    import tempfile
+
+    print(f"phase 12: reference checkpoints and the exported member ({card})", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        round_trip(device, wrappers, models, root)
+        export_member(device, wrappers, models["vit"], card, root)
+    torch.cuda.empty_cache()
+    print(f"  phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 LIBRARIES = ("attn_proj", "ln_mlp", "row_max", "window_attn", "swin_block", "extract_topk",
              "attn", "vit_block")
 # name -> (source, the TPU kernel it replaces, the phase-2 case reported)
@@ -3608,6 +3903,7 @@ def main(argv=None) -> int:
     print(f"  phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
     phase_9(device, card, tn_maps, tn_wall)
     per_video = phase_10(device, card, wrappers, models, pca, videos, noise)
+    phase_12(device, card, wrappers, models)
     del models, pca, noise
     phase_11(device, card, vit_res["train_images_per_sec"], videos)
     del videos

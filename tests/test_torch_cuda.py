@@ -22,7 +22,8 @@ train mode against the CPU and the float32 convolution's backward with
 TF32 kept off while the global flag is on; and for the per-video path,
 OpenCV's resize and Canny arithmetic bit for bit as on the CPU, the tiny
 per-video `QueryPipeline` against the CPU, and the offline CLIs on the
-card by default).
+card by default; and the tiny ViT exported with `utils/export`, its program
+holding a K1 and a K2 op node per block and equal to the eager model).
 
 Needs a CUDA device; skips elsewhere. The shared conftest imports JAX,
 which the GPU host lacks, so run it there without it:
@@ -1275,3 +1276,38 @@ def test_offline_clis_default_to_the_card(device, tmp_path, monkeypatch):
                           "--norm_refs", str(tmp_path / "fused" / "train_refs.npz")])
     feats = load_features(out)
     assert len(feats) == 3 and all(np.isfinite(f.feature).all() for f in feats)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_exported_vit_runs_the_kernels(device, dtype, tmp_path):
+    """The tiny ViT exported on the card: its program holds a K1 and a K2
+    op node per block, the reloaded forward launches them (the wrappers'
+    counters), equals the eager model bit for bit, and refuses another
+    batch size."""
+    import collections
+
+    from vsc22_tpu_torch.models import vit
+    from vsc22_tpu_torch.models.layers import reset_parameters
+    from vsc22_tpu_torch.utils.export import export_model, load_exported
+
+    model = vit.vit_tiny_test_descriptor(dtype, device=device)
+    reset_parameters(model, torch.Generator().manual_seed(0))
+    shape = (4, 64, 64, 3)
+    _, path = export_model(str(tmp_path / "vit"), model, shape, dtype)
+    program = torch.export.load(path)
+    calls = collections.Counter(str(n.target) for n in program.graph.nodes
+                                if n.op == "call_function")
+    depth = model.backbone.cfg.depth
+    assert calls["vsc22.attn_proj_residual.default"] == depth
+    assert calls["vsc22.ln_mlp_residual.default"] == depth
+    x = randn(torch.Generator().manual_seed(1), shape, 1.0, dtype, device)
+    with torch.no_grad():
+        eager = model(x)
+    call = load_exported(path)
+    attn_proj_residual.launches = ln_mlp_residual.launches = 0
+    got = call(x)
+    torch.cuda.synchronize()
+    assert attn_proj_residual.launches == ln_mlp_residual.launches == depth
+    assert torch.equal(got, eager)
+    with pytest.raises(ValueError):
+        call(x[:2])

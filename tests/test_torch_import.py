@@ -183,6 +183,35 @@ def test_data_layer_modules_each_import_alone_without_jax():
     assert (ROOT / "vsc22_tpu_torch" / "csrc" / "recordstore.cpp").is_file()
 
 
+UTIL_MODULES = (
+    "vsc22_tpu_torch.ops.library",
+    "vsc22_tpu_torch.utils.hostmem",
+    "vsc22_tpu_torch.utils.port_weights",
+    "vsc22_tpu_torch.utils.export",
+)
+
+
+def test_util_modules_each_import_alone_without_jax():
+    """The reference-checkpoint loaders, the export and the allocator
+    tuning, each imported first in a fresh interpreter, then `chip_smoke`:
+    none loads JAX, the JAX package or pandas, and every kernel op is
+    registered once the export module is in."""
+    code = (
+        "import sys, importlib\n"
+        f"for name in {UTIL_MODULES!r} + ('chip_smoke',):\n"
+        "    importlib.import_module(name)\n"
+        "    bad = sorted(m for m in sys.modules if m in ('jax', 'vsc22_tpu', 'pandas')\n"
+        "                 or m.startswith(('jax.', 'flax', 'vsc22_tpu.', 'pandas.')))\n"
+        "    assert not bad, (name, bad)\n"
+        "assert len(sys.modules['vsc22_tpu_torch.ops.library'].OPS) == 8\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 def test_loader_workers_load_without_torch():
     """A spawned loader worker rebuilds its dataset from the data layer and
     opens the record store's host library: none of it imports torch."""

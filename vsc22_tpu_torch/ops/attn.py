@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from vsc22_tpu_torch.kernels import build
+from vsc22_tpu_torch.ops.library import kernel_op
 from vsc22_tpu_torch.ops.vjp import recompute_vjp
 
 _ARGTYPES = [build.PTR] * 4 + [build.INT] * 5 + [build.PTR]
@@ -81,10 +82,11 @@ def packed_attention(q, k, v):
     backward recomputed through `packed_attention_reference`."""
     if q.device.type == "cpu":
         return packed_attention_reference(q, k, v)
+    build.require_cuda(q)  # before the op, whose fake takes any device
     return _packed_attention_vjp(q, k, v)
 
 
-def _packed_attention_cuda(q, k, v):
+def _packed_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     device = build.require_cuda(q)
     code = build.working_dtype(q)
     b, l, h, hd = q.shape
@@ -102,7 +104,8 @@ def _packed_attention_cuda(q, k, v):
 
 
 packed_attention.launches = 0
-_packed_attention_vjp = recompute_vjp(_packed_attention_cuda, packed_attention_reference, 3)
+_packed_attention_op = kernel_op("packed_attention", _packed_attention_cuda)
+_packed_attention_vjp = recompute_vjp(_packed_attention_op, packed_attention_reference, 3)
 
 
 def attention(q, k, v):

@@ -29,6 +29,7 @@ import torch
 from vsc22_tpu_torch.kernels import build
 from vsc22_tpu_torch.ops.attn import attn_core, check_attn_smem
 from vsc22_tpu_torch.ops.gemm import gemm_route
+from vsc22_tpu_torch.ops.library import kernel_op
 from vsc22_tpu_torch.ops.mlp import ln_rows
 from vsc22_tpu_torch.ops.vjp import recompute_vjp
 
@@ -86,10 +87,12 @@ def attn_proj_residual(x, qkv, proj_w, proj_b, num_heads: int):
     `attn_proj_residual_reference` under autograd (`ops/vjp.py`)."""
     if x.device.type == "cpu":
         return attn_proj_residual_reference(x, qkv, proj_w, proj_b, num_heads)
+    build.require_cuda(x)  # before the op, whose fake takes any device
     return _attn_proj_residual_vjp(x, qkv, proj_w, proj_b, num_heads)
 
 
-def _attn_proj_residual_cuda(x, qkv, proj_w, proj_b, num_heads: int):
+def _attn_proj_residual_cuda(x: torch.Tensor, qkv: torch.Tensor, proj_w: torch.Tensor,
+                              proj_b: torch.Tensor, num_heads: int) -> torch.Tensor:
     device = build.require_cuda(x)
     code = build.working_dtype(x)
     b, l, c = x.shape
@@ -112,7 +115,8 @@ def _attn_proj_residual_cuda(x, qkv, proj_w, proj_b, num_heads: int):
 
 
 attn_proj_residual.launches = 0
-_attn_proj_residual_vjp = recompute_vjp(_attn_proj_residual_cuda, attn_proj_residual_reference, 4)
+_attn_proj_residual_op = kernel_op("attn_proj_residual", _attn_proj_residual_cuda)
+_attn_proj_residual_vjp = recompute_vjp(_attn_proj_residual_op, attn_proj_residual_reference, 4)
 
 
 def qkv_reference(ln, qkv_w, qkv_b, q_scale=None):
@@ -143,12 +147,15 @@ def ln_attn_proj_residual(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b,
     if x.device.type == "cpu":
         return ln_attn_proj_residual_reference(
             x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b, num_heads, eps)
+    build.require_cuda(x)  # before the op, whose fake takes any device
     return _ln_attn_proj_residual_vjp(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b,
                                       num_heads, eps)
 
 
-def _ln_attn_proj_residual_cuda(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b,
-                                num_heads: int, eps: float):
+def _ln_attn_proj_residual_cuda(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
+                                qkv_w: torch.Tensor, qkv_b: torch.Tensor, proj_w: torch.Tensor,
+                                proj_b: torch.Tensor, num_heads: int,
+                                eps: float) -> torch.Tensor:
     device = build.require_cuda(x)
     code = build.working_dtype(x)
     b, l, c = x.shape
@@ -177,5 +184,6 @@ def _ln_attn_proj_residual_cuda(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b,
 
 
 ln_attn_proj_residual.launches = 0
-_ln_attn_proj_residual_vjp = recompute_vjp(_ln_attn_proj_residual_cuda,
+_ln_attn_proj_residual_op = kernel_op("ln_attn_proj_residual", _ln_attn_proj_residual_cuda)
+_ln_attn_proj_residual_vjp = recompute_vjp(_ln_attn_proj_residual_op,
                                            ln_attn_proj_residual_reference, 7)

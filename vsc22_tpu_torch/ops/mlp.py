@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from vsc22_tpu_torch.kernels import build
 from vsc22_tpu_torch.ops.gemm import gemm_route
+from vsc22_tpu_torch.ops.library import kernel_op
 from vsc22_tpu_torch.ops.vjp import recompute_vjp
 
 _ACT_CODES = {"gelu": 1, "quick_gelu": 2}
@@ -114,10 +115,13 @@ def ln_mlp_residual(x, ln_s, ln_b, w1, b1, w2, b2,
     `ln_mlp_residual_reference` under autograd (`ops/vjp.py`)."""
     if x.device.type == "cpu":
         return ln_mlp_residual_reference(x, ln_s, ln_b, w1, b1, w2, b2, activation, eps)
+    build.require_cuda(x)  # before the op, whose fake takes any device
     return _ln_mlp_residual_vjp(x, ln_s, ln_b, w1, b1, w2, b2, activation, eps)
 
 
-def _ln_mlp_residual_cuda(x, ln_s, ln_b, w1, b1, w2, b2, activation: str, eps: float):
+def _ln_mlp_residual_cuda(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor,
+                          w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                          b2: torch.Tensor, activation: str, eps: float) -> torch.Tensor:
     device = build.require_cuda(x)
     code = build.working_dtype(x)
     if activation not in _ACT_CODES:
@@ -146,7 +150,8 @@ def _ln_mlp_residual_cuda(x, ln_s, ln_b, w1, b1, w2, b2, activation: str, eps: f
 
 
 ln_mlp_residual.launches = 0
-_ln_mlp_residual_vjp = recompute_vjp(_ln_mlp_residual_cuda, ln_mlp_residual_reference, 7)
+_ln_mlp_residual_op = kernel_op("ln_mlp_residual", _ln_mlp_residual_cuda)
+_ln_mlp_residual_vjp = recompute_vjp(_ln_mlp_residual_op, ln_mlp_residual_reference, 7)
 
 
 def fused_mlp_reference(x, w1, b1, w2, b2):
@@ -176,10 +181,12 @@ def fused_mlp(x, w1, b1, w2, b2):
     through `fused_mlp_reference` under autograd (`ops/vjp.py`)."""
     if x.device.type == "cpu":
         return fused_mlp_reference(x, w1, b1, w2, b2)
+    build.require_cuda(x)  # before the op, whose fake takes any device
     return _fused_mlp_vjp(x, w1, b1, w2, b2)
 
 
-def _fused_mlp_cuda(x, w1, b1, w2, b2):
+def _fused_mlp_cuda(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                    b2: torch.Tensor) -> torch.Tensor:
     device = build.require_cuda(x)
     code = build.working_dtype(x)
     m, c = x.shape
@@ -205,4 +212,5 @@ def _fused_mlp_cuda(x, w1, b1, w2, b2):
 
 
 fused_mlp.launches = 0
-_fused_mlp_vjp = recompute_vjp(_fused_mlp_cuda, fused_mlp_reference, 5)
+_fused_mlp_op = kernel_op("fused_mlp", _fused_mlp_cuda)
+_fused_mlp_vjp = recompute_vjp(_fused_mlp_op, fused_mlp_reference, 5)

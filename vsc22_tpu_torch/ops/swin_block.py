@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from vsc22_tpu_torch.kernels import build
 from vsc22_tpu_torch.ops.gemm import gemm_route
+from vsc22_tpu_torch.ops.library import kernel_op
 from vsc22_tpu_torch.ops.vjp import recompute_vjp
 from vsc22_tpu_torch.ops.window_attn import check_window_smem, window_core
 
@@ -102,12 +103,17 @@ def swin_block(x, qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b, fc1_w, fc1_b,
             fc2_w, fc2_b, ln2_s, ln2_b, rpb, scale, mask)
     if x.device.type == "cpu":
         return swin_block_reference(*args, num_heads, num_shift_windows)
+    build.require_cuda(x)  # before the op, whose fake takes any device
     return _swin_block_vjp(*args, num_heads, num_shift_windows)
 
 
-def _swin_block_cuda(x, qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b, fc1_w, fc1_b,
-                     fc2_w, fc2_b, ln2_s, ln2_b, rpb, scale, mask,
-                     num_heads: int, num_shift_windows: int):
+def _swin_block_cuda(x: torch.Tensor, qkv_w: torch.Tensor, qkv_b: torch.Tensor,
+                     proj_w: torch.Tensor, proj_b: torch.Tensor, ln1_s: torch.Tensor,
+                     ln1_b: torch.Tensor, fc1_w: torch.Tensor, fc1_b: torch.Tensor,
+                     fc2_w: torch.Tensor, fc2_b: torch.Tensor, ln2_s: torch.Tensor,
+                     ln2_b: torch.Tensor, rpb: torch.Tensor, scale: torch.Tensor,
+                     mask: torch.Tensor, num_heads: int,
+                     num_shift_windows: int) -> torch.Tensor:
     args = (x, qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b, fc1_w, fc1_b,
             fc2_w, fc2_b, ln2_s, ln2_b, rpb, scale, mask)
     device = build.require_cuda(x)
@@ -149,4 +155,5 @@ def _swin_block_cuda(x, qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b, fc1_w, fc1_b
 
 
 swin_block.launches = 0
-_swin_block_vjp = recompute_vjp(_swin_block_cuda, swin_block_reference, 16)
+_swin_block_op = kernel_op("swin_block", _swin_block_cuda)
+_swin_block_vjp = recompute_vjp(_swin_block_op, swin_block_reference, 16)

@@ -40,6 +40,7 @@ from vsc22_tpu_torch.ops.attn_proj import (
     qkv_reference,
     qkv_routes,
 )
+from vsc22_tpu_torch.ops.library import kernel_op
 from vsc22_tpu_torch.ops.mlp import _ACT_CODES, _activate, ln_mlp_residual_reference, ln_rows
 from vsc22_tpu_torch.ops.mlp import routes as mlp_routes
 from vsc22_tpu_torch.ops.vjp import recompute_vjp
@@ -111,11 +112,16 @@ def vit_block(x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s, ln2_b,
             fc1_w, fc1_b, fc2_w, fc2_b)
     if x.device.type == "cpu":
         return vit_block_reference(*args, num_heads, activation, eps)
+    build.require_cuda(x)  # before the op, whose fake takes any device
     return _vit_block_vjp(*args, num_heads, activation, eps)
 
 
-def _vit_block_cuda(x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s, ln2_b,
-                    fc1_w, fc1_b, fc2_w, fc2_b, num_heads: int, activation: str, eps: float):
+def _vit_block_cuda(x: torch.Tensor, ln1_s: torch.Tensor, ln1_b: torch.Tensor,
+                    qkv_w: torch.Tensor, qkv_b: torch.Tensor, proj_w: torch.Tensor,
+                    proj_b: torch.Tensor, ln2_s: torch.Tensor, ln2_b: torch.Tensor,
+                    fc1_w: torch.Tensor, fc1_b: torch.Tensor, fc2_w: torch.Tensor,
+                    fc2_b: torch.Tensor, num_heads: int, activation: str,
+                    eps: float) -> torch.Tensor:
     args = (x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s, ln2_b,
             fc1_w, fc1_b, fc2_w, fc2_b)
     device = build.require_cuda(x)
@@ -153,4 +159,5 @@ def _vit_block_cuda(x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s, ln2_b,
 
 
 vit_block.launches = 0
-_vit_block_vjp = recompute_vjp(_vit_block_cuda, vit_block_reference, 13)
+_vit_block_op = kernel_op("vit_block", _vit_block_cuda)
+_vit_block_vjp = recompute_vjp(_vit_block_op, vit_block_reference, 13)

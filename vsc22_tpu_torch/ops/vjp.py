@@ -19,11 +19,11 @@ import torch
 
 
 def recompute_vjp(kernel, plain, n_tensors: int):
-    """`kernel(*args)` made differentiable: a `torch.autograd.Function`
-    whose forward runs `kernel` and saves the first `n_tensors` arguments,
-    and whose backward re-enters autograd, runs `plain(*args)` on detached
-    copies of them and returns `torch.autograd.grad` of it against the
-    incoming cotangent. The returned function calls `kernel` alone (no
+    """`kernel(*args)` (on the card, a kernel's registered op) made
+    differentiable: a `torch.autograd.Function` whose forward runs
+    `kernel` and saves the first `n_tensors` arguments, and whose backward
+    re-enters autograd, runs `plain(*args)` on detached copies of them and
+    returns `torch.autograd.grad` of it against the incoming cotangent. The returned function calls `kernel` alone (no
     graph, nothing saved) unless grad mode is on and one of the tensors
     requires grad."""
 
@@ -44,7 +44,8 @@ def recompute_vjp(kernel, plain, n_tensors: int):
             grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
             return (*(next(grads) if n else None for n in need), *([None] * len(ctx.static)))
 
-    _Recompute.__name__ = f"{kernel.__name__}_vjp"
+    # a plain function, or a kernel registered as an op (`ops/library.py`)
+    _Recompute.__name__ = f"{getattr(kernel, '__name__', None) or kernel._name}_vjp"
 
     def call(*args):
         if torch.is_grad_enabled() and any(

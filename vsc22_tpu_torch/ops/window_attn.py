@@ -28,6 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from vsc22_tpu_torch.kernels import build
+from vsc22_tpu_torch.ops.library import kernel_op
 from vsc22_tpu_torch.ops.vjp import recompute_vjp
 
 _ARGTYPES = [build.PTR] * 7 + [build.INT] * 6 + [build.PTR]
@@ -136,10 +137,13 @@ def window_attention(q, k, v, rpb, scale, mask, num_shift_windows: int):
     the backward recomputes through `window_attention_chunked`."""
     if q.device.type == "cpu":
         return window_attention_reference(q, k, v, rpb, scale, mask, num_shift_windows)
+    build.require_cuda(q)  # before the op, whose fake takes any device
     return _window_attention_vjp(q, k, v, rpb, scale, mask, num_shift_windows)
 
 
-def _window_attention_cuda(q, k, v, rpb, scale, mask, num_shift_windows: int):
+def _window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           rpb: torch.Tensor, scale: torch.Tensor, mask: torch.Tensor,
+                           num_shift_windows: int) -> torch.Tensor:
     device = build.require_cuda(q)
     code = build.working_dtype(q)
     w, h, n, hd = q.shape
@@ -163,4 +167,5 @@ def _window_attention_cuda(q, k, v, rpb, scale, mask, num_shift_windows: int):
 
 
 window_attention.launches = 0
-_window_attention_vjp = recompute_vjp(_window_attention_cuda, window_attention_chunked, 6)
+_window_attention_op = kernel_op("window_attention", _window_attention_cuda)
+_window_attention_vjp = recompute_vjp(_window_attention_op, window_attention_chunked, 6)

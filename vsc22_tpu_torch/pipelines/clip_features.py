@@ -23,6 +23,7 @@ from vsc22_tpu_torch.core.device import resolve
 from vsc22_tpu_torch.data.transforms import clip_preprocess_frames
 from vsc22_tpu_torch.pipelines.query_extract import _chunked, frames_to_device
 from vsc22_tpu_torch.pipelines.ref_extract import shard_videos
+from vsc22_tpu_torch.utils.hostmem import tune_host_allocator
 
 logger = logging.getLogger("clip_features")
 
@@ -71,7 +72,10 @@ def extract_clip_features(
     process_count: int = 1,
 ) -> str:
     """Shard the videos across processes, extract, and write `out_path`
-    (single-process runs) or `<out_path>.shard{K}`."""
+    (single-process runs) or `<out_path>.shard{K}`. The offline flow's
+    entry point, so it tunes the host allocator first, as the CLIs'
+    `main()` do."""
+    tune_host_allocator()
     videos = list(videos)
     mine = set(shard_videos([v for v, _ in videos], process_index, process_count))
     features = {}

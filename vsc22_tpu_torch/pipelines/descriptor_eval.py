@@ -32,6 +32,7 @@ from vsc22_tpu_torch.core.storage import load_features, store_features
 from vsc22_tpu_torch.core.types import CandidatePair, Dataset, Match, VideoFeature
 from vsc22_tpu_torch.retrieval.index import CandidateGeneration, MaxScoreAggregation
 from vsc22_tpu_torch.retrieval.score_norm import score_normalize, transform_features
+from vsc22_tpu_torch.utils.hostmem import tune_host_allocator
 
 logger = logging.getLogger("descriptor_eval")
 
@@ -182,6 +183,7 @@ def _write_pr_plot(ap, filename: str) -> None:
 
 
 def main(argv=None):
+    tune_host_allocator()
     parser = argparse.ArgumentParser()
     parser.add_argument("--query_features", required=True)
     parser.add_argument("--ref_features", required=True)

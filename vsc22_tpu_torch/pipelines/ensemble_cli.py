@@ -22,11 +22,13 @@ from vsc22_tpu_torch.core.device import resolve
 from vsc22_tpu_torch.core.storage import load_features, store_features
 from vsc22_tpu_torch.pipelines.ensemble import apply_ensemble_pca, fit_ensemble_pca
 from vsc22_tpu_torch.retrieval.score_norm import ref_score_normalize
+from vsc22_tpu_torch.utils.hostmem import tune_host_allocator
 
 logger = logging.getLogger("ensemble_cli")
 
 
 def main(argv=None):
+    tune_host_allocator()
     parser = argparse.ArgumentParser()
     parser.add_argument("--train_refs", nargs="+", required=True, help="per-model npz")
     parser.add_argument("--test_refs", nargs="+", required=True, help="per-model npz")

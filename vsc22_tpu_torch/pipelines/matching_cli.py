@@ -36,6 +36,7 @@ from vsc22_tpu_torch.pipelines.matching_infer import (
 )
 from vsc22_tpu_torch.pipelines.query_extract import calculate_low_var_dim
 from vsc22_tpu_torch.retrieval.score_norm import query_score_normalize, ref_score_normalize
+from vsc22_tpu_torch.utils.hostmem import tune_host_allocator
 from vsc22_tpu_torch.utils.jax_params import load_mobilenetv3, load_sam_hrnet, npz_tree
 
 logger = logging.getLogger("matching_cli")
@@ -64,6 +65,7 @@ def write_matches_csv(rows, path: str) -> None:
 
 
 def main(argv=None):
+    tune_host_allocator()
     parser = argparse.ArgumentParser()
     parser.add_argument("--query_features", required=True)
     parser.add_argument("--ref_features", required=True)

@@ -23,6 +23,7 @@ import numpy as np
 
 from vsc22_tpu_torch.data.frames import encode_jpeg, read_frames
 from vsc22_tpu_torch.data.store import FrameStore, RecordStoreWriter, ZipFrameStore, write_meta
+from vsc22_tpu_torch.utils.hostmem import tune_host_allocator
 
 logger = logging.getLogger("preprocess")
 
@@ -87,6 +88,7 @@ def discover_videos(videos_dir: str) -> List[Tuple[str, str]]:
 
 
 def main(argv=None):
+    tune_host_allocator()
     parser = argparse.ArgumentParser()
     parser.add_argument("--videos", required=True)
     parser.add_argument("--store", required=True)

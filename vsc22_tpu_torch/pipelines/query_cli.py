@@ -44,6 +44,7 @@ from vsc22_tpu_torch.pipelines.query_extract import (
 )
 from vsc22_tpu_torch.retrieval.score_norm import query_score_normalize
 from vsc22_tpu_torch.train.checkpoint import load_params_snapshot
+from vsc22_tpu_torch.utils.hostmem import tune_host_allocator
 
 logger = logging.getLogger("query_cli")
 
@@ -122,6 +123,7 @@ def extract_queries(
 
 
 def main(argv=None):
+    tune_host_allocator()
     parser = argparse.ArgumentParser()
     parser.add_argument("--videos", required=True)
     parser.add_argument("--out_dir", required=True)

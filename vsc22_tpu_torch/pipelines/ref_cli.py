@@ -23,11 +23,13 @@ from vsc22_tpu_torch.core.device import resolve
 from vsc22_tpu_torch.pipelines.query_cli import decoded_videos, load_model
 from vsc22_tpu_torch.pipelines.query_extract import DescriptorExtractor
 from vsc22_tpu_torch.pipelines.ref_extract import extract_references, merge_shards
+from vsc22_tpu_torch.utils.hostmem import tune_host_allocator
 
 logger = logging.getLogger("ref_cli")
 
 
 def main(argv=None):
+    tune_host_allocator()
     parser = argparse.ArgumentParser()
     parser.add_argument("--videos", required=True)
     parser.add_argument("--out", required=True, help="output prefix (no extension)")

@@ -51,6 +51,7 @@ from vsc22_tpu_torch.train.contrastive import (
     make_train_step,
 )
 from vsc22_tpu_torch.utils.config import Config, parse_override_args
+from vsc22_tpu_torch.utils.hostmem import tune_host_allocator
 from vsc22_tpu_torch.utils.observability import StageTimer, setup_logging
 
 ANN_COLUMNS = ("query_id", "ref_id", "query_start", "query_end", "ref_start", "ref_end")
@@ -105,6 +106,7 @@ def build_dataset(cfg: Config, args, store: FrameStore):
 
 
 def main(argv=None):
+    tune_host_allocator()
     args = parse_args(argv)
     cfg = Config.fromfile(args.config).merge_flags(parse_override_args(args.overrides))
     logger = setup_logging("descriptor_train", args.work_dir)

@@ -51,6 +51,7 @@ from vsc22_tpu_torch.pipelines.matching_cli import write_matches_csv
 from vsc22_tpu_torch.train.checkpoint import save_cnn_snapshot
 from vsc22_tpu_torch.train.matching import train_classify_model, train_refine_model
 from vsc22_tpu_torch.utils import jax_params
+from vsc22_tpu_torch.utils.hostmem import tune_host_allocator
 
 logger = logging.getLogger("matching_train")
 
@@ -168,6 +169,7 @@ def _binary_ap(rows) -> float:
 
 
 def main(argv=None):
+    tune_host_allocator()
     parser = argparse.ArgumentParser()
     parser.add_argument("--query_features", required=True)
     parser.add_argument("--ref_features", required=True)

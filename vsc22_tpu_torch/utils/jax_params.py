@@ -32,7 +32,7 @@ from vsc22_tpu_torch.models.hrnet import SAMHRNet
 from vsc22_tpu_torch.models.layers import LayerNorm, Linear, MultiHeadAttention, PatchEmbed
 from vsc22_tpu_torch.models.mobilenetv3 import MobileNetV3Small
 from vsc22_tpu_torch.models.swinv2 import SwinTransformerV2
-from vsc22_tpu_torch.models.vit import VitDescriptor
+from vsc22_tpu_torch.models.vit import VisionTransformer, VitDescriptor
 from vsc22_tpu_torch.models.vsm import VideoScoreModel
 
 
@@ -125,8 +125,14 @@ def _e_mlp(key, mlp):
 
 
 def vit_entries(model: VitDescriptor) -> list:
-    bb = ("params", "backbone")
-    vit = model.backbone
+    out = vit_backbone_entries(model.backbone, ("params", "backbone"))
+    out += _e_dense(("params", "gem", "proj"), model.gem.proj)
+    return out + _e_dense(("params", "head"), model.head)
+
+
+def vit_backbone_entries(vit: VisionTransformer, bb=("params",)) -> list:
+    """A JAX `VisionTransformer` tree under `bb` (bare: its params; in a
+    `VitDescriptor`: its `backbone`)."""
     out = _e_conv(bb + ("patch_embed",), vit.patch_embed)
     out += [(bb + ("cls_token",), vit.cls_token, "id"), (bb + ("pos_embed",), vit.pos_embed, "id")]
     for i, block in enumerate(vit.blocks):
@@ -136,9 +142,7 @@ def vit_entries(model: VitDescriptor) -> list:
         out += _e_dense(t + ("attn", "proj"), block.attn.proj)
         out += _e_ln(t + ("norm2",), block.norm2)
         out += _e_mlp(t + ("mlp",), block.mlp)
-    out += _e_ln(bb + ("norm",), vit.norm)
-    out += _e_dense(("params", "gem", "proj"), model.gem.proj)
-    return out + _e_dense(("params", "head"), model.head)
+    return out + _e_ln(bb + ("norm",), vit.norm)
 
 
 def swinv2_entries(model: SwinTransformerV2) -> list:

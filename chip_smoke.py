@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's query, eval, matching, training and offline paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's query, eval, matching, training, offline and legacy-zoo paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -176,11 +176,31 @@ result line):
      reloaded: 12 K1 and 12 K2 op nodes in the program, as many launches,
      the eager output bit for bit, another batch size refused; export and
      load seconds, eager and exported ms per chunk in turns;
- 13. a JSON line of per-kernel numbers (B5's launches: phases 5 and 7;
-     `launches_per_video`: phase 10(c)), then the device line.
+ 13. (run after phase 11, on its frame store) the legacy model zoo of the
+     JAX registry at its published widths, seeded weights: (a) a forward
+     of Swin-T v1@224 (f32), EfficientNetV2-S@256 (bf16) and MAE
+     ViT-B/16@224 (bf16) on 32 images each, RoBERTa-base on [16, 128] ids
+     with a mask, the DeConv decoder on [4, 8, 8, 2048] and the VSM's `MD`
+     head on [8, 256, 1024]: outputs finite and of their shapes, each
+     forward's ms, the launches its depth gives (12 K1 and 12 K2 for MAE,
+     12 B7 for Swin-T v1, none for the rest), and every K1, K2 and B7 call
+     held to its plain version at phase 2's bars, naming its routes, the
+     first of each shape timed with its products as cuBLAS calls beside;
+     (b) `query_cli` with the three legacy descriptor members (seeded `-`
+     weights, efficientnet preset) over 2 of phase 3's videos from mp4
+     files, its outputs read back; (c) the descriptor CLI for 2 steps on
+     `swin_v1_tiny_224` (f32, 96 pairs, B7 forward and recompute VJP) from
+     phase 11's frame store, its EMA snapshot loaded; (d) two BYOL steps on
+     MAE-B/16@224 bf16 x 16 pairs (hidden 4096, projection 256): the
+     target moves by exactly (1 - 0.99) of its gap, K1 and K2 48 launches
+     a step;
+ 14. a JSON line of per-kernel numbers (B5's launches: phases 5 and 7;
+     `launches_per_video`: phase 10(c); `zoo_launches` and `zoo_cases`:
+     phase 13), then the device line.
 
 With `--training-only` it runs phases 1, 8, 9 and 11 alone (9(e) then on
-synthetic maps of phase 5's shape) and prints no result lines.
+synthetic maps of phase 5's shape), with `--zoo-only` phases 1 and 13 (on
+videos and a frame store drawn for it), and prints no result lines.
 
 Needs CUDA (it refuses to run without) and no network; builds in
 `vsc22_tpu_torch/_build/`. It imports nothing of JAX or of the JAX package.
@@ -404,12 +424,13 @@ def agreement(got: torch.Tensor, want: torch.Tensor, tol, block: bool = False,
     return ok, err, share, words
 
 
-def compare(name, kernel_fn, plain_fn, tol=F32_TOL, reps=10, block=False, work=None,
+def compare(name, kernel_fn, plain_fn, tol=F32_TOL, reps=5, block=False, work=None,
             dtype=torch.float32, library_fn=None, products_fn=None):
     """Hold kernel_fn() against plain_fn() and time both (and library_fn(),
     one PyTorch call computing the same function, where there is one; and
     products_fn(), the kernel's dense products as cuBLAS calls, a yardstick
-    for its GEMM loop that computes only part of the function)."""
+    for its GEMM loop that computes only part of the function): medians of
+    `reps` timed runs (10 until phase 13 needed the time: PERF.md §4)."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -1239,7 +1260,7 @@ def check_swin_paths(device, wrappers) -> dict:
     launch took 3xTF32 for both products, as the rule names at these
     widths. The card counterpart of tests/test_swin_block_fused.py's path
     test."""
-    from vsc22_tpu_torch.models import swinv2
+    from vsc22_tpu_torch.models import layers
     from vsc22_tpu_torch.models.layers import l2_normalize, reset_parameters
     from vsc22_tpu_torch.models.swinv2 import swinv2_base_256_descriptor
     from vsc22_tpu_torch.ops.mlp import fused_mlp_routes
@@ -1252,7 +1273,7 @@ def check_swin_paths(device, wrappers) -> dict:
     images = torch.randn((16, 256, 256, 3), generator=gen).to(device)
     zero_counts(wrappers)
     b7 = lambda x, w1, b1, w2, b2: fused_mlp_routes(x, w1, w2)
-    with spy_routes([(swinv2, "fused_mlp", "B7", b7)]) as calls, torch.inference_mode():
+    with spy_routes([(layers, "fused_mlp", "B7", b7)]) as calls, torch.inference_mode():
         a = l2_normalize(fused(images))
         b = l2_normalize(module(images))
     torch.cuda.synchronize()
@@ -1666,8 +1687,9 @@ MATCH_STAGES = ("score_norm", "recall", "pack_descriptors", "classify_simmats",
 # sum in other orders than the CPU's, through up to ~100 layers.
 MATCH_TIMED_PASSES = 1  # unprofiled; three until phase 10 needed the time (PERF.md §4)
 # The pass profiled for the idle share alone: the first MATCH_PROFILED query
-# videos (all 48 until phase 11 needed the time; its trace took ~14 s to read).
-MATCH_PROFILED = 8
+# videos (all 48 until phase 11 needed the time, its trace taking ~14 s to
+# read; 8 until phase 13 did: PERF.md §4).
+MATCH_PROFILED = 4
 MATCH_PROB_TOL = 1e-4  # probabilities and heatmaps
 MATCH_SCORE_TOL = 1e-3  # match-row scores: max - std * ratio of heatmap values
 MATCH_RECALL_TOL = 2e-5  # recall scores: f32 products of unit vectors
@@ -2394,7 +2416,7 @@ def run_train_model(model: str, pairs: int, card: str, wrappers: dict, steps: in
 def run_training(device, card: str) -> dict:
     """Phase 8: the descriptor track's training step on the card; returns
     8(c)'s ViT-B/32 result."""
-    from vsc22_tpu_torch.models import swinv2 as swin_model
+    from vsc22_tpu_torch.models import layers
     from vsc22_tpu_torch.ops import attn_proj, mlp, swin_block, window_attn
     from vsc22_tpu_torch.ops.mlp import fused_mlp_routes
 
@@ -2413,7 +2435,7 @@ def run_training(device, card: str) -> dict:
     print(f"  8(c) took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     b7 = lambda x, w1, b1, w2, b2: fused_mlp_routes(x, w1, w2)
-    with spy_routes([(swin_model, "fused_mlp", "B7", b7)]) as calls:
+    with spy_routes([(layers, "fused_mlp", "B7", b7)]) as calls:
         swin_res = run_train_model("swin", 32, card, {
             "B7": mlp.fused_mlp, "B1": swin_block.swin_block, "B6": window_attn.window_attention},
             steps=SWIN_TIMED_STEPS)
@@ -3278,9 +3300,10 @@ def cli_rate(records) -> float:
     return (len(times) - 1) * 2 * CLI_PAIRS / (times[-1] - times[0])
 
 
-def run_descriptor_cli(device, card: str, fixed_rate: float, videos=None) -> None:
+def run_descriptor_cli(device, card: str, fixed_rate: float, corpus=None) -> None:
     """Phase 11 (see its constants); `fixed_rate` is phase 8(c)'s images/s,
-    `videos` phase 3's (None: drawn here)."""
+    `corpus` the (store, gt) of `cli_corpus` (None: built here from videos
+    drawn anew)."""
     import tempfile
 
     from vsc22_tpu_torch.models.layers import l2_normalize
@@ -3292,10 +3315,7 @@ def run_descriptor_cli(device, card: str, fixed_rate: float, videos=None) -> Non
     kernels = (attn_proj.attn_proj_residual, mlp.ln_mlp_residual)
     config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "vit_v68.py")
     with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        store, gt = cli_corpus(root, videos)
-        print(f"  frame store of {CLI_VIDEOS} videos x 32 frames (JPEG, 360x640) and a GT csv "
-              f"of {len(CLI_PLANTED)} planted pairs: {time.perf_counter() - t0:.1f} s", flush=True)
+        store, gt = corpus or timed_cli_corpus(root, None)
         work = os.path.join(root, "run")
         argv = ["--config", config, "--store", store, "--work_dir", work, "--ann_path", gt,
                 "--batch_size", str(CLI_PAIRS), "--num_workers", "8", "--do_ema", "--do_fgm",
@@ -3360,11 +3380,23 @@ def run_descriptor_cli(device, card: str, fixed_rate: float, videos=None) -> Non
     torch.cuda.empty_cache()
 
 
-def phase_11(device, card: str, fixed_rate: float, videos=None) -> None:
+def timed_cli_corpus(root: str, videos) -> tuple:
+    t0 = time.perf_counter()
+    corpus = cli_corpus(root, videos)
+    print(f"  frame store of {CLI_VIDEOS} videos x 32 frames (JPEG, 360x640) and a GT csv "
+          f"of {len(CLI_PLANTED)} planted pairs: {time.perf_counter() - t0:.1f} s", flush=True)
+    return corpus
+
+
+def phase_11(device, card: str, fixed_rate: float, root=None, videos=None):
+    """Phase 11, on a frame store built under `root` from `videos` (phase
+    13 trains on it too; returned) or, with no `root`, on its own."""
     print(f"phase 11: the descriptor trainer's CLI ({card})", flush=True)
     t0 = time.perf_counter()
-    run_descriptor_cli(device, card, fixed_rate, videos)
+    corpus = None if root is None else timed_cli_corpus(root, videos)
+    run_descriptor_cli(device, card, fixed_rate, corpus)
     print(f"  phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return corpus
 
 
 # --- phase 12: reference checkpoints in, a member exported ------------------------------
@@ -3648,6 +3680,369 @@ def phase_12(device, card: str, wrappers, models) -> None:
     print(f"  phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# --- phase 13: the legacy zoo --------------------------------------------------------
+#
+# The JAX registry's legacy members at their published widths with seeded
+# weights: a forward of each, every K1, K2 and B7 call of it held to its
+# plain version; `query_cli` with three of them; the descriptor CLI on
+# Swin-T v1; two BYOL steps on MAE-B/16.
+
+ZOO_IMAGES = 32  # a forward's batch of images
+ZOO_CLI_PAIRS = 96  # the descriptor CLI's batch: 2 steps over phase 11's 192 frames
+ZOO_BYOL_PAIRS = 16
+ZOO_QUERY_VIDEOS = 2
+ZOO_MEMBERS = (("swin1", "swin_v1_tiny_224", 224, 256), ("eff", "efficientnet_v2_s", 256, 256),
+               ("mae", "mae_base_patch16_224", 224, 512))
+
+
+@contextlib.contextmanager
+def capture_calls(targets):
+    """Every call of module.name for (module, name, label) in `targets`
+    while the block runs, as (label, args); each call goes on as made."""
+    seen = []
+
+    def spy(real, label):
+        def call(*args):
+            seen.append((label, args))
+            return real(*args)
+        return call
+
+    saved = [(m, n, getattr(m, n)) for m, n, _ in targets]
+    for (m, n, label), (_, _, real) in zip(targets, saved):
+        setattr(m, n, spy(real, label))
+    try:
+        yield seen
+    finally:
+        for m, n, real in saved:
+            setattr(m, n, real)
+
+
+def seeded(make, device, seed: int):
+    from vsc22_tpu_torch.models.layers import reset_parameters
+
+    model = make(device=device)
+    reset_parameters(model, torch.Generator().manual_seed(seed))
+    return model.eval()
+
+
+def zoo_cases(device):
+    """(name, build the model, draw its inputs, call it, output shape,
+    the K1, K2 and B7 launches its depth gives) of phase 13(a)."""
+    from vsc22_tpu_torch.models import deconv, efficientnet, mae, swin_v1, text_encoder, vsm
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    n = ZOO_IMAGES
+    images = lambda size: (torch.randn((n, size, size, 3), generator=gen, device=device),)
+
+    def text_inputs():
+        ids = torch.randint(0, 21128, (16, 128), generator=gen, device=device)
+        mask = torch.ones((16, 128), device=device)
+        mask[8:, 96:] = 0.0  # half the batch padded past token 96
+        return ids, mask
+
+    def clips():
+        feats = torch.randn((8, 256, 1024), generator=gen, device=device)
+        feats[4:, 200:] = 0.0  # padding frames
+        return (feats,)
+
+    return [
+        ("Swin-T v1@224 f32", lambda: seeded(swin_v1.swin_v1_tiny_224, device, 1),
+         lambda: images(224), (n, 256), dict(fused_mlp=12)),
+        ("EfficientNetV2-S@256 bf16", lambda: seeded(efficientnet.efficientnet_v2_s, device, 2),
+         lambda: images(256), (n, 256), {}),
+        ("MAE ViT-B/16@224 bf16", lambda: seeded(mae.mae_base_patch16_224, device, 3),
+         lambda: images(224), (n, 512), dict(attn_proj_residual=12, ln_mlp_residual=12)),
+        ("RoBERTa-base [16, 128] ids + mask bf16",
+         lambda: seeded(text_encoder.roberta_base, device, 4), text_inputs, (16, 128, 768), {}),
+        ("DeConv dim 2048 [4, 8, 8] f32", lambda: seeded(deconv.deconv_model, device, 5),
+         lambda: (torch.randn((4, 8, 8, 2048), generator=gen, device=device),),
+         (4, 256, 256, 3), {}),
+        ("vsm_embed (MD) [8, 256, 1024] bf16", lambda: seeded(vsm.vsm_embed, device, 6), clips,
+         (8, 256), {}),
+    ]
+
+
+def hold_zoo_calls(calls, card: str) -> dict:
+    """Each captured K1, K2 and B7 call against its plain version under
+    phase 2's bars (bf16: 2^-7 + 2 ulps and <= 2% differing; B7 f32: F32_TOL
+    on 3xTF32); the first call of each shape timed (kernel, plain, its
+    products as cuBLAS calls) with its routes named. Returns {kernel: the
+    timed cases}."""
+    from vsc22_tpu_torch.ops import attn_proj, mlp
+
+    timed, out = set(), {}
+    for label, args in calls:
+        x = args[0]
+        shape = (label, tuple(x.shape))
+        if label == "fused_mlp":
+            if shape not in timed:
+                res = check_fused_mlp(args, f"Swin-T v1 (zoo, {card})")
+            else:
+                ok, err, share, _ = agreement(mlp.fused_mlp(*args), mlp.fused_mlp_reference(*args),
+                                              F32_TOL)
+                check(ok, f"fused_mlp {tuple(x.shape)}: kernel disagrees ({err}, {share})")
+        elif label == "attn_proj_residual":
+            qkv, pw, pb, h = args[1:]
+            b, l, c = x.shape
+            r, words = k1_routes(x, pw, h)
+            check(r == dict(core="mma", proj="mma"), f"K1 MAE: routes {r}")
+            if shape not in timed:
+                rows = torch.randn((b * l, c), device=x.device).to(x.dtype)
+                res = compare(f"attn_proj_residual MAE bf16 [{b},{l},{c}] h={h} ({words}, {card})",
+                              lambda: attn_proj.attn_proj_residual(*args),
+                              lambda: attn_proj.attn_proj_residual_reference(*args),
+                              work=work_attn_proj(b, l, c, h, x.element_size()), dtype=x.dtype,
+                              products_fn=lambda: torch.mm(rows, pw.t()), reps=5)
+                res["routes"] = r
+            else:
+                ok, err, share, _ = agreement(attn_proj.attn_proj_residual(*args),
+                                              attn_proj.attn_proj_residual_reference(*args), None)
+                check(ok, f"attn_proj_residual {tuple(x.shape)}: kernel disagrees ({err}, {share})")
+        else:
+            w1, w2 = args[3], args[5]
+            m, c = x.shape
+            r, words = k2_routes(x, w1, w2)
+            check(r == dict(ln="rows", fc1="mma", fc2="mma"), f"K2 MAE: routes {r}")
+            if shape not in timed:
+                hid = torch.randn((m, w1.shape[0]), device=x.device).to(x.dtype)
+                res = compare(f"ln_mlp_residual MAE bf16 [{m},{c}] hidden={w1.shape[0]} ({words}, "
+                              f"{card})", lambda: mlp.ln_mlp_residual(*args),
+                              lambda: mlp.ln_mlp_residual_reference(*args),
+                              work=work_mlp(m, c, w1.shape[0], x.element_size()), dtype=x.dtype,
+                              products_fn=lambda: (torch.mm(x, w1.t()), torch.mm(hid, w2.t())),
+                              reps=5)
+                res["routes"] = r
+            else:
+                ok, err, share, _ = agreement(mlp.ln_mlp_residual(*args),
+                                              mlp.ln_mlp_residual_reference(*args), None)
+                check(ok, f"ln_mlp_residual {tuple(x.shape)}: kernel disagrees ({err}, {share})")
+        if shape not in timed:
+            timed.add(shape)
+            out.setdefault(label, []).append(dict(res, case=f"{tuple(x.shape)} {dname(x.dtype)}"))
+    return out
+
+
+def run_zoo_forwards(device, wrappers, card: str) -> tuple:
+    """13(a): each member's forward on its batch, its launches against its
+    depth, its output's shape and finiteness, its ms; then every K1, K2 and
+    B7 call held. Returns (the timed cases by kernel, launches by kernel)."""
+    from vsc22_tpu_torch.models import layers
+
+    targets = [(layers, "attn_proj_residual", "attn_proj_residual"),
+               (layers, "ln_mlp_residual", "ln_mlp_residual"), (layers, "fused_mlp", "fused_mlp")]
+    cases, total = {}, {}
+    for name, build, draw, shape, want in zoo_cases(device):
+        model, args = build(), draw()
+        zero_counts(wrappers)
+        with capture_calls(targets) as calls, torch.inference_mode():
+            y = model(*args)
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in counts(wrappers).items() if v}
+        check(tuple(y.shape) == shape and bool(torch.isfinite(y.float()).all()),
+              f"{name}: output {tuple(y.shape)}, finite {bool(torch.isfinite(y.float()).all())}")
+        check(launches == want, f"{name}: launches {launches}, its depth gives {want}")
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: model(*args), reps=3)
+        print(f"  (a) {name}: output {list(y.shape)} finite; forward {ms:.3f} ms (CUDA events, "
+              f"median of 3); launches {launches or 'none of the kernels'} ({card})", flush=True)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        with torch.inference_mode():
+            for k, v in hold_zoo_calls(calls, card).items():
+                cases.setdefault(k, []).extend(v)
+        del model, args, y, calls
+        torch.cuda.empty_cache()
+    return cases, total
+
+
+def run_zoo_query_cli(device, wrappers, videos, card: str) -> dict:
+    """13(b): `query_cli` with the three legacy descriptor members (seeded
+    `-` weights, efficientnet preset) over 2 of phase 10's videos, from mp4
+    files where the host decodes them (else its query function on the
+    decoded frames); the output files read back."""
+    import tempfile
+
+    from vsc22_tpu_torch.core.storage import load_features, store_features
+    from vsc22_tpu_torch.core.types import VideoFeature
+    from vsc22_tpu_torch.data import frames
+    from vsc22_tpu_torch.pipelines import query_cli
+    from vsc22_tpu_torch.pipelines.query_extract import QueryPipeline
+
+    specs = [f"{n}:{key}:-:{size}:efficientnet" for n, key, size, _ in ZOO_MEMBERS]
+    dim = sum(d for *_, d in ZOO_MEMBERS)
+    with tempfile.TemporaryDirectory() as root:
+        rng = np.random.default_rng(13)
+        noise = os.path.join(root, "noise.npz")
+        store_features(noise, [VideoFeature(f"R{i:06d}", np.arange(8.0), rng.standard_normal(
+            (8, dim)).astype(np.float32)) for i in range(16)])
+        out_dir = os.path.join(root, "query")
+        queries = [(f"Q{i:06d}", np.asarray(videos[i])) for i in range(ZOO_QUERY_VIDEOS)]
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        if "opencv" in frames.available_backends():
+            os.makedirs(os.path.join(root, "videos"))
+            for vid, v in queries:
+                write_mp4(os.path.join(root, "videos", f"{vid}.mp4"), v)
+            argv = ["--videos", os.path.join(root, "videos"), "--out_dir", out_dir,
+                    "--norm_refs", noise, "--fps", "8"]
+            for spec in specs:
+                argv += ["--model", spec]
+            fused = query_cli.main(argv)
+            how = "query_cli.main from mp4 files"
+        else:
+            names, exts = zip(*(query_cli.build_extractor(sp, device) for sp in specs))
+            pipe = QueryPipeline(list(exts), device=device)
+            fused = query_cli.extract_queries(queries, pipe, list(names), out_dir, "test", noise)
+            how = "query_cli's build_extractor + extract_queries on decoded frames (no decoder)"
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in counts(wrappers).items() if v}
+        got = load_features(fused)
+        check(len(got) == ZOO_QUERY_VIDEOS and all(f.feature.shape[1] == dim and np.isfinite(
+            f.feature).all() for f in got), "zoo query_cli: fused features")
+        rows = {}
+        for n, _, _, d in ZOO_MEMBERS:
+            sub = load_features(os.path.join(out_dir, n, "test_query.npz"))
+            check(len(sub) == ZOO_QUERY_VIDEOS and all(
+                f.feature.shape[1] == d and len(f.feature) > 0 and np.isfinite(f.feature).all()
+                for f in sub), f"zoo query_cli: member {n}'s features")
+            rows[n] = sum(len(f.feature) for f in sub)
+    k1, b7 = launches.get("attn_proj_residual", 0), launches.get("fused_mlp", 0)
+    check(k1 > 0 and k1 % 12 == 0 and launches.get("ln_mlp_residual") == k1 and b7 > 0
+          and b7 % 12 == 0, f"zoo query_cli: launches {launches}")
+    print(f"  (b) {how}: {ZOO_QUERY_VIDEOS} videos x 3 members ({', '.join(specs)}) in "
+          f"{wall:.1f} s, read back: fused {dim}-d, member rows {rows}; launches {launches} "
+          f"({card})", flush=True)
+    return launches
+
+
+def run_zoo_descriptor_cli(device, card: str, corpus) -> dict:
+    """13(c): the descriptor CLI for 2 steps on `swin_v1_tiny_224` (f32, B7
+    forward and recompute VJP) from phase 11's frame store, a config at
+    img_width 224; its EMA snapshot loaded into a fresh member."""
+    import tempfile
+
+    from vsc22_tpu_torch.models.layers import l2_normalize
+    from vsc22_tpu_torch.models.swin_v1 import swin_v1_tiny_224
+    from vsc22_tpu_torch.ops import mlp
+    from vsc22_tpu_torch.train import descriptor_cli
+    from vsc22_tpu_torch.train.checkpoint import load_params_snapshot
+
+    store, gt = corpus
+    with tempfile.TemporaryDirectory() as root:
+        config = os.path.join(root, "swin_v1.py")
+        with open(config, "w") as f:
+            f.write('img_width = 224\npreprocess = "efficientnet"\n'
+                    'model = dict(type="swin_v1_tiny_224")\n'
+                    'data = dict(probs=(0.8, 0.2), crop=0.5)\n')
+        work = os.path.join(root, "run")
+        argv = ["--config", config, "--store", store, "--work_dir", work, "--ann_path", gt,
+                "--batch_size", str(ZOO_CLI_PAIRS), "--num_workers", "8", "--epochs", "1",
+                "--lr", "1e-4", "--print_freq", "1"]
+        zero_counts((mlp.fused_mlp,))
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        with cli_spy(descriptor_cli) as seen:
+            state = descriptor_cli.main(argv)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        b7 = mlp.fused_mlp.launches
+        steps = [r.args for r in seen["records"] if r.msg.startswith("Epoch %d Batch")]
+        check(state.step == 2 and [a[:2] for a in steps] == [(0, 0), (0, 1)]
+              and all(np.isfinite(a[2:]).all() for a in steps),
+              f"zoo descriptor CLI: step {state.step}, logged {steps}")
+        check(b7 == 12 * 2, f"zoo descriptor CLI: B7 launches {b7}, not 12 a step")
+        check(all(d == "cuda" and b == 2 * ZOO_CLI_PAIRS for d, b in seen["inputs"]),
+              f"zoo descriptor CLI: model inputs {seen['inputs']}")
+        model = swin_v1_tiny_224(device=device)
+        load_params_snapshot(os.path.join(work, "epoch_0_ema.npz"), model)
+        gen = torch.Generator(device=device).manual_seed(14)
+        with torch.inference_mode():
+            rows = l2_normalize(model(torch.randn((4, 224, 224, 3), generator=gen,
+                                                  device=device)).float())
+        check(rows.shape == (4, 256) and bool(torch.isfinite(rows).all()),
+              "zoo descriptor CLI: its snapshot gives bad rows")
+        split = seen["timers"][0].as_dict()
+    print(f"  (c) descriptor CLI, swin_v1_tiny_224 (f32) x {ZOO_CLI_PAIRS} pairs, 2 steps: losses "
+          f"{[round(a[2], 4) for a in steps]}, B7 {b7} launches (12 a forward), wall {wall:.1f} s, "
+          "split " + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+          + f", peak memory {peak:.2f} GiB; its EMA snapshot loads ({card})", flush=True)
+    del model, state
+    torch.cuda.empty_cache()
+    return dict(fused_mlp=b7)
+
+
+def run_zoo_byol(device, card: str) -> dict:
+    """13(d): two BYOL steps (`ByolConfig()`: hidden 4096, projection 256,
+    EMA 0.99) on MAE-B/16@224 bf16 x 16 pairs, K1 and K2 with their VJPs;
+    the target moves by exactly (1 - 0.99) of its gap to the new online
+    weights (f32, to rounding)."""
+    from vsc22_tpu_torch.models.layers import reset_parameters
+    from vsc22_tpu_torch.models.mae import mae_base_patch16_224
+    from vsc22_tpu_torch.ops import attn_proj, mlp
+    from vsc22_tpu_torch.train import byol
+    from vsc22_tpu_torch.train.contrastive import AdamW
+
+    kernels = (attn_proj.attn_proj_residual, mlp.ln_mlp_residual)
+    cfg = byol.ByolConfig()
+    backbone = seeded(mae_base_patch16_224, device, 21)
+    heads = byol.ByolHeads(backbone.out_dim, cfg, device)
+    reset_parameters(heads, torch.Generator().manual_seed(22))
+    tx = AdamW(lambda count: cfg.learning_rate, eps=1e-8)
+    online, target, state = byol.init_byol(backbone, heads, tx)
+    step = byol.make_byol_step(online, target, tx, cfg)
+    gen = torch.Generator(device=device).manual_seed(23)
+    size = backbone.backbone.cfg.img_size
+    a, b = (torch.randn((ZOO_BYOL_PAIRS, size, size, 3), generator=gen, device=device)
+            for _ in range(2))
+    zero_counts(kernels)
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, ms, worst = [], [], 0.0
+    for _ in range(2):
+        old = {k: v.clone() for k, v in state.target.items()}
+        t0 = time.perf_counter()
+        state, loss = step(state, a, b)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+        for k, new in state.target.items():
+            want = old[k] + (1.0 - cfg.ema_decay) * (state.online[k] - old[k])
+            scale = old[k].abs() + state.online[k].abs()
+            worst = max(worst, float(((new - want).abs() - 2e-7 * scale).max()))
+    launches = counts(kernels)
+    moved = sum(int((state.online[k] != state.target[k]).sum()) for k in state.target)
+    check(all(np.isfinite(losses)), f"BYOL: losses {losses}")
+    check(worst <= 1e-9, f"BYOL: the target left (1 - decay) of its gap by {worst}")
+    check(moved > 0, "BYOL: the online weights never moved")
+    check(all(n == 2 * 4 * 12 for n in launches.values()),
+          f"BYOL: launches {launches}, not 12 a forward x 4 forwards a step")
+    print(f"  (d) BYOL on MAE-B/16@224 bf16 (f32 masters) x {ZOO_BYOL_PAIRS} pairs, hidden "
+          f"{cfg.hidden_size}, projection {cfg.projection_size}: losses "
+          f"{[round(x, 4) for x in losses]}, step ms {[round(x, 1) for x in ms]} (host clock, "
+          f"synchronised; the first includes warm-up), target = target + 0.01 (online - target) "
+          f"to f32 rounding; launches {launches} (2 online + 2 target forwards a step); peak "
+          f"memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB ({card})", flush=True)
+    del online, target, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_13(device, card: str, wrappers, videos, corpus) -> tuple:
+    """The legacy zoo; returns (13(a)'s timed K1, K2 and B7 cases by
+    kernel, the phase's launches by kernel)."""
+    print(f"phase 13: the legacy zoo ({card})", flush=True)
+    t0 = time.perf_counter()
+    cases, total = run_zoo_forwards(device, wrappers, card)
+    for part in (run_zoo_query_cli(device, wrappers, videos, card),
+                 run_zoo_descriptor_cli(device, card, corpus), run_zoo_byol(device, card)):
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+    print(f"  phase 13 launches {total}; took {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+    return cases, total
+
+
 LIBRARIES = ("attn_proj", "ln_mlp", "row_max", "window_attn", "swin_block", "extract_topk",
              "attn", "vit_block")
 # name -> (source, the TPU kernel it replaces, the phase-2 case reported)
@@ -3699,9 +4094,12 @@ def phase_took(n: int, t0: float) -> float:
 
 def main(argv=None) -> int:
     """With `--training-only`, phases 1, 8, 9 and 11 alone (the train
-    steps' checks and measurements, the trainer's CLI; no result lines)."""
+    steps' checks and measurements, the trainer's CLI); with `--zoo-only`,
+    phases 1 and 13 (on videos and a frame store drawn for it); neither
+    prints the result lines."""
     args = sys.argv[1:] if argv is None else argv
     training_only = "--training-only" in args
+    zoo_only = "--zoo-only" in args
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 2
@@ -3732,7 +4130,7 @@ def main(argv=None) -> int:
           f"{torch.cuda.device_count()} device(s)", flush=True)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES) + 2) as pool:
-        host = None if training_only else pool.submit(prepare_host, device)
+        host = None if training_only or zoo_only else pool.submit(prepare_host, device)
         host_lib = pool.submit(timed_host_build)
         list(pool.map(build.library, LIBRARIES))
         built = time.perf_counter() - t0
@@ -3747,6 +4145,14 @@ def main(argv=None) -> int:
         print(f"  meanwhile on the host: the full-width slice's set-up {host['slice_s']:.1f} s, "
               f"the eval corpus {host['corpus_s']:.1f} s; waited {waited:.1f} s for them after "
               "the build", flush=True)
+    if zoo_only:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as cli_root:
+            videos = synth_videos(CLI_VIDEOS, 32, 360, 640)
+            phase_13(device, card, wrappers, videos, timed_cli_corpus(cli_root, videos))
+        print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
     if training_only:
         print(f"phase 8: training on the card ({card})", flush=True)
         t0 = time.perf_counter()
@@ -3905,7 +4311,11 @@ def main(argv=None) -> int:
     per_video = phase_10(device, card, wrappers, models, pca, videos, noise)
     phase_12(device, card, wrappers, models)
     del models, pca, noise
-    phase_11(device, card, vit_res["train_images_per_sec"], videos)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as cli_root:
+        corpus = phase_11(device, card, vit_res["train_images_per_sec"], cli_root, videos)
+        zoo_cases_by_kernel, zoo_launches = phase_13(device, card, wrappers, videos, corpus)
     del videos
 
     kernels = []
@@ -3918,9 +4328,15 @@ def main(argv=None) -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], case=f"{tag} {dn}",
             launches_per_video=per_video.get(name, 0),
+            zoo_launches=zoo_launches.get(name, 0),
             **{k: r[k] for k in ("products_cublas_ms", "ln_rows_ms", "routes", "loop")
                if k in r},
         ))
+        if name in zoo_cases_by_kernel:
+            kernels[-1]["zoo_cases"] = [
+                {k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "products_cublas_ms", "routes") if k in c}
+                for c in zoo_cases_by_kernel[name]]
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

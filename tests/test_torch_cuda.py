@@ -17,7 +17,9 @@ grid with the max in the last split, all-negative and zero maxima, and D
 padded to a multiple of 16; the outputs and gradients of K1, K2, B7, B9,
 B10, B8, B6 and B1 through their recompute VJPs against autograd of their
 plain versions, in f32 and bf16 at ragged shapes, and B5 and K3 raising on an
-operand that requires grad); for the matching trainers, BatchNorm's
+operand that requires grad); for the legacy zoo, K1 and K2 at MAE
+ViT-B/16's L 197 in bf16, B7 in f32 at Swin-T v1's K 96 and C 768, and the
+tiny legacy members on the card against the CPU; for the matching trainers, BatchNorm's
 train mode against the CPU and the float32 convolution's backward with
 TF32 kept off while the global flag is on; and for the per-video path,
 OpenCV's resize and Canny arithmetic bit for bit as on the CPU, the tiny
@@ -880,6 +882,75 @@ def test_fused_mlp_across_the_route_rule(device, dtype, rows, c, hidden, offset)
     got = fused_mlp(x, w1, b1, w2, b2)
     assert fused_mlp.launches == before + 1
     assert_close(got, fused_mlp_reference(x, w1, b1, w2, b2), TOL[dtype])
+
+
+# The legacy zoo's shapes (chip_smoke.py phase 13), 4 frames each: MAE
+# ViT-B/16@224's blocks (L 197, a ragged token count at hd 64) through K1
+# and K2 in bf16, and Swin-T v1's B7 in f32 at stage 1 (C 96: K 96 for fc1)
+# and stage 4 (C 768), both products on 3xTF32.
+MAE_B16 = dict(l=197, c=768, h=12)
+SWIN_V1_B7 = {1: (4 * 56 * 56, 96), 4: (4 * 7 * 7, 768)}
+
+
+def test_attn_proj_at_mae_vit_b16(device):
+    b, l, c, h = 4, MAE_B16["l"], MAE_B16["c"], MAE_B16["h"]
+    gen = torch.Generator().manual_seed(197)
+    x = randn(gen, (b, l, c), 0.05, torch.bfloat16, device)
+    qkv = randn(gen, (b, l, 3 * c), 1.5, torch.bfloat16, device)
+    pw = randn(gen, (c, c), c**-0.5, torch.bfloat16, device)
+    pb = randn(gen, (c,), 0.1, torch.float32, device)
+    assert attn_proj.routes(x, pw, h) == dict(core="mma", proj="mma")
+    before = attn_proj_residual.launches
+    got = attn_proj_residual(x, qkv, pw, pb, h)
+    assert attn_proj_residual.launches == before + 1
+    bf16_bar(got, attn_proj_residual_reference(x, qkv, pw, pb, h))
+
+
+def test_ln_mlp_at_mae_vit_b16(device):
+    c = MAE_B16["c"]
+    gen = torch.Generator().manual_seed(198)
+    args = mlp_args(gen, 4 * MAE_B16["l"], c, 4 * c, "gelu", 1e-6, torch.bfloat16, device)
+    assert mlp.routes(args[0], args[3], args[5]) == dict(ln="rows", fc1="mma", fc2="mma")
+    before = ln_mlp_residual.launches
+    got = ln_mlp_residual(*args)
+    assert ln_mlp_residual.launches == before + 1
+    bf16_bar(got, ln_mlp_residual_reference(*args))
+
+
+@pytest.mark.parametrize("stage", sorted(SWIN_V1_B7))
+def test_fused_mlp_at_swin_v1_stages(device, stage):
+    rows, c = SWIN_V1_B7[stage]
+    gen = torch.Generator().manual_seed(50 + stage)
+    args = chip_smoke.fused_mlp_args(gen, rows, c, 4 * c, torch.float32, device)
+    assert mlp.fused_mlp_routes(args[0], args[1], args[3]) == dict(fc1="tf32x3", fc2="tf32x3")
+    before = fused_mlp.launches
+    got = fused_mlp(*args)
+    assert fused_mlp.launches == before + 1
+    assert_close(got, fused_mlp_reference(*args), TOL[torch.float32])
+
+
+@pytest.mark.parametrize("name", ["swin_v1_tiny_test", "efficientnet_tiny_test",
+                                  "mae_tiny_test", "roberta_tiny_test"])
+def test_tiny_legacy_members_on_the_card_match_the_cpu(device, name):
+    """Each tiny legacy member in f32, the card (B7 for Swin v1, K1 and K2
+    for MAE, B8 for the unmasked text encoder, cuDNN's convolutions with
+    TF32 off) against the CPU's plain path, same seeded weights."""
+    from vsc22_tpu_torch.models.layers import reset_parameters
+    from vsc22_tpu_torch.models.registry import build_backbone
+
+    cpu = build_backbone({"type": name})
+    reset_parameters(cpu, torch.Generator().manual_seed(3))
+    card = build_backbone({"type": name}, device=device)
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(4)
+    if name == "roberta_tiny_test":
+        x = torch.randint(0, 64, (2, 12), generator=gen)
+    else:
+        x = torch.randn((2, 32, 32, 3), generator=gen)
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(x.to(device))
+    assert_close(got.cpu(), want, (1e-4, 1e-4))
 
 
 # (nq, nr, d, num_valid, e, tile_r, k): query counts off the 64-row tile,

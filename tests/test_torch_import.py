@@ -297,3 +297,38 @@ def test_chip_smoke_refuses_without_cuda():
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+ZOO_MODULES = (
+    "vsc22_tpu_torch.models.swin_v1",
+    "vsc22_tpu_torch.models.efficientnet",
+    "vsc22_tpu_torch.models.mae",
+    "vsc22_tpu_torch.models.text_encoder",
+    "vsc22_tpu_torch.models.deconv",
+    "vsc22_tpu_torch.train.byol",
+)
+
+
+def test_zoo_modules_each_import_alone_without_jax():
+    """Each module of the legacy zoo and the BYOL recipe, imported first in
+    a fresh interpreter: none loads JAX, the JAX package or pandas, and the
+    registry holds every zoo name."""
+    code = (
+        "import sys, importlib\n"
+        f"for name in {ZOO_MODULES!r} + ('vsc22_tpu_torch.models.registry',):\n"
+        "    importlib.import_module(name)\n"
+        "    bad = sorted(m for m in sys.modules if m in ('jax', 'vsc22_tpu', 'pandas')\n"
+        "                 or m.startswith(('jax.', 'flax', 'vsc22_tpu.', 'pandas.')))\n"
+        "    assert not bad, (name, bad)\n"
+        "r = sys.modules['vsc22_tpu_torch.models.registry'].BACKBONES\n"
+        "assert all(k in r for k in ('efficientnet_v2_s', 'swin_v1_tiny_224', "
+        "'mae_base_patch16_224', 'roberta_base', 'deconv_model', 'video_score_md'))\n"
+        "assert callable(sys.modules['vsc22_tpu_torch.train.byol'].make_byol_step)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    for name in ZOO_MODULES:
+        assert (ROOT / (name.replace(".", "/") + ".py")).is_file(), name

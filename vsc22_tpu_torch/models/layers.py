@@ -24,7 +24,7 @@ from torch import nn
 
 from vsc22_tpu_torch.ops.attn import attention
 from vsc22_tpu_torch.ops.attn_proj import attn_proj_residual
-from vsc22_tpu_torch.ops.mlp import ln_mlp_residual
+from vsc22_tpu_torch.ops.mlp import fused_mlp, ln_mlp_residual
 
 
 class Linear(nn.Module):
@@ -242,28 +242,119 @@ class _ConvIEEE(torch.autograd.Function):
         return gx, gw, None, None, None
 
 
-class Conv(nn.Module):
-    """A flax `nn.Conv(use_bias=False)` over NHWC activations: weight OIHW
-    [F, C / groups, k, k] in `dtype`, explicit symmetric padding `pad`
-    (torch's `padding=`, which is not flax `SAME` at stride 2 on even
-    inputs). float32 convolutions run in full float32 (no TF32), their
-    backward too."""
+def same_pads(size: int, kernel: int, stride: int) -> tuple:
+    """flax `SAME` padding of one spatial axis: (low, high) with out =
+    ceil(size / stride) and the odd pixel at the high end, so that k 3 at
+    stride 2 on an even input pads (0, 1) where torch's `padding=1` pads
+    (1, 1)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, pad: int = 0,
-                 groups: int = 1, dtype=torch.float32, device=None):
+
+class Conv(nn.Module):
+    """A flax `nn.Conv` over NHWC activations: weight OIHW [F, C / groups,
+    k, k] in `dtype`; padding `pad`, either torch's symmetric `padding=`
+    (an int) or "same", flax's `SAME` (`same_pads`); an optional float32
+    bias, added in the output's dtype after the convolution, as flax adds
+    it (a second rounding in bfloat16). float32 convolutions run in full
+    float32 (no TF32), their backward too."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, pad=0,
+                 groups: int = 1, dtype=torch.float32, device=None, bias: bool = False):
         super().__init__()
         self.stride, self.pad, self.groups = stride, pad, groups
         self.weight = nn.Parameter(
             torch.empty(cout, cin // groups, kernel, kernel, dtype=dtype, device=device))
+        self.bias = (
+            nn.Parameter(torch.empty(cout, dtype=torch.float32, device=device))
+            if bias else None
+        )
 
     def reset(self, generator: torch.Generator) -> None:
         _normal_(self.weight, self.weight[0].numel() ** -0.5, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x):  # [B, H, W, C] -> [B, H', W', F]
         w = self.weight
-        y = _ConvIEEE.apply(x.to(w.dtype).permute(0, 3, 1, 2), w, self.stride, self.pad,
-                            self.groups)
-        return y.permute(0, 2, 3, 1)
+        x = x.to(w.dtype).permute(0, 3, 1, 2)
+        pad = self.pad
+        if pad == "same":
+            k = w.shape[-1]
+            (top, bottom), (left, right) = (same_pads(n, k, self.stride) for n in x.shape[2:])
+            x = F.pad(x, (left, right, top, bottom))
+            pad = 0
+        y = _ConvIEEE.apply(x, w, self.stride, pad, self.groups).permute(0, 2, 3, 1)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+class ConvTranspose(nn.Module):
+    """A flax `nn.ConvTranspose(features, (k, k), strides=(s, s),
+    padding="SAME")` with its bias over NHWC activations. flax does not
+    flip the kernel (`transpose_kernel=False`): it correlates the
+    stride-dilated input, padded by lax's `SAME` transpose padding (pa,
+    pb), with the HWIO kernel. torch's `conv_transpose2d` correlates the
+    dilated input padded by k - 1 - padding with the kernel flipped in
+    space, so the weight here is the flax kernel flipped in space and laid
+    out [in, out, k, k], and padding = k - 1 - pa (pa == pb: k 4, s 2 pads
+    (2, 2), torch's padding 1). float32 runs in full float32 (no TF32)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 4, stride: int = 2,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        pad_len = kernel + stride - 2
+        pa = kernel - 1 if stride > kernel - 1 else -(-pad_len // 2)
+        if pa != pad_len - pa or pa > kernel - 1:
+            raise ValueError(f"ConvTranspose: k {kernel}, s {stride} pads ({pa}, "
+                             f"{pad_len - pa}), which conv_transpose2d cannot take")
+        self.stride, self.padding = stride, kernel - 1 - pa
+        self.weight = nn.Parameter(
+            torch.empty(cin, cout, kernel, kernel, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.empty(cout, dtype=torch.float32, device=device))
+
+    def reset(self, generator: torch.Generator) -> None:
+        _normal_(self.weight, self.weight[:, 0].numel() ** -0.5, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):  # [B, H, W, C] -> [B, sH, sW, F]
+        w = self.weight
+        with _cudnn_ieee():
+            y = F.conv_transpose2d(x.to(w.dtype).permute(0, 3, 1, 2), w, None, self.stride,
+                                   self.padding)
+        y = y.permute(0, 2, 3, 1)
+        return y + self.bias.to(y.dtype)
+
+
+def upsample_nearest_2x(x):
+    """[B, H, W, C] -> [B, 2H, 2W, C], each pixel repeated:
+    `jax.image.resize(..., "nearest")` at an exact 2x (output i reads input
+    floor((i + 0.5) / 2) = i // 2)."""
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+class Embed(nn.Module):
+    """A flax `nn.Embed`: a float32 table [num, features]; a lookup
+    returns its float32 rows."""
+
+    def __init__(self, num: int, features: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num, features, dtype=torch.float32,
+                                               device=device))
+
+    def reset(self, generator: torch.Generator) -> None:
+        """N(0, 1 / features): flax's default `variance_scaling(1, fan_in,
+        normal, out_axis=0)`."""
+        _normal_(self.weight, self.weight.shape[1] ** -0.5, generator)
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight)
+
+
+def spatial_mean(x):
+    """jnp.mean over H and W of [B, H, W, C]: a float32 sum divided in
+    float32, one rounding to x's dtype."""
+    return (x.float().sum((1, 2)) / (x.shape[1] * x.shape[2])).to(x.dtype)
 
 
 class BatchNorm(nn.Module):
@@ -430,6 +521,32 @@ class MlpParams(nn.Module):
         super().__init__()
         self.fc1 = Linear(dim, hidden, dtype, device)
         self.fc2 = Linear(hidden, dim, dtype, device)
+
+
+class Mlp(MlpParams):
+    """The JAX `layers.Mlp` (`vsc22_tpu/models/layers.py:46-87`) with its
+    output width equal to its input's, as every model here has it: fc1 ->
+    exact GELU -> dropout -> fc2 -> dropout. With no dropout acting (rate
+    0, or no `DropRng`: inference) it is kernel B7 (`ops/mlp.fused_mlp`:
+    the kernel on a CUDA tensor, its plain version on a CPU one), the
+    biases passed in the working dtype as JAX passes them; otherwise the
+    plain MLP, fc1 and fc2 as flax Denses, its dropout masks drawn from the
+    `DropRng`."""
+
+    def __init__(self, dim: int, hidden: int, dtype=torch.float32, device=None,
+                 dropout: float = 0.0):
+        super().__init__(dim, hidden, dtype, device)
+        self.dropout = dropout
+
+    def forward(self, x, rng=None):
+        fc1, fc2 = self.fc1, self.fc2
+        dt = fc1.weight.dtype
+        if rng is None or self.dropout == 0.0:
+            y = fused_mlp(x.reshape(-1, x.shape[-1]).to(dt), fc1.weight, fc1.bias.to(dt),
+                          fc2.weight, fc2.bias.to(dt))
+            return y.reshape(x.shape)
+        y = dropout(gelu_exact(fc1(x)), self.dropout, rng, (self, "hidden"))
+        return dropout(fc2(y), self.dropout, rng, (self, "out"))
 
 
 class TransformerBlock(nn.Module):

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vsc22_tpu_torch.core.device import resolve
-from vsc22_tpu_torch.models.layers import BatchNorm, Conv, Linear, dropout
+from vsc22_tpu_torch.models.layers import BatchNorm, Conv, Linear, dropout, spatial_mean
 
 # (kernel, expansion, out_channels, se_reduce_ch, use_hswish, stride): timm
 # `mobilenetv3_small_100`, as `vsc22_tpu/models/mobilenetv3.py:32` lists it.
@@ -51,11 +51,6 @@ def hard_swish(x):
     return x * hard_sigmoid(x)
 
 
-def _spatial_mean(x):
-    """jnp.mean over H and W: a float32 sum divided in float32, one rounding."""
-    return (x.float().sum((1, 2)) / (x.shape[1] * x.shape[2])).to(x.dtype)
-
-
 class ConvBNAct(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, groups: int = 1,
                  act: Optional[str] = "relu", dtype=torch.float32, device=None):
@@ -81,7 +76,7 @@ class SqueezeExcite(nn.Module):
         self.fc2 = Linear(reduce_to, channels, dtype, device)
 
     def forward(self, x):  # [B, H, W, C]
-        s = self.fc2(F.relu(self.fc1(_spatial_mean(x))))
+        s = self.fc2(F.relu(self.fc1(spatial_mean(x))))
         return x * hard_sigmoid(s)[:, None, None, :]
 
 
@@ -135,7 +130,7 @@ class MobileNetV3Small(nn.Module):
         x = self.stem(images.to(self.dtype), train)
         for block in self.blocks:
             x = block(x, train)
-        x = _spatial_mean(self.head_conv(x, train))
+        x = spatial_mean(self.head_conv(x, train))
         x = hard_swish(self.pre_logits(x))
         if train:
             x = dropout(x, self.dropout, rng, (self, "head"))

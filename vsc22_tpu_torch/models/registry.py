@@ -3,23 +3,15 @@
 Counterpart of `vsc22_tpu/models/registry.py`: configs are plain dicts with
 a ``type`` key naming a registered constructor; the other keys (and any
 keyword given to `build`, such as ``device``) are passed to it. The
-backbones registry holds the models the port has, under the JAX names;
+backbones registry holds the models under the JAX names;
 each constructor takes ``device`` (the Base models default to the card, the
-``*_tiny_test`` ones to the CPU). A JAX name of a model the port does not
-have raises `KeyError` saying so.
+``*_tiny_test`` ones to the CPU). Every name of the JAX registry is here,
+the legacy zoo included.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict
-
-# Registered in the JAX package and not ported: the video-score embedding
-# variant and the legacy zoo.
-NOT_PORTED = frozenset({
-    "video_score_md", "efficientnet_v2_s", "efficientnet_tiny_test", "swin_v1_tiny_224",
-    "swin_v1_tiny_test", "mae_base_patch16_224", "mae_tiny_test", "roberta_base",
-    "roberta_tiny_test", "deconv_model",
-})
 
 
 class Registry:
@@ -39,9 +31,6 @@ class Registry:
 
     def get(self, key: str) -> Callable:
         if key not in self._entries:
-            if key in NOT_PORTED:
-                raise KeyError(f"{key!r} is a JAX-package model that the PyTorch port "
-                               f"does not have; {self.name} here: {sorted(self._entries)}")
             raise KeyError(
                 f"{key!r} not in registry {self.name}; known: {sorted(self._entries)}"
             )
@@ -64,7 +53,19 @@ def build_backbone(cfg: Dict[str, Any], **extra):
 
 
 def _register_builtins():
-    from vsc22_tpu_torch.models import clip, hrnet, mobilenetv3, swinv2, vit, vsm
+    from vsc22_tpu_torch.models import (
+        clip,
+        deconv,
+        efficientnet,
+        hrnet,
+        mae,
+        mobilenetv3,
+        swin_v1,
+        swinv2,
+        text_encoder,
+        vit,
+        vsm,
+    )
 
     BACKBONES.register(vit.vit_base_patch32_384_descriptor, name="vit_base_patch32_384")
     BACKBONES.register(vit.vit_tiny_test_descriptor, name="vit_tiny_test")
@@ -73,8 +74,19 @@ def _register_builtins():
     BACKBONES.register(clip.clip_vit_l14, name="clip_vit_l14")
     BACKBONES.register(clip.clip_tiny_test, name="clip_tiny_test")
     BACKBONES.register(vsm.vsm_base, name="video_score_ms")
+    BACKBONES.register(vsm.vsm_embed, name="video_score_md")
     BACKBONES.register(mobilenetv3.mobilenetv3_small, name="mobilenetv3_small")
     BACKBONES.register(hrnet.sam_hrnet_w18, name="sam_hrnet_w18")
+    # The legacy zoo (`vsc22_tpu/models/registry.py:80-92`).
+    BACKBONES.register(efficientnet.efficientnet_v2_s, name="efficientnet_v2_s")
+    BACKBONES.register(efficientnet.efficientnet_tiny_test, name="efficientnet_tiny_test")
+    BACKBONES.register(swin_v1.swin_v1_tiny_224, name="swin_v1_tiny_224")
+    BACKBONES.register(swin_v1.swin_v1_tiny_test, name="swin_v1_tiny_test")
+    BACKBONES.register(mae.mae_base_patch16_224, name="mae_base_patch16_224")
+    BACKBONES.register(mae.mae_tiny_test, name="mae_tiny_test")
+    BACKBONES.register(text_encoder.roberta_base, name="roberta_base")
+    BACKBONES.register(text_encoder.text_tiny_test, name="roberta_tiny_test")
+    BACKBONES.register(deconv.deconv_model, name="deconv_model")
 
 
 _register_builtins()

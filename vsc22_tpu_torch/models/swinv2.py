@@ -15,7 +15,7 @@ card and the CPU round the same way:
     around a torch roll and window partition;
   - the module path: the QKV and proj GEMMs in torch, the attention in
     kernel B6 (`ops/window_attn.py`), flax-style LNs and the MLP in kernel
-    B7 (`ops/mlp.fused_mlp`).
+    B7 (`layers.Mlp`, on `ops/mlp.fused_mlp`).
 The fused path is taken when C and the MLP width are multiples of 128 and
 the TPU kernel's VMEM estimate for one window is under 48 MiB: every block
 of the Base model in bf16, all but stage 4 in f32, none at the tiny test
@@ -46,7 +46,7 @@ from vsc22_tpu_torch.models.layers import (
     DropPath,
     LayerNorm,
     Linear,
-    MlpParams,
+    Mlp,
     PatchEmbed,
     _normal_,
     dense,
@@ -54,7 +54,6 @@ from vsc22_tpu_torch.models.layers import (
     gem_pool,
     layer_norm,
 )
-from vsc22_tpu_torch.ops.mlp import fused_mlp
 from vsc22_tpu_torch.ops.swin_block import swin_block
 from vsc22_tpu_torch.ops.window_attn import window_attention, window_attention_chunked
 
@@ -264,7 +263,7 @@ class SwinBlock(nn.Module):
         self.hidden = int(dim * mlp_ratio)
         self.attn = WindowAttention(dim, window, num_heads, pretrained_window, dtype, device)
         self.norm1 = LayerNorm(dim, device)
-        self.mlp = MlpParams(dim, self.hidden, dtype, device)
+        self.mlp = Mlp(dim, self.hidden, dtype, device)
         self.norm2 = LayerNorm(dim, device)
         n = window * window
         mask = (
@@ -311,11 +310,7 @@ class SwinBlock(nn.Module):
             return xs
         # Module path: flax LNs and residual adds in the model dtype.
         x = x.to(dt) + self.drop_path1(layer_norm(xs, self.norm1, _LN_EPS, dt), rng)
-        mlp = self.mlp
-        y = fused_mlp(
-            x.reshape(b * l, c), mlp.fc1.weight, mlp.fc1.bias.to(dt),
-            mlp.fc2.weight, mlp.fc2.bias.to(dt),
-        ).reshape(b, l, c)
+        y = self.mlp(x)  # B7: the block's MLP has no dropout
         return x + self.drop_path2(layer_norm(y, self.norm2, _LN_EPS, dt), rng)
 
 

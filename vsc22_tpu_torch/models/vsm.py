@@ -4,7 +4,8 @@ Counterpart of `vsc22_tpu/models/vsm.py` (`MS` head): CLIP CLS frame
 features -> Linear + LN(1e-5) -> [CLS] frames [SEP] + positions ->
 LN(1e-12) -> post-LN BERT layers (LN eps 1e-12, erf GELU, additive mask
 bias -1e4 on masked keys, `vsm.py:114`) -> concat([CLS] state,
-masked-average pool) -> Linear -> 1 logit. Attention is
+masked-average pool) -> Linear -> 1 logit; with `cfg.output_dim` > 0 the
+`MD` head, Linear -> an `output_dim` embedding (`vsm_embed`). Attention is
 `layers.MultiHeadAttention` with the mask bias, so it takes the plain
 einsum path, as the JAX package's does. In training (`train=True` with a
 `layers.DropRng`) dropout at `cfg.dropout` follows the embedding LN, each
@@ -37,6 +38,10 @@ class VSMConfig:
     heads: int = 12
     max_frames: int = 256
     dropout: float = 0.1
+    # 0: the `MS` scorer head (1 logit, squeezed); > 0: the `MD` embedding
+    # twin, whose output_proj maps the 2 * hidden pooled state to an
+    # `output_dim` vector (`vsm.py:43-47, 125-138`).
+    output_dim: int = 0
 
 
 VSM_BASE = VSMConfig()
@@ -65,8 +70,9 @@ class PostLNBlock(nn.Module):
 
 
 class VideoScoreModel(nn.Module):
-    """feats [B, N, feat_dim] -> logits [B]. All-zero frame rows are
-    masked out of attention and pooling."""
+    """feats [B, N, feat_dim] -> logits [B] (`MD`: embeddings [B,
+    output_dim]). All-zero frame rows are masked out of attention and
+    pooling."""
 
     def __init__(self, cfg: VSMConfig = VSM_BASE, dtype=torch.float32, device=None):
         super().__init__()
@@ -82,7 +88,8 @@ class VideoScoreModel(nn.Module):
             PostLNBlock(cfg.hidden, cfg.heads, dtype, device, cfg.dropout)
             for _ in range(cfg.layers)
         )
-        self.output_proj = Linear(2 * cfg.hidden, 1, torch.float32, device)
+        self.output_proj = Linear(2 * cfg.hidden, cfg.output_dim or 1, torch.float32,
+                                  device)
 
     def forward(self, feats, train: bool = False, rng=None):
         """`rng` (a `layers.DropRng`) draws the dropout masks when `train`."""
@@ -113,12 +120,21 @@ class VideoScoreModel(nn.Module):
         weights = mask[..., None]
         avg_pool = (states * weights).sum(dim=1) / (weights.sum(dim=1) + 1e-5)
         cat = torch.cat([states[:, 0], avg_pool], dim=1)
+        if cfg.output_dim > 0:  # MD: the embedding head
+            return self.output_proj(cat)
         return self.output_proj(cat).squeeze(-1)
 
 
 def vsm_base(dtype=torch.bfloat16, device="cuda") -> VideoScoreModel:
     """The VED gate's video-score model; on the card unless `device` says otherwise."""
     return VideoScoreModel(VSM_BASE, dtype, resolve(device))
+
+
+def vsm_embed(output_dim: int = 256, dtype=torch.bfloat16, device="cuda") -> VideoScoreModel:
+    """The reference's `MD` video-embedding twin: the VSM trunk with an
+    `output_dim` head; on the card unless `device` says otherwise."""
+    return VideoScoreModel(dataclasses.replace(VSM_BASE, output_dim=output_dim), dtype,
+                           resolve(device))
 
 
 def vsm_tiny_test(dtype=torch.float32, device=None) -> VideoScoreModel:

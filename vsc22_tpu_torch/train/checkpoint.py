@@ -8,7 +8,8 @@ masks, so that a resumed run goes on bit for bit as an unbroken one.
 
 Snapshots are the JAX package's npz files: `save_ema_snapshot` writes the
 EMA (or the parameters) under the flat `/`-joined keys and in the layouts
-of `vsc22_tpu.train.checkpoint.save_ema_snapshot`, and
+of `vsc22_tpu.train.checkpoint.save_ema_snapshot` (a BatchNorm model's
+running statistics beside them, under `batch_stats/...`), and
 `save_cnn_snapshot` a BatchNorm CNN's `params/...` and `batch_stats/...`
 as its `save_cnn_snapshot` does; the `load_*` functions read either
 side's files into a port model (`utils/jax_params.py` holds the key
@@ -24,12 +25,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vsc22_tpu_torch.models.clip import CLIPVisual
-from vsc22_tpu_torch.models.hrnet import SAMHRNet
-from vsc22_tpu_torch.models.mobilenetv3 import MobileNetV3Small
-from vsc22_tpu_torch.models.swinv2 import SwinTransformerV2
-from vsc22_tpu_torch.models.vit import VitDescriptor
-from vsc22_tpu_torch.models.vsm import VideoScoreModel
 from vsc22_tpu_torch.train.contrastive import AdamState, TrainState
 from vsc22_tpu_torch.utils import jax_params
 
@@ -104,53 +99,44 @@ class CheckpointManager:
         return TrainState(blob["step"], place(blob["params"], state_template.params), opt, ema)
 
 
-def _entries(model) -> list:
-    if isinstance(model, VitDescriptor):
-        return jax_params.vit_entries(model)
-    if isinstance(model, SwinTransformerV2):
-        return jax_params.swinv2_entries(model)
-    if isinstance(model, VideoScoreModel):
-        return jax_params.vsm_entries(model)
-    if isinstance(model, CLIPVisual):
-        return jax_params.clip_entries(model)
-    if isinstance(model, MobileNetV3Small):
-        return jax_params.mobilenetv3_entries(model)
-    if isinstance(model, SAMHRNet):
-        return jax_params.sam_hrnet_entries(model)
-    raise TypeError(f"no JAX key table for {type(model).__name__}")
-
-
 def save_ema_snapshot(path: str, state: TrainState, model) -> None:
     """The EMA (or, without one, the master) parameters of `state` as the
     JAX package's flat npz inference checkpoint of `model`."""
     params = state.ema_params if state.ema_params is not None else state.params
     by_id = {id(p): params[name] for name, p in model.named_parameters()}
-    np.savez(path, **jax_params.jax_flat_params(_entries(model), by_id))
+    np.savez(path, **jax_params.jax_flat_params(jax_params.model_entries(model), by_id))
 
 
 @torch.no_grad()
 def load_params_snapshot(path: str, model) -> dict:
     """Inverse of `save_ema_snapshot` (either package's file): fill
-    `model`'s parameters and return them as f32 tensors by parameter name,
-    as `create_train_state(params=...)` takes them."""
+    `model`'s parameters, and the running statistics of its BatchNorms
+    (the file's `batch_stats/...`, which the JAX `query_cli` reads with the
+    rest of a BatchNorm member's variables), and return the parameters as
+    f32 tensors by parameter name, as `create_train_state(params=...)`
+    takes them."""
+    tree = jax_params.npz_tree(path)
     masters = {name: torch.empty(p.shape, dtype=torch.float32)
                for name, p in model.named_parameters()}
     by_id = {id(p): masters[name] for name, p in model.named_parameters()}
-    entries = [(key, by_id.get(id(t), t), layout) for key, t, layout in _entries(model)]
-    jax_params.load_entries(entries, jax_params.npz_tree(path))
+    entries = [(key, by_id.get(id(t), t), layout)
+               for key, t, layout in jax_params.model_entries(model, tree)]
+    jax_params.load_entries(entries, tree)
     for name, p in model.named_parameters():
         p.copy_(masters[name])
     return masters
 
 
 def save_cnn_snapshot(path: str, model) -> None:
-    """A BatchNorm CNN's (`MobileNetV3Small`, `SAMHRNet`) `params/...` and
-    `batch_stats/...` as the JAX package's flat npz."""
-    np.savez(path, **jax_params.jax_flat_params(_entries(model)))
+    """A BatchNorm CNN's (`MobileNetV3Small`, `SAMHRNet`, `EfficientNet`,
+    `DeConvModel`) `params/...` and `batch_stats/...` as the JAX package's
+    flat npz."""
+    np.savez(path, **jax_params.jax_flat_params(jax_params.model_entries(model)))
 
 
 @torch.no_grad()
 def load_cnn_snapshot(path: str, model):
     """Inverse of `save_cnn_snapshot` (either package's file) into `model`."""
-    jax_params.load_entries(_entries(model), jax_params.npz_tree(path))
+    tree = jax_params.npz_tree(path)
+    jax_params.load_entries(jax_params.model_entries(model, tree), tree)
     return model

@@ -3,22 +3,24 @@
 The JAX package's variables (`model.init(...)`, or
 `flax.serialization.to_state_dict`, fetched to the host as numpy) map onto
 `VitDescriptor`, `SwinTransformerV2`, `CLIPVisual`, `VideoScoreModel`,
-a lone `MultiHeadAttention`, and the matching track's CNNs
+a lone `MultiHeadAttention`, the matching track's CNNs
 (`MobileNetV3Small`, `SAMHRNet`, from their `{params, batch_stats}`
-trees): Dense kernels [in, out] are transposed to Linear [out, in], HWIO
-convs become OIHW (a depthwise [k, k, 1, C] becomes [C, 1, k, k]), BN
-scale and bias come from `params` and its running mean and variance from
-`batch_stats`, and every array is copied into the existing parameter
-(which casts it to that parameter's dtype and device). A shape that does
-not fit raises. Nothing here imports JAX.
+trees), the legacy zoo (`SwinTransformerV1`, `EfficientNet` and
+`DeConvModel` with their `batch_stats`, `MaeDescriptor`, `TextEncoder`)
+and BYOL's online and target dicts (`ByolNet`): Dense kernels [in, out]
+are transposed to Linear [out, in], HWIO convs become OIHW (a depthwise
+[k, k, 1, C] becomes [C, 1, k, k]), a ConvTranspose kernel is flipped in
+space into [in, out, k, k], BN scale and bias come from `params` and its
+running mean and variance from `batch_stats`, and every array is copied
+into the existing parameter (which casts it to that parameter's dtype and
+device). A shape that does not fit raises. Nothing here imports JAX.
 
-The other direction, for the ViT and SwinV2 descriptors, CLIP, the VSM and
-the matching CNNs: `jax_flat_params` writes a port model's tensors (or its
-EMA) under the flat `/`-joined keys and in the layouts of the JAX
-package's `save_ema_snapshot` and `save_cnn_snapshot`, so that a port
-snapshot loads into the JAX model and a JAX snapshot into the port's
-(`train/checkpoint.py`).
-"""
+The other direction, for every model with a key table (`model_entries`):
+`jax_flat_params` writes a port model's tensors (or its EMA) under the
+flat `/`-joined keys and in the layouts of the JAX package's
+`save_ema_snapshot` and `save_cnn_snapshot`, so that a port snapshot loads
+into the JAX model and a JAX snapshot into the port's
+(`train/checkpoint.py`)."""
 
 from __future__ import annotations
 
@@ -28,12 +30,18 @@ import numpy as np
 import torch
 
 from vsc22_tpu_torch.models.clip import CLIPVisual
+from vsc22_tpu_torch.models.deconv import DeConvModel
+from vsc22_tpu_torch.models.efficientnet import EfficientNet
 from vsc22_tpu_torch.models.hrnet import SAMHRNet
 from vsc22_tpu_torch.models.layers import LayerNorm, Linear, MultiHeadAttention, PatchEmbed
+from vsc22_tpu_torch.models.mae import MaeDescriptor
 from vsc22_tpu_torch.models.mobilenetv3 import MobileNetV3Small
+from vsc22_tpu_torch.models.swin_v1 import SwinTransformerV1
 from vsc22_tpu_torch.models.swinv2 import SwinTransformerV2
+from vsc22_tpu_torch.models.text_encoder import TextEncoder
 from vsc22_tpu_torch.models.vit import VisionTransformer, VitDescriptor
 from vsc22_tpu_torch.models.vsm import VideoScoreModel
+from vsc22_tpu_torch.train.byol import ByolNet
 
 
 def _copy(dst: torch.Tensor, src) -> None:
@@ -91,6 +99,9 @@ _TO_PORT = {
     "conv": lambda a: a.transpose(3, 2, 0, 1),  # HWIO <-> OIHW
     "k00": lambda a: a[0, 0],  # a 1x1 conv kernel [1, 1, in, out] <-> [in, out]
     "k00T": lambda a: a[0, 0].T,  # ... <-> [out, in]
+    # A flax ConvTranspose kernel HWIO <-> torch's conv_transpose2d weight
+    # [in, out, k, k], flipped in space (`layers.ConvTranspose`).
+    "convT": lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1),
 }
 _TO_JAX = {
     "id": lambda a: a,
@@ -98,6 +109,7 @@ _TO_JAX = {
     "conv": lambda a: a.transpose(2, 3, 1, 0),
     "k00": lambda a: a[None, None],
     "k00T": lambda a: a.T[None, None],
+    "convT": lambda a: a.transpose(2, 3, 0, 1)[::-1, ::-1],
 }
 
 
@@ -232,10 +244,13 @@ def _flat_keys(tree, prefix=()) -> set:
 @torch.no_grad()
 def load_entries(entries, variables) -> None:
     """Fill each entry's tensor from `variables` (a {params[, batch_stats]}
-    tree, or the params alone); a leaf on one side only raises."""
-    tree = variables if "params" in variables else {"params": variables}
+    tree, the params alone, or a tree under the entries' own roots, such as
+    BYOL's {backbone, heads}); a leaf on one side only raises."""
     want = {key for key, _, _ in entries}
-    have = _flat_keys({k: tree[k] for k in {key[0] for key in want}})
+    roots = {key[0] for key in want}
+    tree = variables if "params" in variables or roots <= set(variables) \
+        else {"params": variables}
+    have = _flat_keys({k: tree[k] for k in roots})
     if want != have:
         raise ValueError(f"JAX leaves without a port tensor: {sorted(have - want)[:4]}; "
                          f"port tensors without a JAX leaf: {sorted(want - have)[:4]}")
@@ -375,3 +390,183 @@ def load_sam_hrnet(model: SAMHRNet, variables) -> SAMHRNet:
     it) into the port's model."""
     load_entries(sam_hrnet_entries(model), _cnn_trees(variables))
     return model
+
+
+# --- the legacy zoo and BYOL --------------------------------------------------------
+
+
+def _e_bn(key, bn) -> list:
+    """A flax `nn.BatchNorm` named by `key`: scale and bias in `params`,
+    the running mean and variance in `batch_stats`."""
+    p, st = ("params",) + key, ("batch_stats",) + key
+    return [(p + ("scale",), bn.weight, "id"), (p + ("bias",), bn.bias, "id"),
+            (st + ("mean",), bn.mean, "id"), (st + ("var",), bn.var, "id")]
+
+
+def swin_v1_entries(model: SwinTransformerV1) -> list:
+    p = ("params",)
+    out = _e_conv(p + ("patch_embed",), model.patch_embed)
+    out += _e_ln(p + ("patch_norm",), model.patch_norm)
+    if model.absolute_pos_embed is not None:
+        out.append((p + ("absolute_pos_embed",), model.absolute_pos_embed, "id"))
+    for s, blocks in enumerate(model.stages):
+        for i, block in enumerate(blocks):
+            t = p + (f"stage{s}_block{i}",)
+            out += _e_ln(t + ("norm1",), block.norm1)
+            out += _e_dense(t + ("attn", "qkv"), block.attn.qkv)
+            out.append((t + ("attn", "rpb_table"), block.attn.rpb_table, "id"))
+            out += _e_dense(t + ("attn", "proj"), block.attn.proj)
+            out += _e_ln(t + ("norm2",), block.norm2) + _e_mlp(t + ("mlp",), block.mlp)
+    for s, merge in enumerate(model.merges):
+        out += _e_ln(p + (f"merge{s}", "norm"), merge.norm)
+        out += _e_dense(p + (f"merge{s}", "reduction"), merge.reduction)
+    return out + _e_ln(p + ("norm",), model.norm) + _e_dense(p + ("output_proj",),
+                                                            model.output_proj)
+
+
+def efficientnet_entries(model: EfficientNet) -> list:
+    """The JAX `EfficientNet`'s `params` and `batch_stats`."""
+    p = ("params",)
+    out = _e_conv(p + ("stem",), model.stem) + _e_bn(("stem_bn",), model.stem_bn)
+    i = 0
+    for si, stage in enumerate(model.cfg.stages):
+        for li in range(stage.layers):
+            block, t = model.blocks[i], (f"stage{si}_block{li}",)
+            i += 1
+            out += _e_conv(p + t + ("expand_conv",), block.expand_conv)
+            out += _e_bn(t + ("bn0",), block.bn0)
+            if block.dw_conv is not None:
+                out += _e_conv(p + t + ("dw_conv",), block.dw_conv)
+                out += _e_bn(t + ("bn1",), block.bn1)
+            if block.se is not None:
+                out += _e_conv(p + t + ("se", "reduce"), block.se.reduce)
+                out += _e_conv(p + t + ("se", "expand"), block.se.expand)
+            out += _e_conv(p + t + ("project_conv",), block.project_conv)
+            out += _e_bn(t + ("bn2",), block.bn2)
+    return out + _e_dense(p + ("fc",), model.fc) + _e_bn(("bn",), model.bn)
+
+
+def mae_entries(model: MaeDescriptor) -> list:
+    out = vit_backbone_entries(model.backbone, ("params", "backbone"))
+    return out + _e_dense(("params", "fc"), model.fc) + _e_dense(("params", "output_proj"),
+                                                                 model.output_proj)
+
+
+def text_encoder_entries(model: TextEncoder, tree=None) -> list:
+    """The JAX `TextEncoder` tree. JAX declares `word_embeddings` only
+    when its init saw ids and `token_type_embeddings` only when it saw
+    token types: given the JAX `tree`, an entry it lacks is left out."""
+    p = ("params",)
+    params = None if tree is None else (tree["params"] if "params" in tree else tree)
+    out = []
+    for name in ("word_embeddings", "token_type_embeddings"):
+        if params is None or name in params:
+            out.append((p + (name, "embedding"), getattr(model, name).weight, "id"))
+    out.append((p + ("position_embeddings",), model.position_embeddings, "id"))
+    out += _e_ln(p + ("embeddings_norm",), model.embeddings_norm)
+    for i, layer in enumerate(model.layers):
+        t = p + (f"layer{i}",)
+        out += _e_dense(t + ("attn", "qkv"), layer.attn.qkv)
+        out += _e_dense(t + ("attn", "proj"), layer.attn.proj)
+        out += _e_ln(t + ("ln_attn",), layer.ln_attn)
+        out += _e_dense(t + ("fc1",), layer.fc1) + _e_dense(t + ("fc2",), layer.fc2)
+        out += _e_ln(t + ("ln_mlp",), layer.ln_mlp)
+    if model.pooler is not None:
+        out += _e_dense(p + ("pooler",), model.pooler)
+    return out
+
+
+def _e_res_block(key, block) -> list:
+    p = ("params",) + key
+    return (_e_conv(p + ("conv1",), block.conv1) + _e_bn(key + ("bn1",), block.bn1)
+            + _e_conv(p + ("conv2",), block.conv2) + _e_bn(key + ("bn2",), block.bn2))
+
+
+def _e_conv_t(key, mod) -> list:
+    return [(key + ("kernel",), mod.weight, "convT"), (key + ("bias",), mod.bias, "id")]
+
+
+def deconv_entries(model: DeConvModel) -> list:
+    """The JAX `DeConvModel`'s `params` and `batch_stats`."""
+    out = []
+    for name in ("res0", "res1", "res2"):
+        out += _e_res_block((name,), getattr(model, name))
+    for name in ("up0", "up1", "out"):
+        out += _e_conv_t(("params", name), getattr(model, name))
+    return out
+
+
+def _e_byol_mlp(key, mlp) -> list:
+    return _e_dense(key + ("fc1",), mlp.fc1) + _e_ln(key + ("norm",), mlp.norm) + _e_dense(
+        key + ("fc2",), mlp.fc2)
+
+
+def byol_heads_entries(heads, key=("params",)) -> list:
+    """The JAX `ByolHeads` tree (its projector and predictor) under `key`."""
+    return _e_byol_mlp(key + ("projector",), heads.projector) + _e_byol_mlp(
+        key + ("predictor",), heads.predictor)
+
+
+def byol_entries(net: ByolNet) -> list:
+    """One of BYOL's online or target dicts, {"backbone": the backbone's
+    variables, "heads": the `ByolHeads` variables}."""
+    out = [(("backbone",) + key, t, layout) for key, t, layout in model_entries(net.backbone)]
+    return out + byol_heads_entries(net.heads, ("heads", "params"))
+
+
+def model_entries(model, tree=None) -> list:
+    """The key table of any port model with a JAX twin (`tree`, where
+    given, the JAX tree it is to be filled from: see
+    `text_encoder_entries`)."""
+    tables = ((VitDescriptor, vit_entries), (SwinTransformerV2, swinv2_entries),
+              (VideoScoreModel, vsm_entries), (CLIPVisual, clip_entries),
+              (MobileNetV3Small, mobilenetv3_entries), (SAMHRNet, sam_hrnet_entries),
+              (SwinTransformerV1, swin_v1_entries), (EfficientNet, efficientnet_entries),
+              (MaeDescriptor, mae_entries), (DeConvModel, deconv_entries),
+              (ByolNet, byol_entries))
+    if isinstance(model, TextEncoder):
+        return text_encoder_entries(model, tree)
+    for cls, entries in tables:
+        if isinstance(model, cls):
+            return entries(model)
+    raise TypeError(f"no JAX key table for {type(model).__name__}")
+
+
+@torch.no_grad()
+def load_swin_v1(model: SwinTransformerV1, variables) -> SwinTransformerV1:
+    load_entries(swin_v1_entries(model), variables)
+    return model
+
+
+@torch.no_grad()
+def load_efficientnet(model: EfficientNet, variables) -> EfficientNet:
+    load_entries(efficientnet_entries(model), _cnn_trees(variables))
+    return model
+
+
+@torch.no_grad()
+def load_mae(model: MaeDescriptor, variables) -> MaeDescriptor:
+    load_entries(mae_entries(model), variables)
+    return model
+
+
+@torch.no_grad()
+def load_text_encoder(model: TextEncoder, variables) -> TextEncoder:
+    """The JAX `TextEncoder` tree (with or without its word and token-type
+    tables) into the port's model."""
+    load_entries(text_encoder_entries(model, variables), variables)
+    return model
+
+
+@torch.no_grad()
+def load_deconv(model: DeConvModel, variables) -> DeConvModel:
+    load_entries(deconv_entries(model), _cnn_trees(variables))
+    return model
+
+
+@torch.no_grad()
+def load_byol(net: ByolNet, tree) -> ByolNet:
+    """One of JAX BYOL's online or target dicts ({"backbone", "heads"})
+    into a `ByolNet`."""
+    load_entries(byol_entries(net), tree)
+    return net

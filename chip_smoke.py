@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's query, eval, matching, training, offline and legacy-zoo paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's query, eval, matching, training, offline, legacy-zoo and sharded paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -194,13 +194,28 @@ result line):
      MAE-B/16@224 bf16 x 16 pairs (hidden 4096, projection 256): the
      target moves by exactly (1 - 0.99) of its gap, K1 and K2 48 launches
      a step;
- 14. a JSON line of per-kernel numbers (B5's launches: phases 5 and 7;
+ 14. the sharded paths (`vsc22_tpu_torch/parallel/`; the host has one
+     card, and NCCL puts no two ranks of one communicator on one device):
+     (a) in this process, a world of one under NCCL at full width: the
+     ViT-B/32 x 48-pair FGM step on the mesh, its gradients and loss bit
+     for bit the unsharded step's on phase 8's model and batch, K1 and K2
+     24 launches, and one update through the sharded state; the sharded
+     row top-128 and global top-30,720 over phase 5's 1.28M refs (f16, B5
+     on the shard) for 256 query rows, equal to the one-device searcher's;
+     the sharded extractor over one 128-frame chunk, equal to the
+     unsharded one; (b) beside (a), two gloo ranks spawned once, sharing
+     the card (ViT-B/32 widths at depth 2, f32, 4 pairs; 65,536 refs; 16
+     frames): each rank's sharded gradients within phase 8(b)'s bar of
+     its one-rank gradients, its search equal, its extractor within 1e-4,
+     and K1, K2 and B5 launched on the card in both ranks;
+ 15. a JSON line of per-kernel numbers (B5's launches: phases 5 and 7;
      `launches_per_video`: phase 10(c); `zoo_launches` and `zoo_cases`:
-     phase 13), then the device line.
+     phase 13; `parallel_launches`: phase 14(a)), then the device line.
 
 With `--training-only` it runs phases 1, 8, 9 and 11 alone (9(e) then on
 synthetic maps of phase 5's shape), with `--zoo-only` phases 1 and 13 (on
-videos and a frame store drawn for it), and prints no result lines.
+videos and a frame store drawn for it), with `--parallel-only` phases 1
+and 14 (on a corpus drawn as phase 5's), and prints no result lines.
 
 Needs CUDA (it refuses to run without) and no network; builds in
 `vsc22_tpu_torch/_build/`. It imports nothing of JAX or of the JAX package.
@@ -4043,6 +4058,241 @@ def phase_13(device, card: str, wrappers, videos, corpus) -> tuple:
     return cases, total
 
 
+# --- phase 14: the sharded paths (`vsc22_tpu_torch/parallel/`) on the card ---------
+
+# The card host has one H100, and NCCL puts no two ranks of one communicator
+# on one device: (a) is a world of one under NCCL at full width, (b) two gloo
+# ranks sharing the card at a cut depth, so that the sharded code exchanges
+# data between ranks while the hand kernels run. No multi-GPU time exists.
+PAR_QUERY_VIDEOS = 8  # 14(a): 256 query rows of phase 5's corpus
+PAR_ROW_K = 128
+PAR_GLOBAL_K = 30_720  # 1200 hits a query video x 8, as the eval's budget scales
+PAR_CHUNK = 128  # frames: one full extractor chunk
+PAR_B_PAIRS = 4  # 14(b): the global batch, 2 pairs a rank
+PAR_B_DEPTH = 2  # 14(b): ViT-B/32's widths at depth 2, f32
+PAR_B_REFS = 65_536  # 14(b): 32,768 rows a shard, so B5's rule holds on each
+PAR_B_FRAMES = 16  # 14(b): the extractor's frames, chunk 8
+
+
+def par_grad_error(got, want) -> float:
+    """The largest |got - want| per leaf over TRAIN_GRAD_TOL of that leaf's
+    max |want| (leaves of rounding residue, under TRAIN_ROUNDING_GRAD of the
+    largest |g|, measured against that floor): <= 1 passes."""
+    top = max(float(w.abs().max()) for w in want)
+    return max(float((g - w).abs().max()) / (TRAIN_GRAD_TOL * max(float(w.abs().max()),
+                                                                   TRAIN_ROUNDING_GRAD * top))
+               for g, w in zip(got, want))
+
+
+def parallel_world_of_one(device, card: str, corpus) -> dict:
+    """14(a): the NCCL path in a world of one, in this process, at full
+    width: the sharded ViT-B/32 step's gradients against the unsharded
+    step's on phase 8's model and batch (`torch_perf_train.setup`'s seeds),
+    then one sharded step; the sharded row_topk and global_topk over phase
+    5's corpus (f16, B5 on the shard) against the one-device searcher; the
+    sharded extractor over one 128-frame chunk. Returns the launches."""
+    import torch.distributed as dist
+    from scripts.torch_perf_train import setup
+    from vsc22_tpu_torch.ops.attn_proj import attn_proj_residual
+    from vsc22_tpu_torch.ops.mlp import ln_mlp_residual
+    from vsc22_tpu_torch.ops.topk import extract_topk
+    from vsc22_tpu_torch.parallel.distributed import initialize
+    from vsc22_tpu_torch.parallel.mesh import create_mesh
+    from vsc22_tpu_torch.pipelines.query_extract import DescriptorExtractor
+    from vsc22_tpu_torch.retrieval.search import SimilaritySearcher
+    from vsc22_tpu_torch.train import contrastive as tc
+
+    path = (attn_proj_residual, ln_mlp_residual, extract_topk)
+    initialize(backend="nccl", world_size=1, rank=0, store=dist.HashStore(), device=device)
+    try:
+        mesh = create_mesh()
+        launches = {}
+        t0 = time.perf_counter()
+        bench = setup("vit", 48, fgm=True, lr=1e-4, warmup_ratio=0.0)
+        tx = tc.make_optimizer(bench.cfg)
+        sharded = tc.make_train_step(bench.model, tx, bench.cfg, mesh=mesh)
+        want_m, want = bench.step_fn.gradients(bench.batch, torch.Generator().manual_seed(5))
+        zero_counts(path)
+        got_m, got = sharded.gradients(bench.batch, torch.Generator().manual_seed(5))
+        torch.cuda.synchronize()
+        launches["step"] = counts(path)
+        diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        print(f"  14(a) sharded ViT-B/32 step, world of one (NCCL), 48 pairs, FGM: loss "
+              f"{float(got_m['loss']):.6f} (unsharded {float(want_m['loss']):.6f}); gradients "
+              f"max |sharded - unsharded| {diff:.3e} (bit for bit: {diff == 0.0}); "
+              f"launches {launches['step']}", flush=True)
+        check(diff == 0.0 and float(got_m["loss"]) == float(want_m["loss"]),
+              "14(a): a world of one changed the step's arithmetic")
+        check(launches["step"]["attn_proj_residual"] == 24
+              and launches["step"]["ln_mlp_residual"] == 24, "14(a): K1/K2 launches a step")
+        del want, got
+        state, _ = tc.create_train_state(bench.model, bench.cfg, mesh=mesh)
+        state, metrics = sharded(state, bench.batch, torch.Generator().manual_seed(6))
+        check(state.step == 1 and bool(np.isfinite(float(metrics["loss"]))),
+              "14(a): the sharded step's update")
+        print(f"  14(a) step part {time.perf_counter() - t0:.1f} s", flush=True)
+
+        t0 = time.perf_counter()
+        queries, refs = corpus[0], corpus[1]
+        r = np.concatenate([v.feature for v in refs]).astype(np.float16)  # shipped as f16
+        q = np.concatenate([v.feature for v in queries[:PAR_QUERY_VIDEOS]])
+        one = SimilaritySearcher(r, device=device, transfer_dtype=np.float16)
+        shard = SimilaritySearcher(r, device=device, transfer_dtype=np.float16, mesh=mesh)
+        zero_counts(path)
+        got_rows = shard.row_topk(q, PAR_ROW_K)
+        got_glob = shard.global_topk(q, PAR_GLOBAL_K)
+        torch.cuda.synchronize()
+        launches["search"] = counts(path)
+        want_rows, want_glob = one.row_topk(q, PAR_ROW_K), one.global_topk(q, PAR_GLOBAL_K)
+        same = (all(np.array_equal(a, b) for a, b in zip(got_rows, want_rows))
+                and all(np.array_equal(a, b) for a, b in zip(got_glob, want_glob)))
+        print(f"  14(a) sharded search over phase 5's corpus ({len(r)} refs x {r.shape[1]}, "
+              f"f16): {len(q)} rows, row top-{PAR_ROW_K} and global top-{PAR_GLOBAL_K} equal "
+              f"to the one-device searcher's: {same}; launches {launches['search']}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        check(same, "14(a): the sharded search differs from the one-device searcher")
+        check(launches["search"]["extract_topk"] >= 1, "14(a): B5 never served the shard")
+        del one, shard, r
+
+        t0 = time.perf_counter()
+        frames = list(synth_videos(1, PAR_CHUNK, 360, 640, seed=3)[0])
+        ext = DescriptorExtractor(bench.model, 384, "vit", chunk=PAR_CHUNK, device=device)
+        ext_sh = DescriptorExtractor(bench.model, 384, "vit", chunk=PAR_CHUNK, device=device,
+                                     mesh=mesh)
+        zero_counts(path)
+        got_f = ext_sh.extract(frames)
+        torch.cuda.synchronize()
+        launches["extractor"] = counts(path)
+        same = np.array_equal(got_f, ext.extract(frames))
+        print(f"  14(a) sharded ViT-B/32 extractor, one {PAR_CHUNK}-frame bf16 chunk: "
+              f"{got_f.shape}, equal to the unsharded extractor's: {same}; launches "
+              f"{launches['extractor']}; {time.perf_counter() - t0:.1f} s", flush=True)
+        check(same and launches["extractor"]["attn_proj_residual"] == 12,
+              "14(a): the sharded extractor")
+        del bench, state, sharded
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def _parallel_rank(index: int, count: int, store_path: str) -> dict:
+    """14(b), one rank of a gloo world sharing the card: the sharded step,
+    search and extractor against this rank's one-rank results."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from vsc22_tpu_torch.models.layers import reset_parameters
+    from vsc22_tpu_torch.models.vit import VIT_BASE_PATCH32_384, VitDescriptor
+    from vsc22_tpu_torch.ops.attn_proj import attn_proj_residual
+    from vsc22_tpu_torch.ops.mlp import ln_mlp_residual
+    from vsc22_tpu_torch.ops.topk import extract_topk
+    from vsc22_tpu_torch.parallel.distributed import initialize
+    from vsc22_tpu_torch.parallel.mesh import batch_sharding, create_mesh
+    from vsc22_tpu_torch.pipelines.query_extract import DescriptorExtractor
+    from vsc22_tpu_torch.retrieval.search import SimilaritySearcher
+    from vsc22_tpu_torch.train import contrastive as tc
+
+    t0 = time.perf_counter()
+    os.environ["LOCAL_RANK"] = "0"  # both ranks on the one card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize(backend="gloo", world_size=count, rank=index,
+               store=torch.distributed.FileStore(store_path, count), device="cuda")
+    path = (attn_proj_residual, ln_mlp_residual, extract_topk)
+    out = {"launches": {}}
+    try:
+        device = torch.device("cuda", 0)
+        mesh = create_mesh((count, 1))
+        local = batch_sharding(mesh)
+        cfg_m = dataclasses.replace(VIT_BASE_PATCH32_384, depth=PAR_B_DEPTH)
+        model = VitDescriptor(cfg_m, dtype=torch.float32, device=device)
+        reset_parameters(model, torch.Generator().manual_seed(21))
+        gen = torch.Generator().manual_seed(22)
+        batch = {k: torch.randn((PAR_B_PAIRS, 384, 384, 3), generator=gen).to(device)
+                 for k in ("img_a", "img_b")}
+        cfg = tc.ContrastiveConfig(learning_rate=1e-4, warmup_ratio=0.0, total_steps=10,
+                                   fgm_epsilon=0.1)
+        tx = tc.make_optimizer(cfg)
+        _, want = tc.make_train_step(model, tx, cfg).gradients(batch, torch.Generator().manual_seed(5))
+        zero_counts(path)
+        step = tc.make_train_step(model, tx, cfg, mesh=mesh)
+        _, got = step.gradients({k: local(v) for k, v in batch.items()},
+                                torch.Generator().manual_seed(5))
+        torch.cuda.synchronize()
+        out["launches"]["step"] = counts(path)
+        out["grad_error"] = par_grad_error(got, want)
+
+        rng = np.random.default_rng(23)
+        refs = rng.standard_normal((PAR_B_REFS, 512), dtype=np.float32)
+        refs /= np.linalg.norm(refs, axis=1, keepdims=True)
+        q = refs[rng.integers(0, PAR_B_REFS, 256)] + rng.normal(0, 0.05, (256, 512)).astype(
+            np.float32)
+        one = SimilaritySearcher(refs, device=device, transfer_dtype=np.float16)
+        zero_counts(path)
+        shard = SimilaritySearcher(refs, device=device, transfer_dtype=np.float16, mesh=mesh)
+        got_s, got_i = shard.row_topk(q, 10)
+        torch.cuda.synchronize()
+        out["launches"]["search"] = counts(path)
+        want_s, want_i = one.row_topk(q, 10)
+        out["search_equal"] = bool(np.array_equal(got_i, want_i)
+                                   and np.abs(got_s - want_s).max() <= TOPK_TOL)
+
+        frames = list(synth_videos(1, PAR_B_FRAMES, 360, 640, seed=4)[0])
+        zero_counts(path)
+        got_f = DescriptorExtractor(model, 384, "vit", chunk=8, device=device,
+                                    mesh=mesh).extract(frames)
+        torch.cuda.synchronize()
+        out["launches"]["extractor"] = counts(path)
+        want_f = DescriptorExtractor(model, 384, "vit", chunk=8, device=device).extract(frames)
+        out["extractor_error"] = float(np.abs(got_f - want_f).max())
+        out["seconds"] = time.perf_counter() - t0
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_gloo_pair(card: str) -> dict:
+    """14(b): two gloo ranks spawned once, sharing the card; each rank's
+    sharded results held to its one-rank results, K1, K2 and B5 launched
+    on the card in both."""
+    import tempfile
+
+    from vsc22_tpu_torch.parallel.launcher import launch_local
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        got = launch_local(_parallel_rank, 2, args=(os.path.join(tmp, "store"),), timeout=300.0)
+    for i, r in enumerate(got):
+        print(f"  14(b) rank {i} of 2 (gloo, one card): ViT-B/32 widths at depth {PAR_B_DEPTH}, "
+              f"f32, {PAR_B_PAIRS} pairs, FGM: gradient error {r['grad_error']:.3f} of the bar; "
+              f"search {PAR_B_REFS} x 512 f16 equal: {r['search_equal']}; extractor max err "
+              f"{r['extractor_error']:.2e}; launches {r['launches']}; {r['seconds']:.1f} s in "
+              "the rank", flush=True)
+        check(r["grad_error"] <= 1.0, f"14(b) rank {i}: sharded gradients")
+        check(r["search_equal"], f"14(b) rank {i}: sharded search")
+        check(r["extractor_error"] <= 1e-4, f"14(b) rank {i}: sharded extractor")
+        for part, kernels in (("step", ("attn_proj_residual", "ln_mlp_residual")),
+                              ("search", ("extract_topk",)),
+                              ("extractor", ("attn_proj_residual", "ln_mlp_residual"))):
+            check(all(r["launches"][part][k] > 0 for k in kernels),
+                  f"14(b) rank {i}: {part} did not launch {kernels}")
+    print(f"  14(b) took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return got[0]["launches"]
+
+
+def phase_14(device, card: str, corpus) -> dict:
+    """(b)'s ranks start (their interpreters and CUDA contexts take most
+    of its time) while (a) runs in this process; returns (a)'s launches."""
+    print(f"phase 14: the sharded paths ({card})", flush=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        pair = pool.submit(parallel_gloo_pair, card)
+        launches = parallel_world_of_one(device, card, corpus)
+        pair.result()
+    print(f"  phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 LIBRARIES = ("attn_proj", "ln_mlp", "row_max", "window_attn", "swin_block", "extract_topk",
              "attn", "vit_block")
 # name -> (source, the TPU kernel it replaces, the phase-2 case reported)
@@ -4095,11 +4345,13 @@ def phase_took(n: int, t0: float) -> float:
 def main(argv=None) -> int:
     """With `--training-only`, phases 1, 8, 9 and 11 alone (the train
     steps' checks and measurements, the trainer's CLI); with `--zoo-only`,
-    phases 1 and 13 (on videos and a frame store drawn for it); neither
-    prints the result lines."""
+    phases 1 and 13 (on videos and a frame store drawn for it); with
+    `--parallel-only`, phases 1 and 14 (on a corpus drawn as phase 5's);
+    none prints the result lines."""
     args = sys.argv[1:] if argv is None else argv
     training_only = "--training-only" in args
     zoo_only = "--zoo-only" in args
+    parallel_only = "--parallel-only" in args
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 2
@@ -4130,7 +4382,8 @@ def main(argv=None) -> int:
           f"{torch.cuda.device_count()} device(s)", flush=True)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES) + 2) as pool:
-        host = None if training_only or zoo_only else pool.submit(prepare_host, device)
+        host = (None if training_only or zoo_only or parallel_only
+                else pool.submit(prepare_host, device))
         host_lib = pool.submit(timed_host_build)
         list(pool.map(build.library, LIBRARIES))
         built = time.perf_counter() - t0
@@ -4151,6 +4404,12 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as cli_root:
             videos = synth_videos(CLI_VIDEOS, 32, 360, 640)
             phase_13(device, card, wrappers, videos, timed_cli_corpus(cli_root, videos))
+        print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    if parallel_only:
+        sizes = EVAL_SIZES
+        phase_14(device, card, make_corpus(PAR_QUERY_VIDEOS, sizes["refs"], 0, sizes["frames"],
+                                           sizes["dim"], 0))
         print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
     if training_only:
@@ -4299,7 +4558,7 @@ def main(argv=None) -> int:
     print(f"phase 7: the matching track ({card})", flush=True)
     t0 = time.perf_counter()
     launches["extract_topk"] += run_matching(device, wrappers, card, corpus, stage1_vps)
-    del corpus
+    eval_corpus = corpus  # phase 14 searches it again
     torch.cuda.empty_cache()
     print(f"  phase 7 took {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -4317,6 +4576,8 @@ def main(argv=None) -> int:
         corpus = phase_11(device, card, vit_res["train_images_per_sec"], cli_root, videos)
         zoo_cases_by_kernel, zoo_launches = phase_13(device, card, wrappers, videos, corpus)
     del videos
+    par_launches = phase_14(device, card, eval_corpus)
+    del eval_corpus
 
     kernels = []
     check(all(launches[name] > 0 for name in KERNELS), f"a kernel never ran: {launches}")
@@ -4329,6 +4590,7 @@ def main(argv=None) -> int:
             library_ms=r["library_ms"], case=f"{tag} {dn}",
             launches_per_video=per_video.get(name, 0),
             zoo_launches=zoo_launches.get(name, 0),
+            parallel_launches={part: c.get(name, 0) for part, c in par_launches.items()},
             **{k: r[k] for k in ("products_cublas_ms", "ln_rows_ms", "routes", "loop")
                if k in r},
         ))

@@ -25,7 +25,9 @@ TF32 kept off while the global flag is on; and for the per-video path,
 OpenCV's resize and Canny arithmetic bit for bit as on the CPU, the tiny
 per-video `QueryPipeline` against the CPU, and the offline CLIs on the
 card by default; and the tiny ViT exported with `utils/export`, its program
-holding a K1 and a K2 op node per block and equal to the eager model).
+holding a K1 and a K2 op node per block and equal to the eager model; and
+for the multi-device layer, the sharded step and the sharded search in an
+NCCL world of one, bit for bit the unsharded ones).
 
 Needs a CUDA device; skips elsewhere. The shared conftest imports JAX,
 which the GPU host lacks, so run it there without it:
@@ -1382,3 +1384,71 @@ def test_exported_vit_runs_the_kernels(device, dtype, tmp_path):
     assert torch.equal(got, eager)
     with pytest.raises(ValueError):
         call(x[:2])
+
+
+@pytest.fixture
+def nccl_world_of_one(device):
+    """A world of one under NCCL on the card, and its (1, 1) mesh."""
+    import torch.distributed as dist
+
+    from vsc22_tpu_torch.parallel.distributed import initialize
+    from vsc22_tpu_torch.parallel.mesh import create_mesh
+
+    initialize(backend="nccl", world_size=1, rank=0, store=dist.HashStore(), device=device)
+    try:
+        yield create_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_step_in_a_world_of_one_is_the_unsharded_step(device, nccl_world_of_one):
+    """The tiny ViT's FGM step (drop-path 0.3 in its last block) through
+    the NCCL world of one: the gradients and loss of the unsharded step bit
+    for bit, K1 and K2 launched; one update through the sharded state."""
+    import dataclasses
+
+    from vsc22_tpu_torch.models import vit
+    from vsc22_tpu_torch.models.layers import reset_parameters
+    from vsc22_tpu_torch.train import contrastive as tc
+
+    model = vit.VitDescriptor(dataclasses.replace(vit.VIT_TINY_TEST, drop_path=0.3),
+                              head_dim=64, out_dim=16, device=device)
+    reset_parameters(model, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: randn(gen, (4, 64, 64, 3), 1.0, torch.float32, device) for k in ("img_a", "img_b")}
+    cfg = tc.ContrastiveConfig(fgm_epsilon=0.1, barlow_weight=0.5)
+    tx = tc.make_optimizer(cfg)
+    want_m, want = tc.make_train_step(model, tx, cfg).gradients(
+        batch, torch.Generator().manual_seed(2))
+    sharded = tc.make_train_step(model, tx, cfg, mesh=nccl_world_of_one)
+    attn_proj_residual.launches = ln_mlp_residual.launches = 0
+    got_m, got = sharded.gradients(batch, torch.Generator().manual_seed(2))
+    torch.cuda.synchronize()
+    # block 0 (drop-path 0) on the kernels in both FGM passes
+    assert attn_proj_residual.launches >= 2 and ln_mlp_residual.launches >= 2
+    assert float(got_m["loss"]) == float(want_m["loss"])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    state, _ = tc.create_train_state(model, cfg, mesh=nccl_world_of_one)
+    state, metrics = sharded(state, batch, torch.Generator().manual_seed(3))
+    assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
+    assert all(t.device.type == "cuda" for t in state.params.values())
+
+
+def test_sharded_search_in_a_world_of_one_is_the_one_device_search(device, nccl_world_of_one):
+    """B5 serves the shard (f16, 65,536 refs); row_topk and global_topk
+    equal the one-device searcher's."""
+    from vsc22_tpu_torch.retrieval.search import SimilaritySearcher
+
+    rng = np.random.default_rng(4)
+    refs = rng.standard_normal((65536, 128), dtype=np.float32)
+    refs /= np.linalg.norm(refs, axis=1, keepdims=True)
+    q = refs[:200] + rng.normal(0, 0.05, (200, 128)).astype(np.float32)
+    one = SimilaritySearcher(refs, device=device, transfer_dtype=np.float16)
+    extract_topk.launches = 0
+    shard = SimilaritySearcher(refs, device=device, transfer_dtype=np.float16,
+                               mesh=nccl_world_of_one)
+    got_rows, got_glob = shard.row_topk(q, 10), shard.global_topk(q, 3000)
+    assert extract_topk.launches >= 2
+    for got, want in ((got_rows, one.row_topk(q, 10)), (got_glob, one.global_topk(q, 3000))):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)

@@ -332,3 +332,42 @@ def test_zoo_modules_each_import_alone_without_jax():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
     for name in ZOO_MODULES:
         assert (ROOT / (name.replace(".", "/") + ".py")).is_file(), name
+
+
+PARALLEL_MODULES = (
+    "vsc22_tpu_torch.parallel",
+    "vsc22_tpu_torch.parallel.launcher",
+    "vsc22_tpu_torch.parallel.distributed",
+    "vsc22_tpu_torch.parallel.mesh",
+    "vsc22_tpu_torch.parallel.dryrun",
+)
+
+
+def test_parallel_modules_each_import_alone_without_jax():
+    """Each module of the multi-process layer, imported first in a fresh
+    interpreter: none loads JAX, the JAX package or pandas, none forms a
+    process group on import, and the package exports the JAX twin's five
+    names."""
+    code = (
+        "import sys, importlib\n"
+        f"for name in {PARALLEL_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "    bad = sorted(m for m in sys.modules if m in ('jax', 'vsc22_tpu', 'pandas')\n"
+        "                 or m.startswith(('jax.', 'flax', 'vsc22_tpu.', 'pandas.')))\n"
+        "    assert not bad, (name, bad)\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+        "p = sys.modules['vsc22_tpu_torch.parallel']\n"
+        "names = ('batch_sharding', 'create_mesh', 'infer_param_spec', 'param_shardings',\n"
+        "         'replicated')\n"
+        "assert all(callable(getattr(p, n)) for n in names)\n"
+        "assert callable(sys.modules['vsc22_tpu_torch.parallel.dryrun'].dryrun_multichip)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    for name in PARALLEL_MODULES:
+        path = ROOT / name.replace(".", "/")
+        assert path.with_suffix(".py").is_file() or (path / "__init__.py").is_file(), name

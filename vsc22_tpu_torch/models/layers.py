@@ -17,6 +17,7 @@ masks, as JAX's passes reuse one `rng`.
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -122,10 +123,19 @@ class DropRng:
     tensor's own device, from a generator there seeded with the step's
     seed, as `uniform < keep` (JAX's `bernoulli`), and kept under its key
     (the module and a tag): the FGM pass and a block recomputed under
-    `torch.utils.checkpoint` get the first pass's masks."""
+    `torch.utils.checkpoint` get the first pass's masks.
 
-    def __init__(self, generator: torch.Generator):
+    A rank of a data-parallel step passes `rows`, the global batch's
+    sample index of each of its samples, and `total`, the global batch's
+    sample count: each mask is then drawn for the whole global batch (a
+    leading dim of `total` times the rows a sample spans, such as its
+    windows) and the rank takes its samples' rows of it, so the masks do
+    not depend on the world size (JAX's keys are sharding-invariant)."""
+
+    def __init__(self, generator: torch.Generator, rows: Optional[torch.Tensor] = None,
+                 total: Optional[int] = None):
         self.seed = int(torch.randint(2**62, (), generator=generator))
+        self.rows, self.total = rows, total
         self._generators: dict = {}
         self._masks: dict = {}
 
@@ -137,7 +147,16 @@ class DropRng:
             if gen is None:
                 gen = torch.Generator(device).manual_seed(self.seed)
                 self._generators[device] = gen
-            mask = torch.rand(shape, generator=gen, device=device) < keep
+            if self.rows is None:
+                mask = torch.rand(shape, generator=gen, device=device) < keep
+            else:
+                per, left = divmod(shape[0], len(self.rows))
+                if left:
+                    raise ValueError(f"a leading dim of {shape[0]} over {len(self.rows)} samples")
+                whole = torch.rand((self.total * per,) + tuple(shape[1:]), generator=gen,
+                                   device=device) < keep
+                at = self.rows.to(device)[:, None] * per + torch.arange(per, device=device)
+                mask = whole[at.reshape(-1)]
             self._masks[key] = mask
         return mask
 

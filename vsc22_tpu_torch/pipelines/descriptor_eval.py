@@ -4,7 +4,8 @@ Counterpart of `vsc22_tpu/pipelines/descriptor_eval.py`: retrieve 1200 hits
 per query through the exact global budget, keep the top 25 candidates per
 query, TN-localize the top 5 per query, write candidates.csv and
 matches.csv, and score candidate µAP and segment AP against a ground truth.
-The search runs on `device`, the card unless the caller names another.
+The search runs on `device`, the card unless the caller names another,
+row-sharded over `mesh` (`parallel/mesh.Mesh`) where given.
 
 Usage:
   python -m vsc22_tpu_torch.pipelines.descriptor_eval \\
@@ -48,6 +49,7 @@ def search(
     candidates_per_query: float = 25.0,
     device="cuda",
     transfer_dtype=np.float16,
+    mesh=None,
 ) -> List[CandidatePair]:
     """Global-k budget retrieval, truncated to top candidates_per_query * |Q|.
 
@@ -56,7 +58,7 @@ def search(
     is still exact over the shipped values. np.float32 keeps f32 scores.
     """
     cg = CandidateGeneration(
-        refs, MaxScoreAggregation(), device=device, transfer_dtype=transfer_dtype
+        refs, MaxScoreAggregation(), device=device, transfer_dtype=transfer_dtype, mesh=mesh
     )
     num_to_retrieve = int(retrieve_per_query * len(queries))
     return cg.query(queries, global_k=num_to_retrieve,
@@ -121,6 +123,7 @@ def run(
     device="cuda",
     plots: bool = False,
     concurrency: int = 0,
+    mesh=None,
 ) -> EvalResult:
     device = resolve(device)
     queries = load_features(query_features, Dataset.QUERIES)
@@ -137,7 +140,7 @@ def run(
         store_features(os.path.join(output_path, "sn_refs.npz"), refs)
 
     os.makedirs(output_path, exist_ok=True)
-    candidates = search(queries, refs, device=device)
+    candidates = search(queries, refs, device=device, mesh=mesh)
     candidate_file = os.path.join(output_path, "candidates.csv")
     CandidatePair.write_csv(candidates, candidate_file)
 

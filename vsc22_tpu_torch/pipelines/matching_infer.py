@@ -55,18 +55,20 @@ def recall_candidates(
     sn_refs: List[VideoFeature],
     threshold: float = SEARCH_THRESHOLD,
     device="cuda",
+    mesh=None,
 ) -> List[Tuple[str, str, float]]:
     """Stage 3: every (query, ref) video pair with any frame sim > threshold,
     scored by its max frame similarity, sorted descending (stably).
 
-    Up to DENSE_PAIR_LIMIT pairs, the [|Q|, |R|] matrix of per-pair maxima
-    comes from the products and two segment-max passes on the device
-    (`video_pair_max_scores`); past it, the per-frame hit list of the exact
-    threshold search is aggregated on the host."""
+    Up to DENSE_PAIR_LIMIT pairs on one device, the [|Q|, |R|] matrix of
+    per-pair maxima comes from the products and two segment-max passes on
+    the device (`video_pair_max_scores`); past it, or with a `mesh` (the
+    refs row-sharded), the per-frame hit list of the exact threshold search
+    is aggregated on the host."""
     packed_refs = PackedFeatures.from_video_features(sn_refs)
     packed_q = PackedFeatures.from_video_features(sn_queries)
     vq, vr = len(packed_q.video_ids), len(packed_refs.video_ids)
-    if vq * vr <= DENSE_PAIR_LIMIT:
+    if mesh is None and vq * vr <= DENSE_PAIR_LIMIT:
         mat = video_pair_max_scores(
             packed_q.features, packed_q.video_idx,
             packed_refs.features, packed_refs.video_idx, vq, vr, device=device,
@@ -78,7 +80,8 @@ def recall_candidates(
             (packed_q.video_ids[int(qi[o])], packed_refs.video_ids[int(ri[o])], float(s[o]))
             for o in order
         ]
-    searcher = SimilaritySearcher(packed_refs.features[: packed_refs.num_rows], device=device)
+    searcher = SimilaritySearcher(packed_refs.features[: packed_refs.num_rows], device=device,
+                                  mesh=mesh)
     rows, cols, scores = searcher.threshold_search(
         packed_q.features[: packed_q.num_rows], threshold
     )
@@ -236,6 +239,7 @@ def matching_inference(
     timer=None,
     use_device_sims: bool = None,
     device="cuda",
+    mesh=None,
 ) -> List[List]:
     """Stages 3-6. Returns match rows
     [query_id, ref_id, query_start, query_end, ref_start, ref_end, score].
@@ -247,13 +251,14 @@ def matching_inference(
     wrap the stages `recall`, `pack_descriptors`, `classify_simmats`,
     `classify_predict`, `refine` and `decode`. The sim images are built on
     `device` unless `use_device_sims` is False or a query has more than
-    `simmat.MAX_SEGS` FSD segments (then on the host, as in JAX).
+    `simmat.MAX_SEGS` FSD segments (then on the host, as in JAX). `mesh`
+    row-shards recall's refs (`recall_candidates`).
     """
     device = resolve(device)
     stage = timer.stage if timer is not None else (lambda _: contextlib.nullcontext())
 
     with stage("recall"):
-        candidates = recall_candidates(sn_queries, sn_refs, device=device)
+        candidates = recall_candidates(sn_queries, sn_refs, device=device, mesh=mesh)
         if max_candidates is not None:
             candidates = candidates[:max_candidates]
 

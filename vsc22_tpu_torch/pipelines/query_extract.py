@@ -10,7 +10,9 @@ maps, or the 8-round device maps with `use_device_fsd_maps`) and
 each member's resize (`transforms.resize_normalize_frames`, OpenCV's cubic
 arithmetic) run there. Each member runs LEN_THRESHOLD-frame chunks; the
 last chunk runs unpadded (the JAX version zero-pads it to a fixed shape for
-its compiler; each frame's output is the same either way).
+its compiler; each frame's output is the same either way). With a `mesh`
+(`parallel/mesh.Mesh`) a `DescriptorExtractor` shards each chunk's frames
+over the data axis.
 """
 
 from __future__ import annotations
@@ -94,16 +96,28 @@ def frames_to_device(frames: Sequence, device) -> List[torch.Tensor]:
 
 @dataclasses.dataclass
 class DescriptorExtractor:
-    """One ensemble member: a model on `device` + its input size and preset."""
+    """One ensemble member: a model on `device` + its input size and preset.
+
+    With a `mesh`, the frame axis of each chunk is sharded over the mesh's
+    ``data`` axis (the JAX extractor's sequence parallelism): the chunk is
+    rounded up to a multiple of the axis, each rank runs its contiguous
+    slice of the chunk's frames (the last chunk zero-padded to a multiple
+    of the axis where it must be) and the features are all-gathered in
+    frame order, so every rank, given the same frames, returns the whole
+    [n, D]."""
 
     model: nn.Module
     size: int
     preset: str = "vit"
     chunk: int = LEN_THRESHOLD
     device: object = "cuda"
+    mesh: object = None
 
     def __post_init__(self):
         self.device = resolve(self.device)
+        if self.mesh is not None:
+            dp = self.mesh.shape["data"]
+            self.chunk = -(-self.chunk // dp) * dp
 
     @torch.inference_mode()
     def extract(self, frames: Sequence) -> np.ndarray:
@@ -114,7 +128,20 @@ class DescriptorExtractor:
             resize_normalize_frames(torch.stack(frames[lo:hi]), self.size, self.preset)
             for lo, hi in _shape_runs(frames)
         ])
-        return _chunked(self.model, resized, self.chunk).float().cpu().numpy()
+        if self.mesh is None:
+            return _chunked(self.model, resized, self.chunk).float().cpu().numpy()
+        return torch.cat([self._sharded_chunk(resized[s : s + self.chunk])
+                          for s in range(0, resized.shape[0], self.chunk)]).float().cpu().numpy()
+
+    def _sharded_chunk(self, images: torch.Tensor) -> torch.Tensor:
+        """The member over one chunk, each rank on its slice of the frames."""
+        dp, at = self.mesh.shape["data"], self.mesh.index("data")
+        n = images.shape[0]
+        per = -(-n // dp)
+        if per * dp > n:
+            images = torch.cat([images, images.new_zeros((per * dp - n,) + images.shape[1:])])
+        mine = self.model(images[at * per : (at + 1) * per])
+        return torch.cat(self.mesh.all_gather(mine, "data"))[:n]
 
 
 @dataclasses.dataclass

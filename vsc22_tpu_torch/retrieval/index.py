@@ -4,7 +4,7 @@ Counterpart of `vsc22_tpu/retrieval/index.py`. A positive ``global_k`` runs
 the VSC-rules "global score budget" search (exact global top-k over all
 query-frame x ref-frame pairs); a negative ``global_k`` runs plain
 per-frame k-NN with k = -global_k. The searcher lives on `device`, the card
-unless the caller names another.
+unless the caller names another, row-sharded over `mesh` where given.
 """
 
 from __future__ import annotations
@@ -23,9 +23,10 @@ from vsc22_tpu_torch.retrieval.search import SimilaritySearcher
 class VideoIndex:
     """Inner-product index over per-frame descriptors of many videos."""
 
-    def __init__(self, dim: int, device="cuda", transfer_dtype=None):
+    def __init__(self, dim: int, device="cuda", transfer_dtype=None, mesh=None):
         self.dim = dim
         self.device = device
+        self.mesh = mesh
         self.transfer_dtype = transfer_dtype  # None -> searcher default (f32)
         self._videos: List[VideoFeature] = []
         self._packed: Optional[PackedFeatures] = None
@@ -48,7 +49,8 @@ class VideoIndex:
             if self.transfer_dtype is not None:
                 kw["transfer_dtype"] = self.transfer_dtype
             self._searcher = SimilaritySearcher(
-                self._packed.features[: self._packed.num_rows], device=self.device, **kw
+                self._packed.features[: self._packed.num_rows], device=self.device,
+                mesh=self.mesh, **kw
             )
         return self._packed, self._searcher
 
@@ -149,10 +151,11 @@ class CandidateGeneration:
         aggregation: ScoreAggregation,
         device="cuda",
         transfer_dtype=None,
+        mesh=None,
     ):
         self.aggregation = aggregation
         self.index = VideoIndex(
-            references[0].dimensions(), device=device, transfer_dtype=transfer_dtype
+            references[0].dimensions(), device=device, transfer_dtype=transfer_dtype, mesh=mesh
         )
         self.index.add(references)
 

@@ -6,7 +6,9 @@ to the noise corpus), references a constant-1 extra dimension, so a plain
 inner product realizes sim(q, r) + bias(q). Before that the noise corpus's
 minimum-variance dimension is deleted and rows are re-L2-normalized. nk=1
 runs kernel K3 (`ops/sim.py`) on `device`; nk > 1 one batched `row_topk`
-of the searcher (`retrieval/search.py`) over every frame.
+of the searcher (`retrieval/search.py`) over every frame. With a `mesh`
+(`parallel/mesh.Mesh`) the noise corpus is row-sharded over its data axis
+and the searcher serves nk 1 too (K3 is off that path, as in JAX).
 """
 
 from __future__ import annotations
@@ -105,12 +107,17 @@ def _noise_bias(
     beta: float,
     nk: int,
     device,
+    mesh=None,
 ) -> np.ndarray:
     """Packed per-query-frame bias [sum(N_i), 1] =
-    -beta * mean(top-nk sims to the noise corpus): K3 for nk=1, else one
-    batched top-k over every video's frames."""
+    -beta * mean(top-nk sims to the noise corpus): K3 for nk=1 on one
+    device, else one batched top-k over every video's frames (the sharded
+    searcher, uncached, under a mesh)."""
     noise = np.concatenate([r.feature for r in score_norm_refs], axis=0)
     all_q = np.concatenate([q.feature for q in queries], axis=0)
+    if mesh is not None:
+        sims, _ = SimilaritySearcher(noise, device=device, mesh=mesh).row_topk(all_q, nk)
+        return -beta * sims.mean(axis=1, keepdims=True)
     if nk == 1:
         sims = row_max_gemm(
             torch.from_numpy(np.ascontiguousarray(all_q)).to(device),
@@ -138,9 +145,11 @@ def score_normalize(
     beta: float = 1.0,
     nk: int = 1,
     device="cuda",
+    mesh=None,
 ) -> Tuple[List[VideoFeature], List[VideoFeature]]:
     """Normalize queries and refs together against a noise corpus; the
-    noise search runs on `device` (the card unless the caller says otherwise)."""
+    noise search runs on `device` (the card unless the caller says
+    otherwise), sharded over `mesh` where given."""
     device = resolve(device)
     _check_disjoint(refs, score_norm_refs)
     low_var_dim = (
@@ -150,7 +159,7 @@ def score_normalize(
     )
     score_norm_refs = _prepare(score_norm_refs, low_var_dim, l2_normalize)
     queries = _prepare(queries, low_var_dim, l2_normalize)
-    bias = _noise_bias(queries, score_norm_refs, beta, nk, device)
+    bias = _noise_bias(queries, score_norm_refs, beta, nk, device, mesh)
     adapted_queries = _prepare(queries, None, False, append=bias)
     n_ref_rows = sum(len(r.feature) for r in refs)
     ones = np.ones((n_ref_rows, 1), refs[0].feature.dtype if refs else np.float32)
@@ -169,15 +178,17 @@ def query_score_normalize(
     beta: float = 1.0,
     nk: int = 1,
     device="cuda",
+    mesh=None,
 ) -> List[VideoFeature]:
     """Query-side normalization with VED gating: queries whose video score
     is under `score_threshold` get bias -100. The noise search runs on
-    `device` (the card unless the caller says otherwise)."""
+    `device` (the card unless the caller says otherwise), sharded over
+    `mesh` where given."""
     device = resolve(device)
     dim = low_var_dim if score_norm_refs is not None and replace_dim else None
     queries = _prepare(queries, dim, l2_normalize)
     score_norm_refs = _prepare(score_norm_refs, dim, l2_normalize)
-    bias = _noise_bias(queries, score_norm_refs, beta, nk, device)
+    bias = _noise_bias(queries, score_norm_refs, beta, nk, device, mesh)
     if video_scores is not None:
         gated = np.repeat(
             np.fromiter(

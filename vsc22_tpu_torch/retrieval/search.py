@@ -22,9 +22,22 @@ is `_row_topk_fast`, the same function at (REF_TILE, EXTRACT_E) in plain
 torch, as it is XLA in JAX. On a CUDA device where the rule holds, B5
 runs or the call raises: nothing falls back.
 
+Multi-device (`mesh=`, `parallel/mesh.Mesh`): every rank holds its rows
+of the corpus along the mesh's data axis, padded to `shard_rows =
+round_up(n, nd * 128) / nd` as the JAX searcher pads them; each rank scans
+its shard, its local winners are all-gathered and every rank re-reduces
+them alike to the global top-k (a stable sort: equal scores keep the
+shard order, as `lax.top_k` keeps it), so every rank returns the same
+result. On the fast scans the truncation bounds are max-reduced over the
+ranks before the suspect rows are picked, and suspects are rescanned
+through the exact sharded path. B5 serves each shard where the dispatch
+rule holds on the shard's rows. The JAX searcher switches its fused
+kernel off under a mesh and runs the XLA form of the same extraction
+there; both give the same exact top-k, so the port keeps its hand kernel
+on the sharded path.
+
 The port is exact only: the JAX options `use_approx` (`lax.approx_max_k`)
-and `compute_dtype` (bf16 products) are not ported, and the row-sharded
-multi-device search waits for the multi-GPU port.
+and `compute_dtype` (bf16 products) are not ported.
 """
 
 from __future__ import annotations
@@ -119,20 +132,34 @@ def _row_topk_fast(queries, refs, num_valid: int, k: int, ref_tile: int, e: int)
 
 class SimilaritySearcher:
     """Reusable searcher over a fixed reference matrix held on `device`
-    (the card unless the caller names another)."""
+    (the card unless the caller names another): whole, or with a `mesh`,
+    this rank's rows along `mesh_axis`."""
 
-    def __init__(self, refs: np.ndarray, device="cuda", transfer_dtype=np.float32):
+    def __init__(self, refs: np.ndarray, device="cuda", transfer_dtype=np.float32, mesh=None,
+                 mesh_axis: str = "data"):
         self.device = resolve(device)
         self.num_refs = int(refs.shape[0])
         self.dim = int(refs.shape[1])
         self.transfer_dtype = np.dtype(transfer_dtype)
         if self.transfer_dtype not in (np.float16, np.float32):
             raise TypeError(f"transfer_dtype {self.transfer_dtype}: float16 or float32")
+        self.mesh, self.mesh_axis = mesh, mesh_axis
         # transfer_dtype=np.float16 halves the corpus on the device; the
         # products are still f32 of the shipped values.
-        self.ref_tile = self._pick_tile(_round_up(max(self.num_refs, 1), 128), REF_TILE)
+        if mesh is None:
+            self.base, self.local_valid = 0, self.num_refs
+            self.shard_rows = _round_up(max(self.num_refs, 1), 128)
+            rows = refs
+        else:
+            nd = mesh.shape[mesh_axis]
+            self.shard_rows = _round_up(max(self.num_refs, 1), nd * 128) // nd
+            self.base = mesh.index(mesh_axis) * self.shard_rows
+            self.local_valid = min(max(self.num_refs - self.base, 0), self.shard_rows)
+            rows = np.zeros((self.shard_rows, self.dim), self.transfer_dtype)
+            rows[: self.local_valid] = refs[self.base : self.base + self.local_valid]
+        self.ref_tile = self._pick_tile(self.shard_rows, REF_TILE)
         self.refs = torch.from_numpy(
-            np.ascontiguousarray(refs, dtype=self.transfer_dtype)).to(self.device)
+            np.ascontiguousarray(rows, dtype=self.transfer_dtype)).to(self.device)
 
     @staticmethod
     def _pick_tile(rows: int, want: int) -> int:
@@ -142,10 +169,12 @@ class SimilaritySearcher:
     # ------------------------------------------------------------------
     def _fused_active(self, k_pad: int) -> bool:
         """Whether B5 serves this row_topk call: the JAX rule without its
-        TPU-only terms (backend, lane width, bf16-split footprint)."""
-        if EXTRACT_E <= 0 or self.num_refs < B5_MIN_REFS:
+        TPU-only terms (backend, lane width, bf16-split footprint), on the
+        rows this device scans (a mesh's shard: the same on every rank)."""
+        rows = self.num_refs if self.mesh is None else self.shard_rows
+        if EXTRACT_E <= 0 or rows < B5_MIN_REFS:
             return False
-        nb = _round_up(self.num_refs, B5_TILE_R) // B5_TILE_R
+        nb = _round_up(rows, B5_TILE_R) // B5_TILE_R
         # With e=4 per block, rows seeking k comparable to nb*e would fail
         # the certificate almost surely and rescan; 8x headroom keeps the
         # flag rate negligible for the global-budget searches.
@@ -165,30 +194,24 @@ class SimilaritySearcher:
         reaches their k-th score, or whose k-th slot holds no real
         candidate, are rescanned through the exact per-tile path, all
         query tiles' together (the JAX searcher rescans tile by tile; the
-        rows come out the same)."""
+        rows come out the same). With a mesh every rank passes the same
+        queries and gets the same result."""
         nq = queries.shape[0]
         k_eff = max(1, min(k, self.num_refs))
         # k rounded up to a power of two, as the JAX searcher runs it: the
         # B5 rule and the fast-scan gate read this width.
         k_pad = 1 << (k_eff - 1).bit_length()
         use_fused = self._fused_active(k_pad)
-        num_tiles = max(_round_up(max(self.num_refs, 1), 128) // self.ref_tile, 1)
+        num_tiles = max(self.shard_rows // self.ref_tile, 1)
         # the fast scan can surface at most e * num_tiles entries per row
+        # (per shard, when sharded: each shard contributes its own k)
         use_fast = EXTRACT_E > 0 and EXTRACT_E * num_tiles >= 2 * k_pad
         out_s = np.empty((nq, k_eff), np.float32)
         out_i = np.empty((nq, k_eff), np.int32)
         suspects = [np.zeros(0, np.int64)]
         for start in range(0, nq, QUERY_TILE):
-            q = self._to_device(queries[start : start + QUERY_TILE])
-            if use_fused:
-                s, i, bound = topk.extract_topk(
-                    q, self.refs, self.num_refs, e=B5_E, tile_r=B5_TILE_R, k=k_pad)
-            elif use_fast:
-                s, i, bound = _row_topk_fast(q, self.refs, self.num_refs, k_pad, self.ref_tile,
-                                             EXTRACT_E)
-            else:
-                s, i = _row_topk_exact(q, self.refs, self.num_refs, k_pad, self.ref_tile)
-                bound = None
+            s, i, bound = self._scan(queries[start : start + QUERY_TILE], k_pad, use_fused,
+                                     use_fast)
             s = s[:, :k_eff].cpu().numpy()
             i = i[:, :k_eff].cpu().numpy().astype(np.int32)
             if bound is not None:
@@ -201,11 +224,42 @@ class SimilaritySearcher:
         suspect = np.concatenate(suspects)
         for start in range(0, suspect.size, QUERY_TILE):
             rows = suspect[start : start + QUERY_TILE]
-            es, ei = _row_topk_exact(self._to_device(queries[rows]), self.refs, self.num_refs,
-                                     k_pad, self.ref_tile)
+            es, ei, _ = self._scan(queries[rows], k_pad, False, False)
             out_s[rows] = es[:, :k_eff].cpu().numpy()
             out_i[rows] = ei[:, :k_eff].cpu().numpy()
         return out_s, out_i
+
+    def _scan(self, rows: np.ndarray, k_pad: int, use_fused: bool, use_fast: bool):
+        """(scores [Tq, k_pad], indices [Tq, k_pad] int64, bound [Tq] or None
+        on the exact path) of one query tile over the corpus: B5, the fast
+        scan or the exact path over this device's rows, merged over the
+        mesh where there is one."""
+        q = self._to_device(rows)
+        if use_fused:
+            s, i, bound = topk.extract_topk(q, self.refs, self.local_valid, e=B5_E,
+                                            tile_r=B5_TILE_R, k=k_pad)
+        elif use_fast:
+            s, i, bound = _row_topk_fast(q, self.refs, self.local_valid, k_pad, self.ref_tile,
+                                         EXTRACT_E)
+        else:
+            s, i = _row_topk_exact(q, self.refs, self.local_valid, k_pad, self.ref_tile)
+            bound = None
+        i = i.long()
+        if self.mesh is None:
+            return s, i, bound
+        # Every rank's winners, re-reduced alike on every rank: a stable
+        # sort keeps equal scores in shard order, then column order.
+        axis = self.mesh_axis
+        s_all = torch.cat(self.mesh.all_gather(s.contiguous(), axis), dim=1)
+        i_all = torch.cat(self.mesh.all_gather(i + self.base, axis), dim=1)
+        s, pos = torch.sort(s_all, dim=1, descending=True, stable=True)
+        i = torch.gather(i_all, 1, pos[:, :k_pad])
+        if bound is not None:
+            # An unseen entry on any shard is bounded by that shard's bound,
+            # and the merged k-th is no lower than any shard's k-th, so the
+            # max over shards certifies the merged result.
+            bound = self.mesh.all_reduce_(bound.contiguous(), axis, "max")
+        return s[:, :k_pad], i, bound
 
     # ------------------------------------------------------------------
     def global_topk(
@@ -302,17 +356,17 @@ class SimilaritySearcher:
 
 
 def knn_search(
-    queries: np.ndarray, refs: np.ndarray, k: int, device="cuda"
+    queries: np.ndarray, refs: np.ndarray, k: int, device="cuda", mesh=None
 ) -> Tuple[np.ndarray, np.ndarray]:
     """One-shot per-row k-NN (inner product). See `SimilaritySearcher.row_topk`."""
-    return SimilaritySearcher(refs, device=device).row_topk(queries, k)
+    return SimilaritySearcher(refs, device=device, mesh=mesh).row_topk(queries, k)
 
 
 def global_topk_search(
-    queries: np.ndarray, refs: np.ndarray, global_k: int, device="cuda"
+    queries: np.ndarray, refs: np.ndarray, global_k: int, device="cuda", mesh=None
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """One-shot exact global top-k search. See `SimilaritySearcher.global_topk`."""
-    return SimilaritySearcher(refs, device=device).global_topk(queries, global_k)
+    return SimilaritySearcher(refs, device=device, mesh=mesh).global_topk(queries, global_k)
 
 
 def video_pair_max_scores(

@@ -4,7 +4,8 @@ Counterpart of `vsc22_tpu/train/checkpoint.py`. `CheckpointManager` keeps
 the last `max_to_keep` train states under one directory with
 `torch.save`: the step, the f32 master parameters, the Adam moments and
 count, the EMA, and the state of the generator that draws the dropout
-masks, so that a resumed run goes on bit for bit as an unbroken one.
+masks (of each rank's, in a multi-process run), so that a resumed run goes
+on bit for bit as an unbroken one.
 
 Snapshots are the JAX package's npz files: `save_ema_snapshot` writes the
 EMA (or the parameters) under the flat `/`-joined keys and in the layouts
@@ -27,6 +28,7 @@ import torch
 
 from vsc22_tpu_torch.train.contrastive import AdamState, TrainState
 from vsc22_tpu_torch.utils import jax_params
+from vsc22_tpu_torch.utils.observability import rank
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -50,18 +52,22 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state: TrainState,
-             generator: Optional[torch.Generator] = None) -> None:
-        """Write `state` (and `generator`'s state) as step `step`, then drop
-        the oldest files past `max_to_keep`. The file appears whole or not
-        at all."""
+    def save(self, step: int, state: TrainState, generator=None) -> None:
+        """Write `state` (and `generator`'s state: a `torch.Generator`, or
+        every rank's generator state in rank order) as step `step`, then
+        drop the oldest files past `max_to_keep`. The file appears whole or
+        not at all."""
+        if isinstance(generator, torch.Generator):
+            generator = generator.get_state()
+        elif generator is not None:
+            generator = torch.stack(list(generator))
         blob = {
             "step": state.step,
             "params": state.params,
             "opt": {"count": state.opt_state.count, "mu": state.opt_state.mu,
                     "nu": state.opt_state.nu},
             "ema_params": state.ema_params,
-            "generator": None if generator is None else generator.get_state(),
+            "generator": generator,
         }
         path = self._path(step)
         tmp = f"{path}.{os.getpid()}.tmp"
@@ -74,7 +80,8 @@ class CheckpointManager:
                 generator: Optional[torch.Generator] = None) -> TrainState:
         """The state saved at `step` (the latest unless given), each tensor
         on its template tensor's device; `generator`, where given, is set
-        to the saved generator state."""
+        to the saved generator state (this process's rank's, where the file
+        holds every rank's)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
@@ -95,7 +102,9 @@ class CheckpointManager:
         if blob["ema_params"] is not None:
             ema = place(blob["ema_params"], state_template.ema_params or state_template.params)
         if generator is not None and blob["generator"] is not None:
-            generator.set_state(blob["generator"])
+            saved = blob["generator"]
+            # a row of the stacked states is a view: set_state takes a tensor of its own
+            generator.set_state(saved if saved.ndim == 1 else saved[rank()].clone())
         return TrainState(blob["step"], place(blob["params"], state_template.params), opt, ema)
 
 

@@ -17,6 +17,21 @@ into the model, rounded to each parameter's dtype (JAX's cast at use).
 The step runs where the model and the batch are: on the card for the
 Base builders, on the CPU when the caller builds there. It updates the
 state in place and returns it, as the JAX step donates its state.
+
+With a `mesh` (`parallel/mesh.Mesh`) each rank passes its rows of the
+global batch (`parallel.batch_sharding`; ranks of one model column pass
+the same rows) and the step is the one-rank step on the global batch, as
+the JAX step is under its sharding: the embeddings are gathered over the
+data axis (`Mesh.gather_rows`) so that every loss, Barlow's moments too,
+is over the global batch; FGM's input-gradient norms are global; the
+dropout and DropPath masks are drawn for the global batch
+(`layers.DropRng` rows); the summed gradients are all-reduced over the
+data axis. On the model axis each rank keeps only its `param_shardings`
+block of the f32 masters, the Adam moments and the EMA (`ModelShards`),
+updates it from the reduced gradient (clipped by the global norm: every
+rank holds the whole reduced gradient) and gathers the whole working
+weights back into the model, because the hand kernels take whole
+weights. `TrainState.whole()` gathers a whole state for a checkpoint.
 """
 
 from __future__ import annotations
@@ -30,6 +45,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from vsc22_tpu_torch.models.layers import DropRng, l2_normalize
+from vsc22_tpu_torch.parallel.mesh import param_shardings
 
 NEG_LARGE = -10000.0
 
@@ -178,9 +194,10 @@ class AdamW:
 
     @torch.no_grad()
     def apply(self, grads: List[torch.Tensor], state: AdamState,
-              params: List[torch.Tensor]) -> None:
-        """One update of `params`, `state.mu` and `state.nu`, in place."""
-        if self.clip_grad_norm is not None:
+              params: List[torch.Tensor], clip: bool = True) -> None:
+        """One update of `params`, `state.mu` and `state.nu`, in place;
+        `clip=False` where the caller clipped the whole gradient already."""
+        if clip and self.clip_grad_norm is not None:
             grads = clip_by_global_norm(grads, self.clip_grad_norm)
         b1, b2 = self.b1, self.b2
         torch._foreach_mul_(state.mu, b1)
@@ -211,20 +228,62 @@ def make_optimizer(cfg: ContrastiveConfig) -> AdamW:
 
 
 @dataclasses.dataclass
+class ModelShards:
+    """The block of each parameter a rank keeps on the mesh's model axis:
+    `specs` by parameter name, from `parallel.param_shardings`."""
+
+    mesh: object
+    specs: Dict[str, tuple]
+
+    def take(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        return self.mesh.take_shard(t, self.specs[name]).clone()
+
+    def gather(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        return self.mesh.gather_shard(t, self.specs[name])
+
+
+@dataclasses.dataclass
 class TrainState:
     """`step`; f32 master `params`, the optimizer state and the f32 EMA
     (None when EMA is off), each keyed or ordered by the model's
-    `named_parameters()`."""
+    `named_parameters()`. Under a mesh `shards` says which block of each
+    tensor this rank holds (None: whole tensors)."""
 
     step: int
     params: Dict[str, torch.Tensor]
     opt_state: AdamState
     ema_params: Optional[Dict[str, torch.Tensor]]
+    shards: Optional[ModelShards] = None
+
+    def _map(self, fn) -> "TrainState":
+        names = list(self.params)
+        opt = AdamState(self.opt_state.count,
+                        [fn(n, t) for n, t in zip(names, self.opt_state.mu)],
+                        [fn(n, t) for n, t in zip(names, self.opt_state.nu)])
+        ema = None if self.ema_params is None else {n: fn(n, t)
+                                                    for n, t in self.ema_params.items()}
+        return TrainState(self.step, {n: fn(n, t) for n, t in self.params.items()}, opt, ema)
 
     @torch.no_grad()
-    def apply_gradients(self, tx: AdamW, grads: List[torch.Tensor], ema_decay: float):
+    def whole(self) -> "TrainState":
+        """The whole state (a collective on the model axis: every rank
+        calls it), as a checkpoint holds it; `self` where it is whole."""
+        return self if self.shards is None else self._map(self.shards.gather)
+
+    @torch.no_grad()
+    def take_shards(self, whole: "TrainState") -> "TrainState":
+        """This state's blocks of a whole state (a restored checkpoint)."""
+        if self.shards is None:
+            return whole
+        state = whole._map(self.shards.take)
+        state.shards = self.shards
+        return state
+
+    @torch.no_grad()
+    def apply_gradients(self, tx: AdamW, grads: List[torch.Tensor], ema_decay: float,
+                        clip: bool = True):
         params = list(self.params.values())
-        tx.apply(grads, self.opt_state, params)
+        tx.apply(grads, self.opt_state, params, clip)
         if self.ema_params is not None:
             ema = list(self.ema_params.values())
             torch._foreach_mul_(ema, ema_decay)
@@ -234,18 +293,22 @@ class TrainState:
 
 
 @torch.no_grad()
-def load_masters(model, params: Dict[str, torch.Tensor]) -> None:
+def load_masters(model, params: Dict[str, torch.Tensor],
+                 shards: Optional[ModelShards] = None) -> None:
     """Write f32 masters into the model's parameters, each rounded to its
-    parameter's dtype."""
+    parameter's dtype; blocks under `shards` are gathered whole first."""
     for name, p in model.named_parameters():
-        p.copy_(params[name])
+        p.copy_(params[name] if shards is None else shards.gather(name, params[name]))
 
 
-def create_train_state(model, cfg: ContrastiveConfig, params=None, tx: Optional[AdamW] = None):
+def create_train_state(model, cfg: ContrastiveConfig, params=None, tx: Optional[AdamW] = None,
+                       mesh=None):
     """(state, optimizer) for `model`: f32 masters from `params` (a dict of
     tensors or arrays by parameter name, loaded into the model too) or from
     the model's own parameters, zero moments, and an EMA copy when
-    `cfg.ema_decay` is set."""
+    `cfg.ema_decay` is set. Under a `mesh` the state holds this rank's
+    model-axis blocks (every rank passes the same weights, as every JAX
+    host inits from one key)."""
     tx = tx or make_optimizer(cfg)
     masters = {}
     for name, p in model.named_parameters():
@@ -255,8 +318,12 @@ def create_train_state(model, cfg: ContrastiveConfig, params=None, tx: Optional[
         masters[name] = src.detach().to(device=p.device, dtype=torch.float32).clone()
     if params is not None:
         load_masters(model, masters)
+    shards = None
+    if mesh is not None:
+        shards = ModelShards(mesh, param_shardings(mesh, masters))
+        masters = {name: shards.take(name, t) for name, t in masters.items()}
     ema = {k: v.clone() for k, v in masters.items()} if cfg.ema_decay is not None else None
-    state = TrainState(0, masters, tx.init(list(masters.values())), ema)
+    state = TrainState(0, masters, tx.init(list(masters.values())), ema, shards)
     return state, tx
 
 
@@ -268,13 +335,40 @@ def _grads(loss, wrt):
     return torch.autograd.grad(loss, wrt, allow_unused=True, materialize_grads=True)
 
 
-def make_train_step(model, tx: AdamW, cfg: ContrastiveConfig):
+def batch_rows(mesh, local: int, views: int = 1) -> torch.Tensor:
+    """The global batch's sample index of each of a rank's `views * local`
+    samples: its `local` rows of each of `views` stacked global batches of
+    `local * data-axis` rows (the step's `[a; b]` is two)."""
+    nd, at = mesh.shape["data"], mesh.index("data")
+    own = torch.arange(local) + at * local
+    return torch.cat([own + v * nd * local for v in range(views)])
+
+
+def reduce_gradients(mesh, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    """f32 gradients summed over the mesh's data axis, in one collective."""
+    flat = mesh.all_reduce_(torch.cat([g.reshape(-1) for g in grads]), "data")
+    return [part.view_as(g) for part, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
+def _global_norm(mesh, g: torch.Tensor) -> torch.Tensor:
+    """The L2 norm of a tensor whose rows are split over the data axis:
+    the norm of the ranks' norms (one rank: its own norm, bit for bit)."""
+    local = torch.linalg.vector_norm(g)
+    if mesh is None:
+        return local
+    return torch.linalg.vector_norm(torch.stack(mesh.all_gather(local, "data")))
+
+
+def make_train_step(model, tx: AdamW, cfg: ContrastiveConfig, mesh=None):
     """The train step `step(state, batch, generator) -> (state, metrics)`,
     batch = {"img_a": [B, H, W, 3], "img_b": [B, H, W, 3]} on the model's
-    device; `generator` (a CPU `torch.Generator`) seeds the step's dropout
-    and DropPath masks (`layers.DropRng`, drawn on the model's device), the
-    same for both FGM passes. With `cfg.remat` the whole model runs under
+    device (under a `mesh`: this rank's rows of the global batch, and the
+    state from `create_train_state(mesh=)`); `generator` (a CPU
+    `torch.Generator`) seeds the step's dropout and DropPath masks
+    (`layers.DropRng`, drawn on the model's device), the same for both FGM
+    passes. With `cfg.remat` the whole model runs under
     `torch.utils.checkpoint`."""
+    names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
 
     def loss_fn(img_a, img_b, rng):
@@ -286,6 +380,8 @@ def make_train_step(model, tx: AdamW, cfg: ContrastiveConfig):
             embeds = model(images, train=True, rng=rng)
         embeds = l2_normalize(embeds.float())
         emb_a, emb_b = embeds[:bz], embeds[bz:]
+        if mesh is not None:
+            emb_a, emb_b = mesh.gather_rows(emb_a), mesh.gather_rows(emb_b)
         if cfg.product_loss:
             ent = product_entropy_loss(emb_a, emb_b)
         else:
@@ -303,28 +399,41 @@ def make_train_step(model, tx: AdamW, cfg: ContrastiveConfig):
     def gradients(batch, generator: torch.Generator):
         """(metrics, the summed f32 parameter gradients) of one step,
         without the update: the clean pass, and with FGM the pass on
-        inputs moved by eps * g / (||g|| + 1e-8) over each whole view."""
-        rng = DropRng(generator)
+        inputs moved by eps * g / (||g|| + 1e-8) over each whole view.
+        Under a mesh the gradients are the global batch's, on every rank."""
         img_a, img_b = batch["img_a"], batch["img_b"]
+        if mesh is None:
+            rng = DropRng(generator)
+        else:
+            bz = img_a.shape[0]
+            rng = DropRng(generator, batch_rows(mesh, bz, 2), 2 * bz * mesh.shape["data"])
         if cfg.fgm_epsilon is None:
             loss, metrics = loss_fn(img_a, img_b, rng)
-            return _detached(metrics), [g.float() for g in _grads(loss, params)]
-        img_a = img_a.detach().requires_grad_()
-        img_b = img_b.detach().requires_grad_()
-        loss, metrics = loss_fn(img_a, img_b, rng)
-        *gp, ga, gb = _grads(loss, params + [img_a, img_b])
-        with torch.no_grad():
-            adv_a = img_a + cfg.fgm_epsilon * ga / (torch.linalg.vector_norm(ga) + 1e-8)
-            adv_b = img_b + cfg.fgm_epsilon * gb / (torch.linalg.vector_norm(gb) + 1e-8)
-        adv_loss, _ = loss_fn(adv_a, adv_b, rng)
-        grads = [g.float() + h.float() for g, h in zip(gp, _grads(adv_loss, params))]
+            grads = [g.float() for g in _grads(loss, params)]
+        else:
+            img_a = img_a.detach().requires_grad_()
+            img_b = img_b.detach().requires_grad_()
+            loss, metrics = loss_fn(img_a, img_b, rng)
+            *gp, ga, gb = _grads(loss, params + [img_a, img_b])
+            with torch.no_grad():
+                adv_a = img_a + cfg.fgm_epsilon * ga / (_global_norm(mesh, ga) + 1e-8)
+                adv_b = img_b + cfg.fgm_epsilon * gb / (_global_norm(mesh, gb) + 1e-8)
+            adv_loss, _ = loss_fn(adv_a, adv_b, rng)
+            grads = [g.float() + h.float() for g, h in zip(gp, _grads(adv_loss, params))]
+        if mesh is not None:
+            grads = reduce_gradients(mesh, grads)
         return _detached(metrics), grads
 
     def update(state: TrainState, grads) -> TrainState:
         """The optimizer and EMA on `state`, the masters written back into
-        the model."""
-        state.apply_gradients(tx, grads, cfg.ema_decay or 0.0)
-        load_masters(model, state.params)
+        the model (under a mesh: on this rank's blocks, then gathered)."""
+        if state.shards is not None:
+            if tx.clip_grad_norm is not None:
+                grads = clip_by_global_norm(grads, tx.clip_grad_norm)
+            grads = [state.shards.mesh.take_shard(g, state.shards.specs[n])
+                     for n, g in zip(names, grads)]
+        state.apply_gradients(tx, grads, cfg.ema_decay or 0.0, clip=state.shards is None)
+        load_masters(model, state.params, state.shards)
         return state
 
     def step(state: TrainState, batch, generator: torch.Generator):

@@ -7,21 +7,26 @@ from an executable config file (`model`: a registry dict, optionally
 `data`: dataset kwargs, `img_width`, `preprocess`), built by
 `models/registry.build_backbone` at the registry's default dtype (bf16
 with f32 masters for the Base models) with weights seeded from `--seed`;
-the step's dropout generator is seeded from `--seed` as well. Batches come
+the step's dropout generator is seeded from `--seed` + the rank. Batches come
 from the port's data layer (`data/store.FrameStore`,
 `data/datasets.DataLoader`) and go to the device with
 `torch.from_numpy(...).to(device)`; metrics are read (`.item()`) only at
 `--print_freq`. Every epoch ends with a checkpoint
-(`train/checkpoint.CheckpointManager`, the dropout generator's state
-included) and `epoch_<e>_ema.npz` in the JAX package's snapshot layout.
+(`train/checkpoint.CheckpointManager`, every rank's dropout generator
+state included) and `epoch_<e>_ema.npz` in the JAX package's snapshot
+layout, both written by rank 0 alone.
 
 Usage:
   python -m vsc22_tpu_torch.train.descriptor_cli --config cfg.py \
       --store frames.rec --work_dir runs/v1 --batch_size 32 --epochs 2 \
       [--device cpu] [model.type=...]
+  torchrun --nproc_per_node N -m vsc22_tpu_torch.train.descriptor_cli ...
 
-One process and one device: a mesh of one device on the data axis
-(multi-GPU training is not ported).
+One process per device: `parallel.distributed.maybe_initialize` forms the
+world `torchrun` describes (NCCL on the cards, gloo with `--device cpu`)
+and a data mesh spans it. `--batch_size` is per rank: each rank loads its
+stride of the epoch (the loader's (process_index, process_count) are its
+data-axis coordinate and size), and the step trains on the global batch.
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ from vsc22_tpu_torch.data.datasets import (
 from vsc22_tpu_torch.data.store import FrameStore
 from vsc22_tpu_torch.models.layers import reset_parameters
 from vsc22_tpu_torch.models.registry import build_backbone
+from vsc22_tpu_torch.parallel.distributed import barrier, maybe_initialize, process_allgather
+from vsc22_tpu_torch.parallel.mesh import create_mesh
 from vsc22_tpu_torch.train.checkpoint import CheckpointManager, save_ema_snapshot
 from vsc22_tpu_torch.train.contrastive import (
     ContrastiveConfig,
@@ -52,7 +59,7 @@ from vsc22_tpu_torch.train.contrastive import (
 )
 from vsc22_tpu_torch.utils.config import Config, parse_override_args
 from vsc22_tpu_torch.utils.hostmem import tune_host_allocator
-from vsc22_tpu_torch.utils.observability import StageTimer, setup_logging
+from vsc22_tpu_torch.utils.observability import StageTimer, rank, setup_logging
 
 ANN_COLUMNS = ("query_id", "ref_id", "query_start", "query_end", "ref_start", "ref_end")
 
@@ -109,11 +116,13 @@ def main(argv=None):
     tune_host_allocator()
     args = parse_args(argv)
     cfg = Config.fromfile(args.config).merge_flags(parse_override_args(args.overrides))
+    device = resolve(args.device)
+    maybe_initialize(device=args.device)
     logger = setup_logging("descriptor_train", args.work_dir)
     logger.info("config: %s", cfg.to_dict())
-    device = resolve(args.device)
 
-    dp = 1  # the data axis: one device
+    mesh = create_mesh()
+    dp = mesh.shape["data"]
     if args.batch_size % dp:
         raise SystemExit(
             f"--batch_size {args.batch_size} must be divisible by the data-axis "
@@ -127,8 +136,10 @@ def main(argv=None):
         batch_size=args.batch_size,
         seed=args.seed,
         num_workers=args.num_workers,
+        process_index=mesh.index("data"),
+        process_count=dp,
     )
-    steps_per_epoch = max(len(dataset) // args.batch_size, 1)
+    steps_per_epoch = max(len(dataset) // (args.batch_size * dp), 1)
     total_steps = steps_per_epoch * args.epochs
 
     train_cfg = ContrastiveConfig(
@@ -147,15 +158,17 @@ def main(argv=None):
     )
     model = build_backbone(cfg.model.to_dict(), device=device)
     reset_parameters(model, torch.Generator().manual_seed(args.seed))
-    state, tx = create_train_state(model, train_cfg)
-    step_fn = make_train_step(model, tx, train_cfg)
-    generator = torch.Generator().manual_seed(args.seed)  # dropout and DropPath masks
+    state, tx = create_train_state(model, train_cfg, mesh=mesh)
+    step_fn = make_train_step(model, tx, train_cfg, mesh=mesh)
+    # dropout and DropPath masks
+    generator = torch.Generator().manual_seed(args.seed + rank())
 
     ckpt = CheckpointManager(os.path.join(args.work_dir, "checkpoints"))
     start_epoch = 0
+    barrier()  # no rank reads a checkpoint another is still writing
     if args.resume and ckpt.latest_step() is not None:
-        state = ckpt.restore(state, generator=generator)
-        load_masters(model, state.params)
+        state = state.take_shards(ckpt.restore(state.whole(), generator=generator))
+        load_masters(model, state.params, state.shards)
         start_epoch = state.step // steps_per_epoch
         logger.info("resumed from step %s (epoch %d)", ckpt.latest_step(), start_epoch)
 
@@ -183,8 +196,13 @@ def main(argv=None):
                 )
             b += 1
         with timer.stage("checkpoint"):
-            ckpt.save(state.step, state, generator)
-            save_ema_snapshot(os.path.join(args.work_dir, f"epoch_{epoch}_ema.npz"), state, model)
+            whole = state.whole()
+            generators = [torch.from_numpy(g) for g in
+                          process_allgather(generator.get_state().numpy())]
+            if rank() == 0:
+                ckpt.save(state.step, whole, generators)
+                save_ema_snapshot(os.path.join(args.work_dir, f"epoch_{epoch}_ema.npz"), whole,
+                                  model)
         logger.info("epoch %d done in %.1fs", epoch, time.time() - t0)
     logger.info("timing:\n%s", timer.report())
     return state

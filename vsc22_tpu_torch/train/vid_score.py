@@ -5,7 +5,9 @@ entropy on the VSM's logits over CLIP frame-feature sequences, AdamW
 (weight decay 0.01) on the warm-up schedule, an optional f32 EMA, and the
 average precision of an eval stream. It shares the contrastive trainer's
 `TrainState`, optimizer and checkpoints. The VSM runs no hand kernel:
-its attention takes a mask bias and stays einsum.
+its attention takes a mask bias and stays einsum. With a `mesh` the batch
+is split over the data axis and the gradients are all-reduced, as the
+contrastive step does it.
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ from vsc22_tpu_torch.train.contrastive import (
     AdamW,
     TrainState,
     _grads,
+    batch_rows,
     create_train_state,
     load_masters,
+    reduce_gradients,
     warmup_linear_schedule,
 )
 
@@ -51,16 +55,29 @@ def create_vid_score_state(model, cfg: VidScoreConfig, params=None):
     return create_train_state(model, cfg, params, make_vid_score_optimizer(cfg))
 
 
-def make_vid_score_train_step(model, tx: AdamW, cfg: VidScoreConfig):
+def make_vid_score_train_step(model, tx: AdamW, cfg: VidScoreConfig, mesh=None):
     """`step(state, batch, generator) -> (state, metrics)` with batch =
-    {"feats": [B, N, D], "label": [B]} on the model's device; `generator`
-    (a CPU `torch.Generator`) seeds the dropout masks (`layers.DropRng`)."""
+    {"feats": [B, N, D], "label": [B]} on the model's device (under a
+    `mesh`: this rank's rows of the global batch); `generator` (a CPU
+    `torch.Generator`) seeds the dropout masks (`layers.DropRng`, drawn for
+    the global batch under a mesh). The loss is the global batch's mean."""
     params = [p for _, p in model.named_parameters()]
 
     def step(state: TrainState, batch, generator: torch.Generator):
-        logits = model(batch["feats"], train=True, rng=DropRng(generator))
-        loss = F.binary_cross_entropy_with_logits(logits, batch["label"].to(logits.dtype))
+        feats, labels = batch["feats"], batch["label"]
+        if mesh is None:
+            rng = DropRng(generator)
+        else:
+            rows = feats.shape[0]
+            rng = DropRng(generator, batch_rows(mesh, rows), rows * mesh.shape["data"])
+        logits = model(feats, train=True, rng=rng)
+        if mesh is not None:
+            logits = mesh.gather_rows(logits)
+            labels = torch.cat(mesh.all_gather(labels, "data"))
+        loss = F.binary_cross_entropy_with_logits(logits, labels.to(logits.dtype))
         grads = [g.float() for g in _grads(loss, params)]
+        if mesh is not None:
+            grads = reduce_gradients(mesh, grads)
         state.apply_gradients(tx, grads, cfg.ema_decay or 0.0)
         load_masters(model, state.params)
         return state, {"loss": loss.detach()}

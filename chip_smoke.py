@@ -42,8 +42,10 @@ result line):
      a seeded torch.Generator), FSD, PCA(2048 -> 512), query score-norm --
      over 24 synthetic 32-frame 360x640 videos, checking finite 512-d rows,
      that the models ran full 128-frame chunks, and that every kernel's
-     launch count grew by what the models' depths require; the pass's stage
-     split (every K1 and K2 call on the tensor-core loop, by `routes`) and,
+     launch count grew by what the models' depths require; the stage split
+     of a sequential `process_batch` pass from the pipeline's `StageTimer`
+     (synchronised at each stage edge; every K1 and K2 call on the
+     tensor-core loop, by `routes`) and,
      in one more pass under torch.profiler, its device time by kernel (the
      attention cores named; no launch of the FFMA GEMM tile, one LN-rows
      launch per K2); then K3 against its plain
@@ -53,7 +55,16 @@ result line):
      one warm pass (`matching_stage1` videos/s); and the pipeline's other
      FSD setting (`use_device_fsd_maps=False`: the exact maps) on the
      letterboxed and the 2-up video: boxes inside the frame, finite rows,
-     whether the boxes equal the default's;
+     whether the boxes equal the default's; (b) the JAX bench's protocol,
+     48 such videos (staged on the card) in batches of 24: `process_many`,
+     which overlaps the batches, equal bit for bit to a loop of
+     `process_batch` (features, timestamps, VED scores); both dispatch
+     halves of a warm batch (`_prepare_dispatch`, with staged and with host
+     frames, and `_extract_dispatch_phase`) free of host syncs under
+     `torch.cuda.set_sync_debug_mode("error")`; K1, K2, B1 and K3 launched
+     as two batches require in each pass; both passes' videos/s, and their
+     device idle shares in one profiled pass each, with the pipelined
+     pass's `StageTimer` report;
   4. the SwinV2 path cross-check: one SwinV2-Base member in float32 on 16
      frames, with the default block dispatch (B1, and B6 + B7 in stage 4)
      and with `fused_block=False` (B6 + B7 everywhere): the L2-normalised
@@ -1028,23 +1039,31 @@ def build_slice(device, full: bool, seed: int = 0):
     return pipe, noise, dict(vit=vit_m, swins=swins, clip=clip_m, vsm=vsm_m)
 
 
-def prepare_host(device) -> dict:
-    """What phases 3 and 5 draw on the host, made while the kernels build
-    (none of it launches a kernel): the full-width slice (seeded weights on
-    the card, the PCA fit) with its 24 synthetic videos, and the eval
-    corpus; each with its seconds."""
+QUERY_BENCH_VIDEOS, QUERY_BENCH_BATCH = 48, 24  # bench.py's --videos and --batch
+
+
+def prepare_slice(device) -> dict:
+    """What phase 3 draws on the host, made while the kernels build (none
+    of it launches a kernel): the full-width slice (seeded weights on the
+    card, the PCA fit) with phase 3(b)'s 48 synthetic videos on the card,
+    the first 24 of which are phase 3(a)'s; with its seconds."""
     t0 = time.perf_counter()
     pipe, noise, models = build_slice(device, full=True)
-    videos = synth_videos(24, 32, 360, 640)
+    videos = synth_videos(QUERY_BENCH_VIDEOS, 32, 360, 640)  # phase 3(a) takes the first 24
     dev_videos = [torch.from_numpy(v).to(device) for v in videos]
     torch.cuda.synchronize()
-    slice_s = time.perf_counter() - t0
+    return dict(slice=(pipe, noise, models, videos, dev_videos),
+                slice_s=time.perf_counter() - t0)
+
+
+def prepare_corpus() -> dict:
+    """Phase 5's eval corpus, drawn beside the build and the slice; with
+    its seconds."""
     t0 = time.perf_counter()
     sizes = EVAL_SIZES
     corpus = make_corpus(sizes["queries"], sizes["refs"], sizes["noise"], sizes["frames"],
                          sizes["dim"], sizes["planted"])
-    return dict(slice=(pipe, noise, models, videos, dev_videos), slice_s=slice_s,
-                corpus=corpus, corpus_s=time.perf_counter() - t0)
+    return dict(corpus=corpus, corpus_s=time.perf_counter() - t0)
 
 
 def run_slice(pipe, noise, names, videos, device, dev_videos=None, batch=24):
@@ -1166,55 +1185,200 @@ def k1_k2_routes():
                                                 ("ln_mlp_residual", "K2", k2))])
 
 
-def stage_split(pipe, run) -> dict:
-    """Seconds per pipeline stage over run(), host clock with a device sync
-    at both edges of each stage (so the stages do not overlap, as they do
-    not in the unsplit pass): VED, FSD, each extractor's model, the shared
-    crop-resize, and the rest (dedup, PCA, score-norm, host glue)."""
-    times: dict = {}
+def same_members(pipe, **settings):
+    """A new pipeline over `pipe`'s members, PCA, gate and settings (its own
+    VED scores, placeholder count and weight cache), with `settings` changed.
+    It hands its timer to the shared members: `restore_timers` gives them
+    back `pipe`'s."""
+    from vsc22_tpu_torch.pipelines.batch_query import BatchedQueryPipeline
 
-    def timed(name, fn):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            times[name] = times.get(name, 0.0) + time.perf_counter() - t0
-            return out
-        return wrapper
+    kw = dict(pca=pipe.pca, ved=pipe.ved, use_fsd=pipe.use_fsd,
+              use_device_fsd_maps=pipe.use_device_fsd_maps,
+              score_threshold=pipe.score_threshold, frame_threshold=pipe.frame_threshold,
+              out_dim=pipe.out_dim, device=pipe.device)
+    kw.update(settings)
+    return BatchedQueryPipeline(pipe.extractors, **kw)
 
-    names = ["extract ViT-B/32"] + [f"extract SwinV2 {i + 1}"
-                                    for i in range(len(pipe.extractors) - 1)]
-    patched = [(pipe.ved, "scores", "VED"), (pipe, "_fsd_boxes", "FSD"),
-               (pipe, "_extract", "extract stage")]
-    patched += [(e, "extract", n) for e, n in zip(pipe.extractors, names)]
-    for obj, attr, name in patched:
-        setattr(obj, attr, timed(name, getattr(obj, attr)))
+
+def restore_timers(pipe) -> None:
+    for e in pipe.extractors:
+        e.timer = pipe.timer
+
+
+MEMBER_LABELS = ["ViT-B/32", "SwinV2", "SwinV2", "SwinV2"]  # build_slice's members
+
+
+def stage_split(pipe, names, videos, dev_videos, noise) -> tuple:
+    """Seconds per pipeline stage over one sequential `process_batch` pass
+    + score-norm, read from a `StageTimer(sync=torch.cuda.synchronize)`
+    given to a pipeline over `pipe`'s members (every stage synchronised at
+    both edges, so no two overlap): VED (`ved_dispatch` + the merged fetch
+    `ved`), FSD (`fsd_maps_dispatch` + the cut logic `fsd`, which holds
+    `fsd_screen`), each input size's extractors (`x{size}_dispatch`: one
+    stage for all members of a size), the shared crop-resize
+    (`preprocess_{size}`), and the rest (the extraction fetch, dedup, PCA,
+    score-norm, host glue). Returns (split, timer)."""
+    from vsc22_tpu_torch.retrieval.score_norm import query_score_normalize
+    from vsc22_tpu_torch.utils.observability import StageTimer
+
+    timer = StageTimer(sync=torch.cuda.synchronize)
+    timed = same_members(pipe, timer=timer)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run()
+        feats = timed.process_batch(names, videos, device_videos=dev_videos)
+        query_score_normalize(feats, noise, video_scores=timed.video_scores,
+                              score_threshold=0.0, beta=1.2, nk=1, device=pipe.device)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
-        for obj, attr, _ in patched:
-            delattr(obj, attr)
-    models = sum(times[n] for n in names)
-    split = {"VED": times["VED"], "FSD": times["FSD"]}
-    split.update({n: times[n] for n in names})
-    split["crop-resize"] = times["extract stage"] - models
-    split["rest"] = total - times["VED"] - times["FSD"] - times["extract stage"]
+        restore_timers(pipe)
+    t = timer.as_dict()
+    split = {"VED": t["ved_dispatch"] + t["ved"], "FSD": t["fsd_maps_dispatch"] + t["fsd"]}
+    sizes = {}
+    for e, label in zip(pipe.extractors, MEMBER_LABELS):
+        sizes.setdefault(e.size, []).append(label)
+    for size, labels in sizes.items():
+        name = (f"extract {labels[0]}" if len(labels) == 1 else
+                f"extract {len(labels)} x {labels[0]} (one stage, x{size}_dispatch)")
+        split[name] = t[f"x{size}_dispatch"]
+    split["crop-resize"] = sum(t[f"preprocess_{size}"] for size in sizes)
+    split["rest"] = total - sum(split.values())
     split["total"] = total
-    return split
+    return split, timer
 
 
-def profile_pass(run, kernel_families=None) -> dict:
+@contextlib.contextmanager
+def chunk_sizes(modules: dict):
+    """{key: the batch size of every forward of modules[key]} while the
+    block runs."""
+    sizes = {k: [] for k in modules}
+    handles = [m.register_forward_pre_hook(
+        lambda mod, args, k=k: sizes[k].append(int(args[0].shape[0])))
+        for k, m in modules.items()]
+    try:
+        yield sizes
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def query_bench(pipe, noise, models, videos, dev_videos, wrappers, card) -> None:
+    """Phase 3(b): `bench.py`'s protocol (48 videos in batches of 24, the
+    frames staged on the card, score-norm after) on phase 3's full-width
+    members. A loop of `process_batch` and `process_many` over the same two
+    batches, each on a pipeline of its own: equal bit for bit; both
+    dispatch halves of a warm batch free of host syncs; K1, K2, B1 and K3
+    launched as two batches require; videos/s of each, then one profiled
+    pass of each (device idle share), the pipelined pass's StageTimer."""
+    from vsc22_tpu_torch.retrieval.score_norm import query_score_normalize
+    from vsc22_tpu_torch.utils.observability import StageTimer
+
+    names = [f"B{i:06d}" for i in range(len(videos))]
+    batch = QUERY_BENCH_BATCH
+    spans = [(lo, lo + batch) for lo in range(0, len(videos), batch)]
+
+    def sequential(p):
+        feats = []
+        for lo, hi in spans:
+            feats += p.process_batch(names[lo:hi], videos[lo:hi], device_videos=dev_videos[lo:hi])
+        return feats
+
+    def pipelined(p):
+        return p.process_many(names, videos, batch=batch, device_videos=dev_videos)
+
+    def timed(p, run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = run(p)
+        query_score_normalize(feats, noise, video_scores=p.video_scores, score_threshold=0.0,
+                              beta=1.2, nk=1, device=p.device)
+        torch.cuda.synchronize()
+        return feats, len(videos) / (time.perf_counter() - t0)
+
+    timer = StageTimer()
+    seq, many = same_members(pipe), same_members(pipe, timer=timer)
+    try:
+        results = {}
+        for label, p, run in (("sequential", seq, sequential), ("pipelined", many, pipelined)):
+            modules = dict(vit=models["vit"], clip=models["clip"], swin=models["swins"][0])
+            restore_timers(p)  # the members time into the pipeline that runs them
+            zero_counts(wrappers)
+            with chunk_sizes(modules) as chunks:
+                feats, rate = timed(p, run)
+            launches = counts(wrappers)
+            per_pass = 12 * len(chunks["vit"]) + 24 * len(chunks["clip"])
+            swin_pass = 24 * len(chunks["swin"]) * 3
+            print(f"  (b) {label}: {len(videos)} videos in batches of {batch} at {rate:.3f} "
+                  f"videos/s on {card}; launches K1 {launches['attn_proj_residual']}, K2 "
+                  f"{launches['ln_mlp_residual']} (expected {per_pass}), B1 "
+                  f"{launches['swin_block']} (expected {swin_pass}), K3 "
+                  f"{launches['row_max_gemm']} (expected 1); ViT chunks {chunks['vit']}, "
+                  f"CLIP {chunks['clip']}, SwinV2 {chunks['swin']}", flush=True)
+            check(launches["attn_proj_residual"] == per_pass
+                  and launches["ln_mlp_residual"] == per_pass
+                  and launches["swin_block"] == swin_pass and launches["row_max_gemm"] == 1,
+                  f"(b) {label}: K1/K2/B1/K3 launches {launches}")
+            results[label] = feats
+        print("  (b) the timed pipelined pass's StageTimer (host clock, no sync; the worker's "
+              "stages beside the caller's):\n    " + timer.report().replace("\n", "\n    "),
+              flush=True)
+        for f, g in zip(results["sequential"], results["pipelined"]):
+            check(f.video_id == g.video_id and np.array_equal(f.timestamps, g.timestamps)
+                  and np.array_equal(f.feature, g.feature),
+                  f"(b) {f.video_id}: process_many differs from the process_batch loop")
+        check(seq.video_scores == many.video_scores,
+              "(b) process_many's VED scores differ from the process_batch loop's")
+        print(f"  (b) process_many = the process_batch loop bit for bit: {len(videos)} videos' "
+              f"features ({sum(len(f.feature) for f in results['pipelined'])} rows), "
+              "timestamps and VED scores", flush=True)
+
+        lo, hi = spans[0]
+        restore_timers(many)
+        with no_host_sync("(b) _prepare_dispatch, frames staged"):
+            disp = many._prepare_dispatch(names[lo:hi], videos[lo:hi], None, dev_videos[lo:hi])
+        ctx = many._prepare_finish(disp)
+        with no_host_sync("(b) _extract_dispatch_phase"):
+            pending = many._extract_dispatch_phase(ctx)
+        many._finalize(ctx, pending, many._extract_fetch(pending))
+        with no_host_sync("(b) _prepare_dispatch, host frames (pinned uploads)"):
+            disp = many._prepare_dispatch(names[lo:hi], videos[lo:hi])
+        many._prepare_finish(disp)
+        del disp, ctx, pending
+        print("  (b) a warm batch's dispatch halves made no host sync under "
+              "torch.cuda.set_sync_debug_mode('error'): _prepare_dispatch (frames staged; "
+              "host frames through pinned memory), _extract_dispatch_phase", flush=True)
+
+        for label, p, run in (("pipelined", many, pipelined), ("sequential", seq, sequential)):
+            print(f"  (b) profiled {label} pass:", flush=True)
+            restore_timers(p)
+            profile_pass(lambda: timed(p, run), top=5, gaps=8)
+    finally:
+        restore_timers(pipe)
+
+
+@contextlib.contextmanager
+def no_host_sync(label: str):
+    """Fail if the block makes a host sync (`set_sync_debug_mode("error")`,
+    set back to the default after)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    except RuntimeError as e:
+        raise Failed(f"{label} made a host sync: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def profile_pass(run, kernel_families=None, top: int = 15, gaps: int = 0) -> dict:
     """run() under torch.profiler, recording device activity only (host ops
     would make the trace of a pass of many ops several times heavier, and
     only the device events are read): device time by kernel, its share of
-    all device time, calls, and the device's idle share of the wall clock
-    under the profiler. Returns {family: (seconds, calls)} for
-    `kernel_families` (default KERNEL_FAMILIES)."""
+    all device time, calls, the device's idle share of the wall clock
+    under the profiler and, with `gaps`, that many of the longest spans
+    with no device activity, each with the kernels on either side. Returns
+    {family: (seconds, calls)} for `kernel_families` (default
+    KERNEL_FAMILIES)."""
     kernel_families = KERNEL_FAMILIES if kernel_families is None else kernel_families
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1230,10 +1394,12 @@ def profile_pass(run, kernel_families=None) -> dict:
     device_s = sum(r[0] for r in rows) / 1e6
     print(f"  profiled pass: wall {wall:.3f} s, device kernel time {device_s:.3f} s, "
           f"device idle {1 - device_s / wall:.1%} of the wall (under the profiler)", flush=True)
-    top = sorted(rows, reverse=True)
-    # the 15 largest, then the hand kernels' families wherever they rank
-    ours = [r for r in top[15:] if any(f in r[2] for f in kernel_families)]
-    for us, calls, key in top[:15] + ours:
+    if gaps:
+        print_idle_gaps(prof, gaps)
+    ranked = sorted(rows, reverse=True)
+    # the `top` largest, then the hand kernels' families wherever they rank
+    ours = [r for r in ranked[top:] if any(f in r[2] for f in kernel_families)]
+    for us, calls, key in ranked[:top] + ours:
         print(f"    {us / 1e6:8.3f} s {us / 1e6 / device_s:6.1%} {calls:7d} calls  {key[:110]}",
               flush=True)
     families = {}
@@ -1246,6 +1412,27 @@ def profile_pass(run, kernel_families=None) -> dict:
               f"{fam_us / 1e6 / device_s:.1%} of device time, {families[family][1]} calls",
               flush=True)
     return families
+
+
+def print_idle_gaps(prof, n: int) -> None:
+    """The n longest spans of a device trace with no device activity
+    (kernels and copies), their total, and where they fall."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    found, end, last, total = [], spans[0][1], spans[0][2], 0.0
+    for start, stop, name in spans[1:]:
+        if start > end:
+            found.append((start - end, end - spans[0][0], last, name))
+            total += start - end
+        if stop >= end:
+            end, last = stop, name
+    print(f"    idle between device events: {total / 1e3:.1f} ms in {len(found)} gaps; the "
+          f"longest (ms, at ms from the first event: the event before -> the one after):", flush=True)
+    for gap, at, before, after in sorted(found, reverse=True)[:n]:
+        print(f"      {gap / 1e3:8.3f} at {at / 1e3:9.3f}: {before[:50]} -> {after[:50]}",
+              flush=True)
 
 
 # Kernel names the profiler pass sums by (demangled names start with the
@@ -4347,11 +4534,13 @@ def main(argv=None) -> int:
     steps' checks and measurements, the trainer's CLI); with `--zoo-only`,
     phases 1 and 13 (on videos and a frame store drawn for it); with
     `--parallel-only`, phases 1 and 14 (on a corpus drawn as phase 5's);
-    none prints the result lines."""
+    with `--query-only`, phases 1 and 3 (the query pipeline, parts (a) and
+    (b)); none prints the result lines."""
     args = sys.argv[1:] if argv is None else argv
     training_only = "--training-only" in args
     zoo_only = "--zoo-only" in args
     parallel_only = "--parallel-only" in args
+    query_only = "--query-only" in args
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 2
@@ -4381,23 +4570,25 @@ def main(argv=None) -> int:
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES) + 2) as pool:
-        host = (None if training_only or zoo_only or parallel_only
-                else pool.submit(prepare_host, device))
+    with ThreadPoolExecutor(len(LIBRARIES) + 3) as pool:
+        host = [] if training_only or zoo_only or parallel_only else [
+            pool.submit(prepare_slice, device)]
+        if host and not query_only:
+            host.append(pool.submit(prepare_corpus))
         host_lib = pool.submit(timed_host_build)
         list(pool.map(build.library, LIBRARIES))
         built = time.perf_counter() - t0
         host_lib_s = host_lib.result()
-        host = None if host is None else host.result()
+        host = {k: v for part in host for k, v in part.result().items()} or None
     for name in LIBRARIES:
         print(build.build_log(name), file=sys.stderr)
     print(f"  built {', '.join(LIBRARIES)} in {built:.1f} s; the host library vta_kernels "
           f"(g++, alignment) in {host_lib_s:.1f} s", flush=True)
     if host is not None:
         waited = time.perf_counter() - t0 - built
-        print(f"  meanwhile on the host: the full-width slice's set-up {host['slice_s']:.1f} s, "
-              f"the eval corpus {host['corpus_s']:.1f} s; waited {waited:.1f} s for them after "
-              "the build", flush=True)
+        corpus_s = f", the eval corpus {host['corpus_s']:.1f} s" if "corpus_s" in host else ""
+        print(f"  meanwhile on the host: the full-width slice's set-up {host['slice_s']:.1f} s"
+              f"{corpus_s}; waited {waited:.1f} s for them after the build", flush=True)
     if zoo_only:
         import tempfile
 
@@ -4422,21 +4613,24 @@ def main(argv=None) -> int:
         print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
 
-    print(f"phase 2: kernels vs plain on the card ({card})", flush=True)
     t_phase = time.perf_counter()
-    kres = check_kernels(device)
-    kres.update(check_swin_kernels(device))
-    kres.update(check_topk_kernel(device))
-    kres.update(check_row_max_kernel(device))
-    kres.update(check_block_kernels(device))
-    t_phase = phase_took(2, t_phase)
+    kres = {}
+    if not query_only:
+        print(f"phase 2: kernels vs plain on the card ({card})", flush=True)
+        kres = check_kernels(device)
+        kres.update(check_swin_kernels(device))
+        kres.update(check_topk_kernel(device))
+        kres.update(check_row_max_kernel(device))
+        kres.update(check_block_kernels(device))
+        t_phase = phase_took(2, t_phase)
 
     print(f"phase 3: the slice ({card})", flush=True)
     t0 = time.perf_counter()
     check_small_slice(device, wrappers)
     print(f"  (the small slice took {time.perf_counter() - t0:.1f} s)", flush=True)
 
-    pipe, noise, models, videos, dev_videos = host.pop("slice")
+    pipe, noise, models, bench_videos, bench_dev_videos = host.pop("slice")
+    videos, dev_videos = bench_videos[:24], bench_dev_videos[:24]
     names = [f"Q{i:06d}" for i in range(len(videos))]
     print(f"  full-width set-up (weights, PCA fit, videos) {host['slice_s']:.1f} s, made during "
           "phase 1", flush=True)
@@ -4481,10 +4675,11 @@ def main(argv=None) -> int:
     print(f"  warm pass: {len(videos)} videos in {elapsed:.3f} s = "
           f"{len(videos) / elapsed:.3f} videos/s ({frames} kept frames) on {card}", flush=True)
     with k1_k2_routes() as calls:
-        split = stage_split(pipe, lambda: run_slice(pipe, noise, names, videos, device,
-                                                    dev_videos))
-    print("  stage split (a third pass, synchronised at each stage edge): "
-          + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()), flush=True)
+        split, split_timer = stage_split(pipe, names, videos, dev_videos, noise)
+    print("  stage split (a third pass, process_batch + score-norm, from the pipeline's "
+          "StageTimer synchronised at each stage edge): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()) + "; its stages:\n    "
+          + split_timer.report().replace("\n", "\n    "), flush=True)
     by_width = {(k, c): sum(1 for n, w, _ in calls if (n, w) == (k, c))
                 for k, c, _ in calls}
     off_mma = [(k, c, r) for k, c, r in calls if any(v == "ffma" for v in r.values())]
@@ -4521,11 +4716,27 @@ def main(argv=None) -> int:
     exact = BatchedQueryPipeline(pipe.extractors, pca=pipe.pca, ved=None, use_fsd=True,
                                  use_device_fsd_maps=False, out_dim=512, device=device)
     pair, dev_pair = videos[6:8], dev_videos[6:8]  # letterboxed, 2-up
-    check_fsd_setting("batched pipeline, use_device_fsd_maps=False", pair,
-                      exact._fsd_boxes(pair, dev_pair, [1.0, 1.0]),
-                      stage1._fsd_boxes(pair, dev_pair, [1.0, 1.0]),
+
+    def boxes(p):
+        return [[box for _, box in streams]
+                for streams in p._prepare(names[6:8], pair, None, dev_pair)["proc"]]
+
+    check_fsd_setting("batched pipeline, use_device_fsd_maps=False", pair, boxes(exact),
+                      boxes(stage1),
                       exact.process_batch(names[6:8], pair, device_videos=dev_pair), card)
     del stage1, stage1_feats, exact
+    restore_timers(pipe)
+
+    print(f"  (b) bench.py's protocol: {QUERY_BENCH_VIDEOS} videos in batches of "
+          f"{QUERY_BENCH_BATCH} ({card})", flush=True)
+    t0 = time.perf_counter()
+    query_bench(pipe, noise, models, bench_videos, bench_dev_videos, wrappers, card)
+    print(f"  (part (b) took {time.perf_counter() - t0:.1f} s)", flush=True)
+    del bench_videos, bench_dev_videos
+    if query_only:
+        phase_took(3, t_phase)
+        print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
 
     # K3 on the very operands score-norm gave it in the warm-up pass.
     q, r = row_max_calls[0]

@@ -21,7 +21,8 @@ def maps():
     jm, jp = jfsd._batch_maps_profiles(
         jnp.asarray(stack), jnp.asarray(jfsd.sample_edge_frames(N))
     )
-    pm, pp = fsd.batch_maps_profiles(torch.from_numpy(stack))
+    pm, pp, dims = fsd.batch_maps_profiles_dispatch(torch.from_numpy(stack))
+    assert dims == (V, H, W)
     assert pm.dtype == torch.float16 and tuple(pm.shape) == (2 * V, H, W)
     assert tuple(pp.shape) == (V, 3 * W + 3 * H + 1)
     return (vids, np.asarray(jm).astype(np.float32), np.asarray(jp),
@@ -83,3 +84,31 @@ def test_sample_edge_frames_and_quantile():
         fsd._quantile_linear(torch.from_numpy(a), 0.95).numpy(),
         np.asarray(jnp.quantile(jnp.asarray(a), 0.95, axis=1)),
     )
+
+
+def test_device_batch_maps_are_the_per_video_maps_in_f16(maps):
+    """`variance_and_edges_device_batch`: each video's
+    `variance_and_edges_device` maps rounded to f16, bit for bit, and the
+    JAX batch twin's maps as the fixture holds them."""
+    vids, jm, _, _, _ = maps
+    var, edges = fsd.variance_and_edges_device_batch(torch.from_numpy(np.stack(vids)))
+    assert var.shape == edges.shape == (V, H, W) and var.dtype == np.float32
+    for i, vid in enumerate(vids):
+        v1, e1 = fsd.variance_and_edges_device(torch.from_numpy(vid), "cpu")
+        np.testing.assert_array_equal(var[i], v1.astype(np.float16).astype(np.float32))
+        np.testing.assert_array_equal(edges[i], e1.astype(np.float16).astype(np.float32))
+    jvar, jedges = jfsd.variance_and_edges_device_batch(np.stack(vids))
+    np.testing.assert_array_equal(edges, jedges)
+    np.testing.assert_allclose(var, jvar, rtol=2**-10, atol=0)
+
+
+def test_batch_maps_profiles_device_is_dispatch_plus_fetch(maps):
+    _, _, _, pm, pp = maps
+    maps16, profs = fsd.batch_maps_profiles_device(torch.from_numpy(np.stack(maps[0])))
+    np.testing.assert_array_equal(maps16.float().numpy(), pm)
+    want = fsd.unpack_profiles(pp, V, H, W)
+    assert len(profs) == V
+    for g, w in zip(profs, want):
+        assert g.keys() == w.keys()
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k])

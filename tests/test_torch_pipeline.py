@@ -4,6 +4,9 @@ members (size 32, preset "vit") + tiny CLIP/VSM VED gate + FSD + the
 JAX-fitted PCA + query score-norm (nk=1), on the bench's synthetic corpus,
 f32 on the CPU."""
 
+import sys
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,12 +23,14 @@ from vsc22_tpu.models.vit import vit_tiny_test_descriptor
 from vsc22_tpu.models.vsm import VSMConfig, VideoScoreModel
 from vsc22_tpu.ops.pca import pca_fit
 from vsc22_tpu.pipelines import batch_query as jbq
+from vsc22_tpu.utils.observability import StageTimer as JaxStageTimer
 from vsc22_tpu.retrieval.score_norm import query_score_normalize as jax_qsn
 from vsc22_tpu_torch.models import clip, swinv2, vit, vsm
 from vsc22_tpu_torch.ops.pca import PCAModel
 from vsc22_tpu_torch.pipelines import batch_query as pbq
 from vsc22_tpu_torch.retrieval.score_norm import query_score_normalize
 from vsc22_tpu_torch.utils import jax_params
+from vsc22_tpu_torch.utils.observability import StageTimer
 
 VSM_SIZE = dict(feat_dim=32, hidden=32, layers=1, heads=2, max_frames=8)
 N_VIDEOS = 8
@@ -64,7 +69,7 @@ def runs():
         + [jbq.BatchedExtractor(model=swin_j, params=p, size=32, preset="vit", chunk=4)
            for p in swin_ps],
         pca=pca, ved=jbq.BatchedVED(clip_j, clip_p, vsm_j, vsm_p, max_frames=8, chunk=4),
-        use_fsd=True, score_threshold=0.0, out_dim=8,
+        use_fsd=True, score_threshold=0.0, out_dim=8, timer=JaxStageTimer(),
     )
     ppipe = pbq.BatchedQueryPipeline(
         [pbq.BatchedExtractor(
@@ -79,25 +84,55 @@ def runs():
             jax_params.load_video_score_model(
                 vsm.VideoScoreModel(vsm.VSMConfig(**VSM_SIZE)), vsm_p),
             max_frames=8, chunk=4),
-        use_fsd=True, score_threshold=0.0, out_dim=8, device="cpu",
+        use_fsd=True, score_threshold=0.0, out_dim=8, timer=StageTimer(), device="cpu",
     )
+    jphases, pphases = record_phases(jpipe), record_phases(ppipe)
     want = jpipe.process_many(names, videos, batch=4)
     got = ppipe.process_many(names, videos, batch=4)
+    phases = dict(jax=list(jphases), port=list(pphases))
+    stages = dict(jax=dict(jpipe.timer.counts), port=dict(ppipe.timer.counts))
     want_sn = jax_qsn(want, noise, video_scores=jpipe.video_scores, score_threshold=0.0,
                       beta=1.2, nk=1)
     got_sn = query_score_normalize(got, noise, video_scores=ppipe.video_scores,
                                    score_threshold=0.0, beta=1.2, nk=1, device="cpu")
-    ctx = jpipe._prepare(names, videos)
-    got_boxes = ppipe._fsd_boxes(
-        videos, [torch.from_numpy(v) for v in videos], [ppipe.video_scores[n] for n in names]
-    )
     return dict(
-        names=names, want=want, got=got, want_sn=want_sn, got_sn=got_sn, jpipe=jpipe,
-        ppipe=ppipe, want_counts=ctx["frame_counts"],
-        got_counts=[len(v) * len(b) for v, b in zip(videos, got_boxes)],
-        want_boxes=[[tuple(int(c) for c in box) for _, box in p] for p in ctx["proc"]],
-        got_boxes=[[tuple(int(c) for c in box) for box in b] for b in got_boxes],
+        names=names, videos=videos, want=want, got=got, want_sn=want_sn, got_sn=got_sn,
+        jpipe=jpipe, ppipe=ppipe, phases=phases, stages=stages,
+        want_ctx=jpipe._prepare(names, videos), got_ctx=ppipe._prepare(names, videos),
     )
+
+
+PHASES = ("_prepare_dispatch", "_prepare_finish", "_extract_dispatch_phase",
+          "_extract_fetch", "_finalize")
+
+
+def record_phases(pipe) -> list:
+    """The calls of `pipe`'s phase methods from now on, as (name, thread
+    id), each method wrapped on the instance."""
+    calls = []
+
+    def wrap(name, real):
+        def call(*args, **kwargs):
+            calls.append((name, threading.get_ident()))
+            return real(*args, **kwargs)
+        return call
+
+    for name in PHASES:
+        setattr(pipe, name, wrap(name, getattr(pipe, name)))
+    return calls
+
+
+def by_thread(calls) -> dict:
+    """{"caller": [names...], "worker": [names...]}: the first call's
+    thread is the caller's."""
+    caller = calls[0][1]
+    return {side: [n for n, t in calls if (t == caller) == (side == "caller")]
+            for side in ("caller", "worker")}
+
+
+def boxes_of(ctx) -> list:
+    return [None if p is None else [tuple(int(c) for c in box) for _, box in p]
+            for p in ctx["proc"]]
 
 
 def test_names_and_timestamps_identical(runs):
@@ -107,10 +142,150 @@ def test_names_and_timestamps_identical(runs):
 
 
 def test_fsd_boxes_and_frame_counts_identical(runs):
-    assert runs["got_counts"] == runs["want_counts"]
-    assert runs["got_boxes"] == runs["want_boxes"]
+    """The port's `_prepare` context is JAX's: crop boxes per video, frame
+    counts, the repeated timestamps, the edited videos."""
+    want, got = runs["want_ctx"], runs["got_ctx"]
+    assert set(got) == set(want)
+    assert got["names"] == want["names"] and got["edited_idx"] == want["edited_idx"]
+    assert got["frame_counts"] == want["frame_counts"]
+    assert boxes_of(got) == boxes_of(want)
+    for g, w in zip(got["full_ts"], want["full_ts"]):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_allclose(got["scores"], want["scores"], atol=1e-5, rtol=0)
     full = [(0, 128, 0, 128)]
-    assert any(b != full for b in runs["got_boxes"])  # FSD cut the letterboxed video
+    assert any(b != full for b in boxes_of(got))  # FSD cut the letterboxed video
+
+
+def test_process_many_phase_order_is_jax(runs):
+    """`process_many` calls its phases in the JAX pipeline's order: on the
+    caller's thread dispatch, finish (batch 0), extraction dispatch, then
+    per batch the next dispatch, this fetch, the next extraction dispatch,
+    this finalize; the next batch's finish on the worker thread."""
+    want, got = by_thread(runs["phases"]["jax"]), by_thread(runs["phases"]["port"])
+    assert got == want
+    assert want["worker"] == ["_prepare_finish"]  # 8 videos in batches of 4
+    assert want["caller"][:3] == ["_prepare_dispatch", "_prepare_finish",
+                                  "_extract_dispatch_phase"]
+
+
+def test_stage_names_are_jax(runs):
+    """The timer sees JAX's stage names with JAX's counts, except
+    `x{size}_dispatch`: JAX runs the three SwinV2 members as one scanned
+    program, so it counts that stage once per batch, and the port, whose
+    members run in turn, once per member."""
+    want, got = runs["stages"]["jax"], runs["stages"]["port"]
+    assert set(got) == set(want)
+    members = {}
+    for e in runs["ppipe"].extractors:
+        members[f"x{e.size}_dispatch"] = members.get(f"x{e.size}_dispatch", 0) + 1
+    for name, count in want.items():
+        assert got[name] == count * members.get(name, 1), name
+    assert {"ved_dispatch", "fsd_maps_dispatch", "ved", "fsd", "fsd_screen", "preprocess_64",
+            "preprocess_32", "x64_dispatch", "x32_dispatch", "extract_fetch",
+            "dedup_pca"} == set(got)
+
+
+def test_process_many_equals_process_batch_loop(runs):
+    """Overlapped batches give what the batches give one after another, bit
+    for bit: three batches, the last ragged, one video gated out."""
+    base = runs["ppipe"]
+    scores = sorted(base.video_scores[n] for n in runs["names"])
+    threshold = (scores[0] + scores[1]) / 2  # gates the lowest-scored video
+
+    def build():
+        return pbq.BatchedQueryPipeline(
+            base.extractors, pca=base.pca, ved=base.ved, use_fsd=True,
+            score_threshold=threshold, out_dim=8, device="cpu")
+
+    names, videos = runs["names"], runs["videos"]
+    many = build()
+    got = many.process_many(names, videos, batch=3)
+    loop = build()
+    want = []
+    for lo in range(0, len(names), 3):
+        want += loop.process_batch(names[lo : lo + 3], videos[lo : lo + 3])
+    assert sum(f.timestamps.shape == (1, 2) for f in want) == 1  # one placeholder
+    assert [f.video_id for f in got] == [f.video_id for f in want] == names
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.timestamps, w.timestamps)
+        np.testing.assert_array_equal(g.feature, w.feature)
+    assert many.video_scores == loop.video_scores
+
+
+def test_process_many_worker_error_reaches_caller():
+    """An error in the half that runs on the worker thread reaches the
+    caller of `process_many` (as `test_batch_query.py` checks in JAX)."""
+    pipe = pbq.BatchedQueryPipeline(
+        [pbq.BatchedExtractor(vit.vit_tiny_test_descriptor(), size=64)], ved=None,
+        use_fsd=False, out_dim=8, device="cpu",
+    )
+    caller = threading.get_ident()
+    raised_on = []
+    real = pipe._prepare_finish
+
+    def finish(disp):
+        if threading.get_ident() != caller:
+            raised_on.append(threading.get_ident())
+            raise RuntimeError("worker half failed")
+        return real(disp)
+
+    pipe._prepare_finish = finish
+    with pytest.raises(RuntimeError, match="worker half failed"):
+        pipe.process_many(list("ABCD"), bench.synth_videos(4, 2, 64, 64), batch=1)
+    assert len(raised_on) == 1
+
+
+def test_weights_built_once_across_batches(monkeypatch):
+    """The cubic crop-resize matrices are built and uploaded once per
+    (in, out, start, stop), however many batches and streams use them."""
+    built = []
+    real = pbq.cubic_resize_weights
+
+    def counting(*key):
+        built.append(key)
+        return real(*key)
+
+    monkeypatch.setattr(pbq, "cubic_resize_weights", counting)
+    pipe = pbq.BatchedQueryPipeline(
+        [pbq.BatchedExtractor(vit.vit_tiny_test_descriptor(), size=64)], ved=None,
+        use_fsd=True, out_dim=8, device="cpu",
+    )
+    calls = []
+    lookup = pipe._weights
+    pipe._weights = lambda *key: calls.append(key) or lookup(*key)
+    pipe.process_many([f"Q{i}" for i in range(8)], bench.synth_videos(8, 6, 128, 128),
+                      batch=3)
+    assert len(built) == len(set(built)) == len(pipe._weight_cache) == len(set(calls))
+    assert len(built) >= 2 and len(calls) >= 2 * 8  # a cut box beside the full frame
+
+
+def test_stage_timer_counts_every_thread():
+    """Stages timed on many threads at once all count (the pipeline's
+    worker times its half beside the caller's)."""
+    from vsc22_tpu_torch.utils.observability import StageTimer
+
+    timer = StageTimer()
+    threads_n, stages_n = 16, 500
+
+    def work(k):
+        for _ in range(stages_n):
+            with timer.stage("shared"), timer.stage(f"own{k}"):
+                pass
+
+    saved = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(k,)) for k in range(threads_n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(saved)
+    assert not any(t.is_alive() for t in threads)
+    assert timer.counts["shared"] == threads_n * stages_n
+    assert all(timer.counts[f"own{k}"] == stages_n for k in range(threads_n))
+    assert len(timer.report().splitlines()) == threads_n + 1
 
 
 def test_ved_scores_match(runs):
@@ -207,8 +382,8 @@ def test_exact_fsd_maps_setting_cuts_as_jax():
     want = [[tuple(int(c) for c in box) for _, box in p] for p in ctx["proc"]]
     ppipe = pbq.BatchedQueryPipeline([], ved=None, use_fsd=True, use_device_fsd_maps=False,
                                      device="cpu")
-    got = ppipe._fsd_boxes(videos, [torch.from_numpy(v) for v in videos], [1.0] * len(videos))
-    assert [[tuple(int(c) for c in b) for b in boxes] for boxes in got] == want
+    got = ppipe._prepare(names, videos)
+    assert boxes_of(got) == want
     assert sum(len(b) > 1 for b in want) >= 3  # stacks were split
     assert sum(len(b) == 1 and b[0] != (0, v.shape[1], 0, v.shape[2])
                for b, v in zip(want, videos)) >= 2  # borders were removed

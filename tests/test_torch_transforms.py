@@ -70,3 +70,42 @@ def test_clip_preprocess(h, w):
     got = pt.clip_preprocess(torch.from_numpy(x), 32)
     assert tuple(got.shape) == (2, 32, 32, 3)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+def _crop_resize_normalize_before(frames_u8, row_w, col_w, preset, out_dtype):
+    """`crop_resize_normalize` as it was before its constants and weights
+    were cached on the device: every operand uploaded on each call."""
+    mean, std = pt.PRESETS[preset]
+    ct = torch.bfloat16 if out_dtype == torch.bfloat16 else torch.float32
+    device = frames_u8.device
+    x = frames_u8.to(ct) / torch.tensor(255.0, dtype=ct, device=device)
+    rw = torch.as_tensor(row_w, device=device).to(ct).float()
+    cw = torch.as_tensor(col_w, device=device).to(ct).float()
+    y = torch.einsum("nhwc,hs->nswc", x.float(), rw).to(ct)
+    y = torch.einsum("nswc,wt->nstc", y.float(), cw)
+    mean_t = torch.tensor(mean, dtype=torch.float32, device=device)
+    std_t = torch.tensor(std, dtype=torch.float32, device=device)
+    return ((y - mean_t) / std_t).to(out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seed,preset", list(enumerate(sorted(pt.PRESETS))))
+def test_cached_constants_keep_the_bits(seed, preset, out_dtype):
+    """With the preset's constants and the resize weights cached on the
+    device, the three transforms give what they gave before, bit for bit,
+    for weights given as arrays and as tensors (twice: the cached path)."""
+    x = torch.from_numpy(frames(2, 45, 70, seed=10 + seed))
+    row_w = pt.cubic_resize_weights(45, 32, 3, 40)
+    col_w = pt.cubic_resize_weights(70, 32, 5, 66)
+    want = _crop_resize_normalize_before(x, row_w, col_w, preset, out_dtype)
+    square = [pt.cubic_resize_weights(n, 32) for n in (45, 70)]
+    nh, nw, top, left = pt.clip_crop_shape(45, 70, 32)
+    clip = [pt.cubic_resize_weights(45, nh)[:, top : top + 32],
+            pt.cubic_resize_weights(70, nw)[:, left : left + 32]]
+    for _ in range(2):
+        for rw, cw in ((row_w, col_w), (torch.from_numpy(row_w), torch.from_numpy(col_w))):
+            assert torch.equal(pt.crop_resize_normalize(x, rw, cw, preset, out_dtype), want)
+        assert torch.equal(pt.resize_normalize(x, 32, preset, out_dtype),
+                           _crop_resize_normalize_before(x, *square, preset, out_dtype))
+        assert torch.equal(pt.clip_preprocess(x, 32, out_dtype),
+                           _crop_resize_normalize_before(x, *clip, "clip", out_dtype))

@@ -8,6 +8,9 @@ the CPU quietly. Tests and CPU runs pass `device="cpu"`.
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 
@@ -20,3 +23,18 @@ def resolve(device="cuda") -> torch.device:
             "otherwise; pass device='cpu' to run the plain PyTorch path on the CPU"
         )
     return dev
+
+
+def upload(array, device: torch.device, keep: Optional[list] = None) -> torch.Tensor:
+    """A host array as a tensor on `device` with no host sync: on a card,
+    copied from a pinned staging buffer with `non_blocking=True`. `keep`,
+    where given, receives that buffer, for a caller that holds it until
+    the copy is known to be done (the caching host allocator also holds
+    it until then). On the CPU the result shares the array's memory."""
+    host = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type != "cuda":
+        return host.to(device)
+    host = host.pin_memory()
+    if keep is not None:
+        keep.append(host)
+    return host.to(device, non_blocking=True)

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vsc22_tpu_torch.core.device import resolve
+from vsc22_tpu_torch.core.device import resolve, upload
 
 Array = np.ndarray
 Box = Tuple[int, int, int, int]  # (start_h, end_h, start_w, end_w)
@@ -226,7 +226,7 @@ def variance_and_edges_device(frames, device="cuda") -> Tuple[Array, Array]:
     """The device maps of one video (`fsd.variance_and_edges_device`): the
     per-pixel temporal variance in float32 summed over RGB and the 8-round
     `edge_map` of the sampled frames, on `device`, returned as host float32
-    arrays (not rounded to f16, unlike `batch_maps_profiles`)."""
+    arrays (not rounded to f16, unlike `batch_maps_profiles_dispatch`)."""
     stack = _frames_on(frames, resolve(device))
     xf = stack.float()
     var = ((xf - xf.mean(dim=0, keepdim=True)) ** 2).mean(dim=0).sum(dim=-1)
@@ -234,10 +234,35 @@ def variance_and_edges_device(frames, device="cuda") -> Tuple[Array, Array]:
     return var.cpu().numpy(), edge_map(stack.index_select(0, idx)).cpu().numpy()
 
 
+def variance_and_edges_device_batch(stack5d) -> Tuple[Array, Array]:
+    """The device maps of a batch of same-shape videos with one fetch
+    (`fsd.variance_and_edges_device_batch`): `stack5d` [V, N, H, W, 3]
+    uint8 on the card or the CPU -> host float32 var [V, H, W] and edges
+    [V, H, W], each video's `variance_and_edges_device` maps rounded to f16
+    (the fetch ships f16, as the JAX package's does)."""
+    v = int(stack5d.shape[0])
+    flat = _batch_maps(stack5d).float().cpu().numpy()
+    return flat[:v], flat[v:]
+
+
+def _batch_maps(stack5d):
+    """[V, N, H, W, 3] uint8 -> [2V, H, W] f16 (`fsd._batch_maps`): the
+    variance maps, then the edge maps of the sampled frames."""
+    idx = upload(np.asarray(sample_edge_frames(int(stack5d.shape[1]))), stack5d.device)
+    var, edges = [], []
+    for video in stack5d:  # one video at a time bounds the temporaries
+        xf = video.float()
+        mean = xf.mean(dim=0, keepdim=True)
+        var.append(((xf - mean) ** 2).mean(dim=0).sum(dim=-1))
+        edges.append(edge_map(video.index_select(0, idx)))
+    return torch.stack(var + edges).to(torch.float16)
+
+
 def _quantile_linear(a, q: float):
     """Row-wise linear-interpolation quantile of [V, n] f32, in f32 as
     `jnp.quantile` computes it (no input-size limit, unlike
-    torch.quantile)."""
+    torch.quantile). The interpolation weights stay 0-dim CPU tensors,
+    which a CUDA op takes as scalars without a copy."""
     s = a.sort(dim=1).values
     n = s.shape[1]
     pos = torch.tensor(q, dtype=torch.float32) * torch.tensor(n - 1, dtype=torch.float32)
@@ -245,26 +270,21 @@ def _quantile_linear(a, q: float):
     high_w = pos - low
     lo = int(min(max(low.item(), 0), n - 1))
     hi = int(min(max(torch.ceil(pos).item(), 0), n - 1))
-    return s[:, lo] * (1.0 - high_w).to(s.device) + s[:, hi] * high_w.to(s.device)
+    return s[:, lo] * (1.0 - high_w) + s[:, hi] * high_w
 
 
-def batch_maps_profiles(stack5d):
-    """Maps and level-0 decision profiles for a batch of same-shape videos.
+def batch_maps_profiles_dispatch(stack5d):
+    """Maps and level-0 decision profiles for a batch of same-shape videos,
+    with no host sync (`fsd.batch_maps_profiles_dispatch`).
 
-    `stack5d`: [V, N, H, W, 3] uint8 (`fsd._batch_maps_profiles`). Returns
-    (maps16 [2V, H, W] f16 -- variance maps then edge maps, left on the
-    device -- and pack [V, 3W + 3H + 1] f32 laid out as
+    `stack5d`: [V, N, H, W, 3] uint8. Returns (maps16 [2V, H, W] f16 --
+    variance maps then edge maps --, pack [V, 3W + 3H + 1] f32 laid out as
     [sum_h(W) | canny_h_re(W) | canny_h_sp(W) | sum_w(H) | canny_w_re(H) |
-     canny_w_sp(H) | sp_fea_mean])."""
-    v, n = int(stack5d.shape[0]), int(stack5d.shape[1])
-    idx = torch.tensor(sample_edge_frames(n), device=stack5d.device)
-    var, edges = [], []
-    for video in stack5d:  # one video at a time bounds the temporaries
-        xf = video.float()
-        mean = xf.mean(dim=0, keepdim=True)
-        var.append(((xf - mean) ** 2).mean(dim=0).sum(dim=-1))
-        edges.append(edge_map(video.index_select(0, idx)))
-    maps16 = torch.stack(var + edges).to(torch.float16)
+     canny_w_sp(H) | sp_fea_mean], (V, H, W)), both left on the device.
+    The profiles come from the f16-rounded maps, as the host would compute
+    them from a fetched map."""
+    v, h, w = int(stack5d.shape[0]), int(stack5d.shape[2]), int(stack5d.shape[3])
+    maps16 = _batch_maps(stack5d)
     var32 = maps16[:v].float()
     edge32 = maps16[v:].float()
     sum_h = var32.mean(dim=1)  # [V, W] per-column variance profile
@@ -283,7 +303,15 @@ def batch_maps_profiles(stack5d):
         ],
         dim=1,
     )
-    return maps16, pack
+    return maps16, pack, (v, h, w)
+
+
+def batch_maps_profiles_device(stack5d):
+    """(maps16 on the device, a profile dict per video): the dispatch
+    above plus one fetch of the small profile pack
+    (`fsd.batch_maps_profiles_device`); the full maps stay on the device."""
+    maps16, pack, dims = batch_maps_profiles_dispatch(stack5d)
+    return maps16, unpack_profiles(pack.cpu().numpy(), *dims)
 
 
 # ---------------------------------------------------------------------------

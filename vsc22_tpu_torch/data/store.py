@@ -143,6 +143,12 @@ class RecordStore:
             self._lib.rs_close(self._handle)
             self._handle = None
 
+    @property
+    def using_native(self) -> bool:
+        """Always True: this reader has only the native route (the plain
+        one, `NumpyRecordReader`, is for the tests)."""
+        return True
+
 
 class NumpyRecordReader:
     """The plain version of `RecordStore`: the same reads through a numpy

@@ -26,6 +26,7 @@ import functools
 import numpy as np
 import torch
 
+from vsc22_tpu_torch.core.device import upload
 from vsc22_tpu_torch.data.presets import PRESETS
 
 
@@ -60,36 +61,60 @@ def cubic_resize_weights(
 
 
 @functools.lru_cache(maxsize=64)
-def _clip_resize_weights(h: int, w: int, size: int):
-    """(row, col) weights of a shortest-side resize to `size` followed by a
-    center crop: a column subset of the full resize matrices."""
+def _clip_resize_weights(h: int, w: int, size: int, device: torch.device):
+    """(row, col) weights on `device` of a shortest-side resize to `size`
+    followed by a center crop: a column subset of the full resize
+    matrices, uploaded once per (h, w, size, device)."""
     new_h, new_w, top, left = clip_crop_shape(h, w, size)
     row_w = cubic_resize_weights(h, new_h)[:, top : top + size]
     col_w = cubic_resize_weights(w, new_w)[:, left : left + size]
-    return row_w, col_w
+    return upload(row_w, device), upload(col_w, device)
+
+
+@functools.lru_cache(maxsize=64)
+def _square_resize_weights(h: int, w: int, size: int, device: torch.device):
+    """(row, col) weights on `device` of the square resize to `size`."""
+    return (upload(cubic_resize_weights(h, size), device),
+            upload(cubic_resize_weights(w, size), device))
+
+
+@functools.lru_cache(maxsize=64)
+def _constants(preset: str, dtype: torch.dtype, device: torch.device):
+    """(255 in `dtype`, mean, std) of `preset` on `device`, uploaded once:
+    a per-call upload from pageable memory would make the host wait. The
+    divisor stays a device tensor: CUDA divides by a host scalar as a
+    product with its reciprocal, which can round otherwise."""
+    mean, std = PRESETS[preset]
+    return (upload(np.array(255.0, np.float32), device).to(dtype),  # exact in bf16
+            upload(np.array(mean, np.float32), device),
+            upload(np.array(std, np.float32), device))
 
 
 def crop_resize_normalize(frames_u8, row_w, col_w, preset: str = "vit",
                           out_dtype=torch.float32):
     """[N, H, W, 3] uint8 -> [N, S, T, 3] normalized `out_dtype`, with the
-    crop and resize carried by row_w [H, S] and col_w [W, T]."""
-    mean, std = PRESETS[preset]
+    crop and resize carried by row_w [H, S] and col_w [W, T] (tensors on
+    the frames' device, or host arrays, which are uploaded). With every
+    operand on the card, nothing here makes the host wait."""
     ct = torch.bfloat16 if out_dtype == torch.bfloat16 else torch.float32
     device = frames_u8.device
-    x = frames_u8.to(ct) / torch.tensor(255.0, dtype=ct, device=device)
-    rw = torch.as_tensor(row_w, device=device).to(ct).float()
-    cw = torch.as_tensor(col_w, device=device).to(ct).float()
+    c255, mean_t, std_t = _constants(preset, ct, device)
+    x = frames_u8.to(ct) / c255
+    rw = _on(row_w, device).to(ct).float()
+    cw = _on(col_w, device).to(ct).float()
     y = torch.einsum("nhwc,hs->nswc", x.float(), rw).to(ct)
     y = torch.einsum("nswc,wt->nstc", y.float(), cw)
-    mean_t = torch.tensor(mean, dtype=torch.float32, device=device)
-    std_t = torch.tensor(std, dtype=torch.float32, device=device)
     return ((y - mean_t) / std_t).to(out_dtype)
+
+
+def _on(w, device: torch.device) -> torch.Tensor:
+    return w.to(device) if isinstance(w, torch.Tensor) else upload(w, device)
 
 
 def clip_preprocess(frames_u8, size: int = 224, out_dtype=torch.float32):
     """CLIP preset: shortest-side cubic resize to `size` + center crop."""
     _, h, w, _ = frames_u8.shape
-    row_w, col_w = _clip_resize_weights(int(h), int(w), size)
+    row_w, col_w = _clip_resize_weights(int(h), int(w), size, frames_u8.device)
     return crop_resize_normalize(frames_u8, row_w, col_w, preset="clip", out_dtype=out_dtype)
 
 
@@ -98,8 +123,7 @@ def resize_normalize(frames_u8, size: int, preset: str = "vit", out_dtype=torch.
     `jax.image.resize` cubic resize (no crop) of `transforms.resize_normalize`,
     as full-frame weight matrices."""
     _, h, w, _ = frames_u8.shape
-    row_w = cubic_resize_weights(int(h), size)
-    col_w = cubic_resize_weights(int(w), size)
+    row_w, col_w = _square_resize_weights(int(h), int(w), size, frames_u8.device)
     return crop_resize_normalize(frames_u8, row_w, col_w, preset=preset, out_dtype=out_dtype)
 
 

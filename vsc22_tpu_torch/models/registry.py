@@ -46,6 +46,7 @@ class Registry:
 
 
 BACKBONES = Registry("backbones")
+DATASETS = Registry("datasets")
 
 
 def build_backbone(cfg: Dict[str, Any], **extra):

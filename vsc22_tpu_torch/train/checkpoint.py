@@ -48,6 +48,9 @@ class CheckpointManager:
     def all_steps(self) -> list:
         return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(self.directory)) if m)
 
+    def close(self) -> None:
+        """Nothing to release: each save is whole on disk when it returns."""
+
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
         return steps[-1] if steps else None

@@ -19,6 +19,7 @@ import contextlib
 import logging
 import os
 import sys
+import threading
 import time
 from collections import defaultdict
 from typing import Callable, Dict, Iterator, Optional
@@ -63,12 +64,15 @@ def setup_logging(
 
 class StageTimer:
     """Accumulates wall-clock per named stage; `report()` summarizes.
-    `sync`, where given, is called at both edges of every stage."""
+    `sync`, where given, is called at both edges of every stage. Stages
+    may run on several threads at once (the batched pipeline's worker
+    times its half beside the caller's): the sums are taken under a lock."""
 
     def __init__(self, sync: Optional[Callable[[], None]] = None):
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
         self.sync = sync
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
@@ -80,19 +84,24 @@ class StageTimer:
         finally:
             if self.sync is not None:
                 self.sync()
-            self.totals[name] += time.perf_counter() - start
-            self.counts[name] += 1
+            elapsed = time.perf_counter() - start
+            with self._lock:
+                self.totals[name] += elapsed
+                self.counts[name] += 1
 
     def report(self) -> str:
+        with self._lock:
+            totals, counts = dict(self.totals), dict(self.counts)
         lines = []
-        for name in sorted(self.totals, key=lambda n: -self.totals[n]):
-            total = self.totals[name]
-            count = self.counts[name]
+        for name in sorted(totals, key=lambda n: -totals[n]):
+            total = totals[name]
+            count = counts[name]
             lines.append(f"{name}: {total:.3f}s total, {count} calls, {total / count:.4f}s/call")
         return "\n".join(lines)
 
     def as_dict(self) -> Dict[str, float]:
-        return dict(self.totals)
+        with self._lock:
+            return dict(self.totals)
 
 
 @contextlib.contextmanager

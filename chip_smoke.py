@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's query, eval, matching, training, offline, legacy-zoo and sharded paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's query, eval, matching, training, offline, legacy-zoo, sharded and learning-demo paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -19,7 +19,7 @@ result line):
      both; B6 and B7 at the stage 1 and stage 4 shapes (B7 naming each
      product's loop: bf16 tensor cores, f32 3xTF32 tensor cores; checked,
      with its products as cuBLAS calls beside); B5 at the search's
-     shape (a 4096-row query tile against 1.28M refs; f16 on the
+     shape (a 4096-row query tile against 1.28M refs; f16 and bf16 on the
      tensor-core route, f32 and f16 D 511 on the FFMA route, each naming
      its route), and K3 at a 4096-row slice of the eval's score-norm shape
      (against 128,000 noise frames, D 511), both with their products as
@@ -77,7 +77,10 @@ result line):
      (B5), the top 25 candidates, TN localization of the top 5 (the host
      library, in the calling process), candidate µAP > 0.95; B5's launches
      cover every 4096-row query
-     tile, all on the tensor-core route; for 256 sampled query rows
+     tile, all on the tensor-core route; the same search with the
+     searcher's `compute_dtype` bf16 (B5's bf16 tensor-core route only),
+     its largest score gap to the f16 search's candidates and its µAP
+     (> 0.95); for 256 sampled query rows
      `row_topk` on B5 equals the exact per-tile path. Every
      stage's wall time is printed, and the K3 call inside each score-norm,
      and K3 alone on the eval score-norm's own operands ([32000,511] x
@@ -219,14 +222,23 @@ result line):
      frames): each rank's sharded gradients within phase 8(b)'s bar of
      its one-rank gradients, its search equal, its extractor within 1e-4,
      and K1, K2 and B5 launched on the card in both ranks;
- 15. a JSON line of per-kernel numbers (B5's launches: phases 5 and 7;
+ 15. the learning demo's short form (`scripts/torch_learning_demo.py`:
+     256 training and 64 held-out procedural images, `descriptor_cli` on
+     the tiny SwinV2 at 64^2 with EMA and FGM, 2 epochs, then a resume to
+     4): the resumed run starts from the saved step and ends 2 epochs
+     later, the last epoch's mean logged loss is below the first's, and
+     the µAP before and after is printed;
+ 16. a JSON line of per-kernel numbers (B5's launches:
+     phases 5 and 7; its bf16 case's: phase 5's bf16 search;
      `launches_per_video`: phase 10(c); `zoo_launches` and `zoo_cases`:
-     phase 13; `parallel_launches`: phase 14(a)), then the device line.
+     phase 13; `parallel_launches`: phase 14(a); `demo_launches`: phase
+     15), then the device line.
 
 With `--training-only` it runs phases 1, 8, 9 and 11 alone (9(e) then on
 synthetic maps of phase 5's shape), with `--zoo-only` phases 1 and 13 (on
 videos and a frame store drawn for it), with `--parallel-only` phases 1
-and 14 (on a corpus drawn as phase 5's), and prints no result lines.
+and 14 (on a corpus drawn as phase 5's), with `--demo-only` phases 1 and
+15, and prints no result lines.
 
 Needs CUDA (it refuses to run without) and no network; builds in
 `vsc22_tpu_torch/_build/`. It imports nothing of JAX or of the JAX package.
@@ -857,12 +869,13 @@ def check_fused_mlp(args, case: str) -> dict:
     return dict(res, routes=r)
 
 
-# B5 against its plain version: scores and bound within TOPK_TOL (f16
-# products are exact in f32, and both sides sum them in f32 in another
+# B5 against its plain version: scores and bound within TOPK_TOL (f16 and
+# bf16 products are exact in f32, and both sides sum them in f32 in another
 # order); per row the same set of columns, except where the plain k-th and
 # (k+1)-th scores lie within TOPK_TOL, so a near tie at the cut may go
 # either way.
 TOPK_TOL = 1e-5
+TOPK_TAGS = {torch.float16: "f16", torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
 def topk_agreement(got, want) -> tuple:
@@ -902,8 +915,9 @@ def check_topk_kernel(device) -> dict:
     """B5 at the main-path shape: one 4096-row query tile against the
     1.28M-row reference corpus (40,000 videos x 32 frames), 512-d, the
     tail past num_valid masked, e 4 over 1024-column blocks, k 128; in
-    f16 (the eval's transfer type: the tensor-core route), f32, and f16 at
-    D 511 (both the FFMA route). Each case names its route and times its
+    f16 (the eval's transfer type) and bf16 (the searcher's
+    `compute_dtype`), both on the tensor-core route, and f32 and f16 at D
+    511 (both the FFMA route). Each case names its route and times its
     products as chunked cuBLAS calls in its own type beside it."""
     from vsc22_tpu_torch.ops import topk
 
@@ -911,13 +925,15 @@ def check_topk_kernel(device) -> dict:
     nq, nr, nv, e, tile_r, k = 4096, 1_280_000, 1_279_000, 4, 1024, 128
     q32, r32 = unit_rows(gen, nq, 512, device), unit_rows(gen, nr, 512, device)
     results = {}
-    for dt, d, reps in ((torch.float16, 512, 5), (torch.float32, 512, 2), (torch.float16, 511, 2)):
+    for dt, d, reps in ((torch.float16, 512, 5), (torch.bfloat16, 512, 5),
+                        (torch.float32, 512, 2), (torch.float16, 511, 2)):
         q = q32[:, :d].to(dt).contiguous()
         r = r32[:, :d].to(dt).contiguous()
         kw = dict(e=e, tile_r=tile_r)
+        tag = TOPK_TAGS[dt]
         route = topk.topk_route(dt, d, q, r)
-        check(route == ("mma" if (dt, d) == (torch.float16, 512) else "ffma"),
-              f"extract_topk {dname(dt)} D{d}: route {route}")
+        check(route == ("ffma" if dt == torch.float32 or d % 8 else "mma"),
+              f"extract_topk {tag} D{d}: route {route}")
         got = topk.extract_topk(q, r, nv, k=k, **kw)
         want = topk.extract_topk_reference(q, r, nv, k=k + 1, **kw)
         torch.cuda.synchronize()
@@ -930,7 +946,6 @@ def check_topk_kernel(device) -> dict:
         res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                    products_cublas_ms=products_ms, loop=route,
                    **bound(*work_extract_topk(nq, nr, nv, d, k, q.element_size()), dt))
-        tag = "f16" if dt == torch.float16 else "f32"
         # the FFMA route's own floor: every product an f32 FFMA
         ffma_ms = 1e3 * 2 * nq * nv * d / PEAK_FLOPS[torch.float32]
         print(f"  extract_topk {tag} [{nq},{d}]x[{nr},{d}] num_valid {nv} e={e} tile_r={tile_r} "
@@ -941,7 +956,7 @@ def check_topk_kernel(device) -> dict:
               f"floor {ffma_ms:.3f} ms", flush=True)
         check(ok, f"extract_topk {tag} D{d}: kernel disagrees with its plain version "
                   f"(max_abs_err {err}, {differ} rows)")
-        results[("extract_topk", f"D{d}", tag)] = res
+        results[("extract_topk_bf16" if tag == "bf16" else "extract_topk", f"D{d}", tag)] = res
         del q, r
     del q32, r32
     torch.cuda.empty_cache()
@@ -1080,8 +1095,9 @@ def run_slice(pipe, noise, names, videos, device, dev_videos=None, batch=24):
 def zero_counts(wrappers) -> None:
     for w in wrappers:
         w.launches = 0
-        for route in getattr(w, "route_launches", {}):
-            w.route_launches[route] = 0
+        for by in ("route_launches", "dtype_launches"):
+            for key in getattr(w, by, {}):
+                getattr(w, by)[key] = 0
 
 
 def counts(wrappers) -> dict:
@@ -1657,6 +1673,46 @@ def check_b5_against_exact(sn_queries, sn_refs, device, rows=256, k=128) -> None
     torch.cuda.empty_cache()
 
 
+def bf16_search(sn_q, sn_refs, candidates, gt_pairs, ap: float, device) -> int:
+    """The eval's budget search again with the searcher's `compute_dtype`
+    bf16 (the refs shipped in f16 as before, then rounded to bf16 on the
+    card; B5 on its bf16 tensor-core route), against the f16 search's
+    candidates: the score gap over the pairs both keep, the shared share,
+    and the µAP of both (bf16's held to the f16 search's bar). Returns
+    B5's bf16 launches."""
+    from vsc22_tpu_torch.core.metrics import average_precision
+    from vsc22_tpu_torch.ops.topk import extract_topk
+    from vsc22_tpu_torch.pipelines import descriptor_eval
+    from vsc22_tpu_torch.retrieval import index
+
+    real = index.SimilaritySearcher
+    index.SimilaritySearcher = lambda *a, **kw: real(*a, compute_dtype=torch.bfloat16, **kw)
+    before = dict(extract_topk.route_launches)
+    extract_topk.dtype_launches[torch.bfloat16] = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = descriptor_eval.search(sn_q, sn_refs, transfer_dtype=np.float16, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        index.SimilaritySearcher = real
+    launches = extract_topk.dtype_launches[torch.bfloat16]
+    ffma = extract_topk.route_launches["ffma"] - before["ffma"]
+    ap_bf16 = average_precision(gt_pairs, got).ap
+    f16 = {(c.query_id, c.ref_id): c.score for c in candidates}
+    both = [(c.score, f16[(c.query_id, c.ref_id)]) for c in got
+            if (c.query_id, c.ref_id) in f16]
+    gap = max(abs(a - b) for a, b in both)
+    print(f"  the same search with compute_dtype bf16 (f16 shipped, bf16 products): {wall:.3f} s, "
+          f"B5 bf16 launches {launches} (all on the tensor-core route: {ffma == 0}); "
+          f"{len(both)} of {len(got)} candidates shared with the f16 search, largest score "
+          f"gap {gap:.3e}; candidate µAP bf16 {ap_bf16:.4f}, f16 {ap:.4f}", flush=True)
+    check(launches > 0 and ffma == 0, "eval: the bf16 search left B5's tensor-core route")
+    check(ap_bf16 > 0.95, f"eval: the bf16 search's candidate µAP {ap_bf16:.4f} <= 0.95")
+    return launches
+
+
 def run_eval(device, wrappers, card: str, corpus, corpus_s: float) -> dict:
     """The descriptor-track eval path as `scripts/scaled_eval.py` runs it:
     score-norm (beta 1.2, nk 1), the global budget search of 1200 hits per
@@ -1717,6 +1773,7 @@ def run_eval(device, wrappers, card: str, corpus, corpus_s: float) -> dict:
           flush=True)
     ap = timed_stage(stages, "metrics", lambda: average_precision(gt_pairs, candidates)).ap
     launches = counts(wrappers)
+    launches["extract_topk_bf16"] = bf16_search(sn_q, sn_refs, candidates, gt_pairs, ap, device)
     # Phase 9's TN check: the maps the alignment got for the first candidates.
     q_feats = {q.video_id: q.feature for q in sn_q}
     r_feats = {r.video_id: r.feature for r in sn_refs}
@@ -4483,6 +4540,49 @@ def phase_14(device, card: str, corpus) -> dict:
 LIBRARIES = ("attn_proj", "ln_mlp", "row_max", "window_attn", "swin_block", "extract_topk",
              "attn", "vit_block")
 # name -> (source, the TPU kernel it replaces, the phase-2 case reported)
+# --- phase 15: the learning demo's short form --------------------------------
+
+DEMO_SHORT = dict(n_train=256, n_val=64, epochs_a=2, epochs_b=4, batch_size=64)
+
+
+def phase_15(card: str, wrappers) -> dict:
+    """`scripts/torch_learning_demo.py` at a short form on the card: the
+    procedural corpus (256 train, 64 held-out images), `descriptor_cli`
+    with EMA and FGM for 2 epochs, then resumed to 4. The resumed run
+    starts from the step the first saved and ends 2 epochs later, and the
+    mean logged loss of the last epoch is below the first's. The µAP is
+    printed, with no bar at this length (the full run's is in
+    docs/torch_learning_demo.md). Returns the phase's launches by kernel."""
+    import tempfile
+
+    from scripts import torch_learning_demo as demo
+
+    argv = [f"--{k}={v}" for k, v in DEMO_SHORT.items()] + [
+        "--print_freq", "1", "--min_gain", "-1", "--out_md", ""]
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        res = demo.main(argv + ["--work_dir", root])
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in counts(wrappers).items() if v}
+    per_epoch = DEMO_SHORT["n_train"] // DEMO_SHORT["batch_size"]
+    losses = [loss for *_, loss in res["losses"]]
+    first, last = float(np.mean(losses[:per_epoch])), float(np.mean(losses[-per_epoch:]))
+    print(f"  short demo on {card}: {wall:.1f} s in all, training {res['train_s']:.1f} s "
+          f"({res['images_per_s']:.1f} images/s), steps {res['saved_step']} saved, resumed "
+          f"from {res['resumed_from']}, ended at {res['final_step']}; mean logged loss first "
+          f"epoch {first:.3f}, last {last:.3f}; µAP untrained {res['uap_untrained']:.4f}, "
+          f"trained {res['uap_trained']:.4f}, EMA {res['uap_ema']:.4f}; launches {launches}",
+          flush=True)
+    check(res["saved_step"] == 2 * per_epoch == res["resumed_from"]
+          and res["final_step"] == 4 * per_epoch,
+          f"demo: saved {res['saved_step']}, resumed from {res['resumed_from']}, ended at "
+          f"{res['final_step']}")
+    check(len(losses) == 4 * per_epoch and all(np.isfinite(losses)), f"demo: losses {losses}")
+    check(last < first, f"demo: the loss did not fall ({first:.3f} -> {last:.3f})")
+    return launches
+
+
 KERNELS = {
     "attn_proj_residual": ("vsc22_tpu_torch/csrc/attn_proj.cu",
                            "vsc22_tpu/ops/pallas_attn_proj.py:144", ("clip", "bf16")),
@@ -4498,6 +4598,9 @@ KERNELS = {
                   "vsc22_tpu/ops/pallas_mlp.py:70", ("stage4", "f32")),
     "extract_topk": ("vsc22_tpu_torch/csrc/extract_topk.cu",
                      "vsc22_tpu/ops/pallas_topk.py:83", ("D512", "f16")),
+    # B5's bf16 case (the searcher's compute_dtype), launched by phase 5's bf16 search
+    "extract_topk_bf16": ("vsc22_tpu_torch/csrc/extract_topk.cu",
+                          "vsc22_tpu/ops/pallas_topk.py:83", ("D512", "bf16")),
     "packed_attention": ("vsc22_tpu_torch/csrc/attn.cu",
                          "vsc22_tpu/ops/pallas_attn.py:82", ("clip", "bf16")),
     "ln_attn_proj_residual": ("vsc22_tpu_torch/csrc/attn_proj.cu",
@@ -4535,12 +4638,14 @@ def main(argv=None) -> int:
     phases 1 and 13 (on videos and a frame store drawn for it); with
     `--parallel-only`, phases 1 and 14 (on a corpus drawn as phase 5's);
     with `--query-only`, phases 1 and 3 (the query pipeline, parts (a) and
-    (b)); none prints the result lines."""
+    (b)); with `--demo-only`, phases 1 and 15 (the learning demo's short
+    form); none prints the result lines."""
     args = sys.argv[1:] if argv is None else argv
     training_only = "--training-only" in args
     zoo_only = "--zoo-only" in args
     parallel_only = "--parallel-only" in args
     query_only = "--query-only" in args
+    demo_only = "--demo-only" in args
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 2
@@ -4571,7 +4676,7 @@ def main(argv=None) -> int:
           f"{torch.cuda.device_count()} device(s)", flush=True)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES) + 3) as pool:
-        host = [] if training_only or zoo_only or parallel_only else [
+        host = [] if training_only or zoo_only or parallel_only or demo_only else [
             pool.submit(prepare_slice, device)]
         if host and not query_only:
             host.append(pool.submit(prepare_corpus))
@@ -4595,6 +4700,11 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as cli_root:
             videos = synth_videos(CLI_VIDEOS, 32, 360, 640)
             phase_13(device, card, wrappers, videos, timed_cli_corpus(cli_root, videos))
+        print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    if demo_only:
+        print(f"phase 15: the learning demo's short form ({card})", flush=True)
+        phase_15(card, wrappers)
         print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
     if parallel_only:
@@ -4758,6 +4868,7 @@ def main(argv=None) -> int:
     eval_launches, corpus, (tn_maps, tn_wall) = run_eval(device, wrappers, card,
                                                          host.pop("corpus"), host["corpus_s"])
     launches["extract_topk"] = eval_launches["extract_topk"]
+    launches["extract_topk_bf16"] = eval_launches["extract_topk_bf16"]
     phase_took(5, t_phase)
 
     print(f"phase 6: the CLIP block variants ({card})", flush=True)
@@ -4789,6 +4900,10 @@ def main(argv=None) -> int:
     del videos
     par_launches = phase_14(device, card, eval_corpus)
     del eval_corpus
+    print(f"phase 15: the learning demo's short form ({card})", flush=True)
+    t0 = time.perf_counter()
+    demo_launches = phase_15(card, wrappers)
+    phase_took(15, t0)
 
     kernels = []
     check(all(launches[name] > 0 for name in KERNELS), f"a kernel never ran: {launches}")
@@ -4801,6 +4916,7 @@ def main(argv=None) -> int:
             library_ms=r["library_ms"], case=f"{tag} {dn}",
             launches_per_video=per_video.get(name, 0),
             zoo_launches=zoo_launches.get(name, 0),
+            demo_launches=demo_launches.get(name, 0),
             parallel_launches={part: c.get(name, 0) for part, c in par_launches.items()},
             **{k: r[k] for k in ("products_cublas_ms", "ln_rows_ms", "routes", "loop")
                if k in r},

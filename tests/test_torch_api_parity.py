@@ -6,7 +6,12 @@ and assignments, every top-level class (a private one too), and every
 method of those classes but dunders (a private one too: the batched
 pipeline's phases are private). The port's twin is the module of the same
 path, where a name may also be imported. A JAX module without such a twin,
-or a name the twin lacks, must stand on a list below with its reason."""
+or a name the twin lacks, must stand on a list below with its reason.
+
+Keywords too: every parameter of each public function of a JAX module, and
+of each method the names test checks (and of each `__init__`), is a
+parameter of the twin's function of the same name (or the twin takes
+`**kwargs`), or stands on `KEYWORDS_BY_DESIGN` with its reason."""
 
 import ast
 import pathlib
@@ -66,6 +71,101 @@ NAMES_BY_DESIGN = {
 }
 
 
+_FLAX_TREE = ("a flax parameter tree passed beside the model (or a template of one); a "
+              "torch module holds its own weights, so the twin takes or fills the module")
+_FLAX_INIT = ("flax initialises a tree from a PRNG key and a sample input; the twin takes "
+              "a built torch module (`reset_parameters` seeds it)")
+_FUNCTIONAL = ("JAX passes the backbone as an apply function and the heads' flax module "
+               "beside their trees; the twin's ByolNet holds backbone and heads")
+_SCAN_KNOB = ("tunes only the JAX searcher's own XLA scan or Pallas dispatch: every value "
+              "gives the same exact results, and the port's scan picks its own tiles and "
+              "B5's dispatch rule")
+
+# (JAX module, function or Class.method, keyword) the twin does not take.
+KEYWORDS_BY_DESIGN = {
+    **{("utils/port_weights.py", f, "params_template"): _FLAX_TREE
+       for f in ("port_vit_augreg_npz", "port_vit_torch_state_dict", "port_clip_torch_state_dict",
+                 "port_vsm_torch_state_dict", "port_swinv2_torch_state_dict")},
+    **{("utils/port_weights.py", f, "variables_template"): _FLAX_TREE
+       for f in ("port_hrnet_torch_state_dict", "port_mnv3_torch_state_dict")},
+    ("train/checkpoint.py", "load_params_snapshot", "params_template"): _FLAX_TREE,
+    ("train/checkpoint.py", "load_cnn_snapshot", "variables_template"): _FLAX_TREE,
+    ("train/checkpoint.py", "save_cnn_snapshot", "params"): _FLAX_TREE,
+    ("train/checkpoint.py", "save_cnn_snapshot", "batch_stats"): _FLAX_TREE,
+    ("train/vid_score.py", "evaluate_ap", "params"): _FLAX_TREE,
+    ("utils/export.py", "export_model", "params"): _FLAX_TREE,
+    ("utils/export.py", "load_exported_with_params", "params_template"): _FLAX_TREE,
+    ("pipelines/clip_features.py", "ClipFeatureExtractor.__init__", "clip_params"): _FLAX_TREE,
+    ("train/contrastive.py", "create_train_state", "rng"): _FLAX_INIT,
+    ("train/contrastive.py", "create_train_state", "sample_batch"): _FLAX_INIT,
+    ("train/matching.py", "create_cnn_state", "rng"): _FLAX_INIT,
+    ("train/matching.py", "create_cnn_state", "sample_input"): _FLAX_INIT,
+    ("train/vid_score.py", "create_vid_score_state", "rng"): _FLAX_INIT,
+    ("train/vid_score.py", "create_vid_score_state", "sample_feats"): _FLAX_INIT,
+    ("train/byol.py", "init_byol", "backbone_init"): _FLAX_INIT,
+    ("train/byol.py", "init_byol", "rng"): _FLAX_INIT,
+    ("train/byol.py", "init_byol", "sample_emb"): _FLAX_INIT,
+    ("train/byol.py", "make_byol_step", "apply_backbone"): _FUNCTIONAL,
+    ("train/byol.py", "make_byol_step", "heads"): _FUNCTIONAL,
+    ("train/byol.py", "byol_loss", "apply_backbone"): _FUNCTIONAL,
+    ("train/byol.py", "byol_loss", "heads"): _FUNCTIONAL,
+    ("train/byol.py", "byol_loss", "online_params"):
+        "the online network's flax tree; the twin takes the online ByolNet",
+    ("train/byol.py", "byol_loss", "target_params"):
+        "the target network's flax tree; the twin takes the target ByolNet",
+    ("models/mae.py", "random_masking", "rng"):
+        "a JAX PRNG key; the twin takes the drawn noise [B, L] (`masking_noise` draws it)",
+    ("parallel/mesh.py", "create_mesh", "devices"):
+        "a list of JAX devices; the port's mesh spans the process group's ranks, one "
+        "device each, so there is no device list to pass",
+    ("parallel/mesh.py", "infer_param_spec", "path"):
+        "the flax parameter path; the twin keys a parameter by its torch name (`name`)",
+    ("pipelines/batch_query.py", "BatchedQueryPipeline.__init__", "ensemble_unroll"):
+        "how `_ScannedEnsemble` runs its stacked members (unrolled or scanned); the port "
+        "has no _ScannedEnsemble (NAMES_BY_DESIGN)",
+    ("train/checkpoint.py", "CheckpointManager.save", "wait"):
+        "orbax's asynchronous save; no JAX caller passes False, and the port writes in "
+        "the caller's thread (an off-thread write is a perf_opt lever after the bench)",
+    **{("retrieval/search.py", "SimilaritySearcher.__init__", k): _SCAN_KNOB
+       for k in ("ref_tile", "query_tile", "extract_e", "use_fused_extract")},
+}
+
+
+def _functions(path: pathlib.Path, public_only: bool) -> dict:
+    """{name or Class.method: def node}: top-level functions (public ones
+    only with `public_only`) and the methods of top-level classes, dunders
+    left out but `__init__`."""
+    tree = ast.parse(path.read_text())
+    out = {n.name: n for n in tree.body if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))
+           and not (public_only and n.name.startswith("_"))}
+    for cls in _classes(tree):
+        out.update({f"{cls.name}.{f.name}": f for f in cls.body
+                    if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+                    and (f.name == "__init__" or not f.name.startswith("__"))})
+    return out
+
+
+def _keywords(fn) -> tuple:
+    """(parameter names but self/cls, whether it takes **kwargs)."""
+    a = fn.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    return [n for n in names if n not in ("self", "cls")], a.kwarg is not None
+
+
+def keyword_gaps(module: str) -> set:
+    """(function, keyword) pairs of the JAX module that its twin lacks,
+    over the functions both define (a missing name is the names test's)."""
+    ours = _functions(PORT / module, public_only=False)
+    gaps = set()
+    for name, fn in _functions(JAX / module, public_only=True).items():
+        if name not in ours or (module, name.split(".")[0]) in NAMES_BY_DESIGN:
+            continue
+        theirs, takes_any = _keywords(ours[name])
+        if not takes_any:
+            gaps |= {(name, k) for k in _keywords(fn)[0] if k not in theirs}
+    return gaps
+
+
 def _classes(tree):
     return [n for n in tree.body if isinstance(n, ast.ClassDef)]
 
@@ -122,9 +222,20 @@ def test_port_twin_has_every_name(module):
     assert not missing, f"the port's {module} lacks {sorted(missing)}"
 
 
+@pytest.mark.parametrize("module", [m for m in JAX_MODULES if (PORT / m).exists()])
+def test_port_twin_takes_every_keyword(module):
+    missing = {(f, k) for f, k in keyword_gaps(module)
+               if (module, f, k) not in KEYWORDS_BY_DESIGN}
+    assert not missing, f"the port's {module} does not take {sorted(missing)}"
+
+
 def test_by_design_lists_hold_only_what_is_missing():
-    """No stale entry: each listed module lacks its twin, and each listed
-    name is in its JAX module and not in the port's."""
+    """No stale entry: each listed module lacks its twin, each listed
+    name is in its JAX module and not in the port's, and each listed
+    keyword is one the JAX function takes and its twin does not."""
+    for (module, name, keyword), reason in KEYWORDS_BY_DESIGN.items():
+        assert reason
+        assert (name, keyword) in keyword_gaps(module), (module, name, keyword)
     for module in MODULES_BY_DESIGN:
         assert (JAX / module).exists() and not (PORT / module).exists(), module
     for (module, name), reason in NAMES_BY_DESIGN.items():

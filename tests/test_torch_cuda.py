@@ -1042,6 +1042,44 @@ def test_extract_topk_rejects_what_the_kernel_does_not_take(device):
         extract_topk(q, torch.zeros(16, 8, device=device), 16, e=9, tile_r=16, k=2)
 
 
+@pytest.mark.parametrize("nq,nr,d,nv,e,tile_r,k", [c for c in TOPK_CASES if c[2] % 8 == 0])
+def test_extract_topk_bf16_on_the_tensor_core_route(device, nq, nr, d, nv, e, tile_r, k):
+    """B5 in bf16 (the searcher's `compute_dtype`): the tensor-core route,
+    held to its plain version (the f32 products of the bf16 operands) at
+    TOPK_TOL; off the route's rule (D % 8, alignment) it raises."""
+    gen = torch.Generator().manual_seed(nq + nr + d + e)
+    q = randn(gen, (nq, d), d**-0.5, torch.bfloat16, device)
+    r = randn(gen, (nr, d), d**-0.5, torch.bfloat16, device)
+    assert topk_route(torch.bfloat16, d, q, r) == "mma"
+    before = dict(extract_topk.route_launches), extract_topk.dtype_launches[torch.bfloat16]
+    got = extract_topk(q, r, nv, e=e, tile_r=tile_r, k=k)
+    assert extract_topk.route_launches["mma"] == before[0]["mma"] + 1
+    assert extract_topk.dtype_launches[torch.bfloat16] == before[1] + 1
+    want = extract_topk_reference(q, r, nv, e=e, tile_r=tile_r, k=k + 1)
+    torch.cuda.synchronize()
+    ok, err, differ = chip_smoke.topk_agreement(got, want)
+    assert ok, (err, differ)
+    with pytest.raises(ValueError, match="tensor-core loop only"):
+        extract_topk(q[:, 1:].contiguous(), r[:, 1:].contiguous(), nv, e=e, tile_r=tile_r, k=k)
+
+
+def test_extract_topk_bf16_duplicate_rows_bitwise(device):
+    """Small integers are exact in bf16, and so is every sum: B5's bf16
+    route equals its plain version bit for bit, lowest column first."""
+    gen = torch.Generator().manual_seed(5)
+    d, nr, tile_r = 40, 2100, 256
+    r = torch.randint(-1, 2, (nr, d), generator=gen).float()
+    q = torch.randint(0, 3, (70, d), generator=gen).float()
+    r[[3, 70, 71, 200, 255, 256, 300, 301, 1800, 2099]] = 3.0
+    r[2000:2050] = r[1999]
+    q, r = q.bfloat16().to(device), r.bfloat16().to(device)
+    got = extract_topk(q, r, nr, e=4, tile_r=tile_r, k=12)
+    want = extract_topk_reference(q, r, nr, e=4, tile_r=tile_r, k=12)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 # sha256 of B5's outputs on `b5_digest_args`, from the kernel before the
 # tensor-core route was added: the FFMA route must not have moved.
 B5_FFMA_DIGESTS = {

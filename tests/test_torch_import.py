@@ -251,7 +251,7 @@ def test_port_sources_never_import_jax():
     """Neither JAX, nor the JAX package, nor pandas: `vsc22_tpu` is
     imported by no line, not even inside a function."""
     files = [*(ROOT / "vsc22_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
-             ROOT / "scripts" / "torch_perf_train.py"]
+             ROOT / "scripts" / "torch_perf_train.py", ROOT / "scripts" / "torch_learning_demo.py"]
     assert len(files) > 10
     for f in files:
         for line in f.read_text().splitlines():
@@ -260,6 +260,35 @@ def test_port_sources_never_import_jax():
                 continue
             top = mod.split(".")[0]
             assert top not in ("jax", "flax", "vsc22_tpu", "pandas"), (f, line)
+
+
+def test_shell_entry_points_have_port_twins():
+    """Each `scripts/X.sh` has `scripts/torch_X.sh`, the same lines but its
+    header comment, every `python -m vsc22_tpu.<m>` run as
+    `python -m vsc22_tpu_torch.<m>` (a module the port has), and no line
+    naming the JAX package; and the learning demo imports alone without
+    JAX."""
+    scripts = sorted(p for p in (ROOT / "scripts").glob("*.sh") if not p.name.startswith("torch_"))
+    assert len(scripts) == 7
+    for sh in scripts:
+        twin = sh.with_name("torch_" + sh.name)
+        body = [line for line in sh.read_text().splitlines()[1:] if not line.startswith("#")]
+        port = [line for line in twin.read_text().splitlines()[1:] if not line.startswith("#")]
+        assert port == [line.replace("python -m vsc22_tpu.", "python -m vsc22_tpu_torch.")
+                        .replace(f"usage: {sh.name}", f"usage: {twin.name}") for line in body]
+        modules = [w for line in port for w in line.split() if w.startswith("vsc22_tpu")]
+        assert modules and all(m.startswith("vsc22_tpu_torch.") for m in modules), twin
+        assert all((ROOT / (m.replace(".", "/") + ".py")).is_file() for m in modules), modules
+        assert twin.stat().st_mode & 0o111, twin
+    code = ("import sys\n"
+            "import scripts.torch_learning_demo as d\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'vsc22_tpu', 'pandas')\n"
+            "             or m.startswith(('jax.', 'flax', 'vsc22_tpu.', 'pandas.')))\n"
+            "assert not bad and callable(d.main), bad\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
 @pytest.mark.parametrize(

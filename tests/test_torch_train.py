@@ -145,15 +145,33 @@ def test_three_fgm_ema_steps_match_jax(kind):
     loss of each step, and the params and EMA after the third. "vit_plain"
     sets dropout and drop-path to 1e-9: both sides take the plain train
     path (every mask keeps, the scale rounds to 1)."""
+    check_three_fgm_ema_steps(kind)
+
+
+def three_fgm_ema_steps(kind, entropy_weight: float = 30.0, dtype=np.float32) -> dict:
+    """Run `test_three_fgm_ema_steps_match_jax`'s steps at an entropy
+    weight, with the params and images in `dtype` (float64 needs both
+    packages' float32 casts lifted: `test_torch_train_faults.float64_everywhere`).
+    Flat JAX-keyed trees, each as (port, JAX): `grads`, the first step's
+    gradients; `params` and `ema` after the third step; and `losses`, the
+    (port, JAX) loss of each step, and `steps`, the port state's count."""
     jm, pm, entries, size = _models(kind)
     rng = np.random.default_rng(2)
     imgs = {k: rng.standard_normal((3, size, size, 3)).astype(np.float32)
             for k in ("img_a", "img_b")}
     variables = randomized_params(jm.init(jax.random.PRNGKey(0), jnp.asarray(imgs["img_a"])),
                                   seed=3)
+    if dtype == np.float64:
+        imgs = {k: v.astype(np.float64) for k, v in imgs.items()}
+        variables = jax.tree.map(lambda a: np.asarray(a, np.float64), variables)
+        jm = jm.clone(dtype=jnp.float64)
+        pm = pm.double()
+        for m in pm.modules():
+            if isinstance(getattr(m, "dtype", None), torch.dtype):
+                m.dtype = torch.float64
     jax_params.load_entries(entries, variables)
     cfg = jc.ContrastiveConfig(learning_rate=1e-3, warmup_ratio=0.0, total_steps=10,
-                               fgm_epsilon=0.1, ema_decay=0.9)
+                               fgm_epsilon=0.1, ema_decay=0.9, entropy_weight=entropy_weight)
     pcfg = tc.ContrastiveConfig(**dataclasses.asdict(cfg))
     batch = {k: jnp.asarray(v) for k, v in imgs.items()}
     tbatch = {k: torch.from_numpy(v) for k, v in imgs.items()}
@@ -167,12 +185,8 @@ def test_three_fgm_ema_steps_match_jax(kind):
     state, tx = tc.create_train_state(pm, pcfg)
     step = tc.make_train_step(pm, tx, pcfg)
     _, grads = step.gradients(tbatch, torch.Generator().manual_seed(0))
-    by_id = {id(p): g for p, g in zip(pm.parameters(), grads)}
-    for k, t, layout in entries:
-        want = jax_params._TO_PORT[layout](np.asarray(jax_params._leaf(jgrads, k)))
-        got = by_id[id(t)].numpy()
-        scale = max(float(np.abs(want).max()), 1e-30)
-        assert np.abs(got - want).max() <= GRAD_TOL * scale, ("/".join(k), scale)
+    out = {"grads": (jax_params.jax_flat_params(
+        entries, {id(p): g for p, g in zip(pm.parameters(), grads)}), _flat(jgrads))}
 
     # Three steps.
     jtx = jc.make_optimizer(cfg)
@@ -181,19 +195,36 @@ def test_three_fgm_ema_steps_match_jax(kind):
                            ema_params=jax.tree.map(jnp.copy, variables))
     jstep = jc.make_train_step(jm, jtx, cfg)
     gen = torch.Generator().manual_seed(0)
+    out["losses"] = []
     for i in range(3):
         jstate, jmetrics = jstep(jstate, batch, jax.random.fold_in(key, i))
         state, metrics = step(state, tbatch, gen)
-        np.testing.assert_allclose(float(metrics["loss"]), float(jmetrics["loss"]),
-                                   rtol=LOSS_TOL, err_msg=f"step {i}")
-    assert state.step == 3
-    for got_tree, want_tree in ((state.params, jstate.params),
-                                (state.ema_params, jstate.ema_params)):
+        out["losses"].append((float(metrics["loss"]), float(jmetrics["loss"])))
+    out["steps"] = state.step
+    for name, got_tree, want_tree in (("params", state.params, jstate.params),
+                                      ("ema", state.ema_params, jstate.ema_params)):
         tensors = {id(p): got_tree[n] for n, p in pm.named_parameters()}
-        got = jax_params.jax_flat_params(entries, tensors)
-        want = _flat(want_tree)
-        assert got.keys() == want.keys()
-        assert_params_close(got, want, _flat(jgrads))
+        out[name] = (jax_params.jax_flat_params(entries, tensors), _flat(want_tree))
+    return out
+
+
+def check_three_fgm_ema_steps(kind, entropy_weight: float = 30.0, dtype=np.float32):
+    """`three_fgm_ema_steps` held to the bars: every gradient leaf within
+    GRAD_TOL of its largest |JAX| element, each loss within LOSS_TOL, the
+    params and EMA by `assert_params_close`."""
+    r = three_fgm_ema_steps(kind, entropy_weight, dtype)
+    got, want = r["grads"]
+    assert got.keys() == want.keys()
+    for k in want:
+        scale = max(float(np.abs(want[k]).max()), 1e-30)
+        assert np.abs(got[k] - want[k]).max() <= GRAD_TOL * scale, (k, scale)
+    for i, (loss, jloss) in enumerate(r["losses"]):
+        np.testing.assert_allclose(loss, jloss, rtol=LOSS_TOL, err_msg=f"step {i}")
+    assert r["steps"] == 3
+    for name in ("params", "ema"):
+        got, jtree = r[name]
+        assert got.keys() == jtree.keys()
+        assert_params_close(got, jtree, want)
 
 
 def assert_params_close(got: dict, want: dict, ref_grads: dict | None = None) -> None:

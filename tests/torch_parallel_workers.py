@@ -180,6 +180,22 @@ def search_rank(index, count, store_path, data):
         return out
 
 
+def search_modes_rank(index, count, store_path, refs, q):
+    """The sharded searcher's `compute_dtype` bf16 and `use_approx` modes:
+    row top-10 and global top-300 of `q` over `refs` on a (count, 1) mesh."""
+    from vsc22_tpu_torch.retrieval import search
+
+    with gloo_world(index, count, store_path):
+        mesh = create_mesh((count, 1))
+        out = {}
+        for mode, kw in (("bf16", dict(compute_dtype=torch.bfloat16)),
+                         ("approx", dict(use_approx=True))):
+            s = search.SimilaritySearcher(refs, device="cpu", mesh=mesh, **kw)
+            out[f"{mode}_row_topk"] = s.row_topk(q, 10)
+            out[f"{mode}_global_topk"] = s.global_topk(q, 300)
+        return out
+
+
 # --- training ------------------------------------------------------------------
 
 

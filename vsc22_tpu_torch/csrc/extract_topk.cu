@@ -5,8 +5,9 @@
 // (:83; its pallas_call at :100, kernel body `_extract_kernel` :52). The
 // TPU kernel splits f32 operands into bf16 hi/lo pairs because Mosaic has
 // no f32 product; here the searcher's own operands, f16 (the eval's
-// transfer type) or f32, are read as they are and summed in f32, never
-// TF32: f16 x f16 products are exact in f32 (see row_max.cu). Columns at
+// transfer type), bf16 (its `compute_dtype`) or f32, are read as they are
+// and summed in f32, never TF32: f16 x f16 and bf16 x bf16 products are
+// exact in f32 (see row_max.cu). Columns at
 // or past `num_valid` score float32's lowest value, and among equal scores
 // the lowest column wins, as `argmax` does in the TPU peel.
 //
@@ -17,15 +18,16 @@
 // compute-bound.
 //
 // Two product loops, by a static rule (`topk_is_mma`, mirrored by
-// ops/topk.py `topk_route`, which passes the route in): f16 operands with
-// D % 8 == 0 and 16-byte-aligned bases take the tensor cores; f32
-// operands and every other D take the FFMA tile. Both fold each finished
+// ops/topk.py `topk_route`, which passes the route in): f16 or bf16
+// operands with D % 8 == 0 and 16-byte-aligned bases take the tensor
+// cores; f32 operands and f16 at every other D take the FFMA tile. bf16
+// has no FFMA route: off the rule it is refused. Both fold each finished
 // 128x128 sub-tile of scores from shared memory into per-thread top-e
 // lists, so the [128, tile_r] score block never reaches HBM.
 //
 // The tensor-core kernel: one block of 256 threads per (128-query tile,
 // ref block). It loops over the block's 128-column sub-tiles, each the
-// tile of gemm_nt.cuh `mma_nt_tile<__half>` (mma.sync m16n8k16, f16
+// tile of gemm_nt.cuh `mma_nt_tile<T>` (mma.sync m16n8k16, f16 or bf16
 // operands through a 3-stage cp.async ring and ldmatrix, each mma's
 // 16-term partial joined to the f32 sums by a round-to-nearest add). The
 // finished accumulator fragments go to shared memory over the ring's own
@@ -168,10 +170,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// ---- the tensor-core kernel (f16, D % 8 == 0, 16-byte-aligned operands) ----
+// ---- the tensor-core kernel (f16 or bf16, D % 8 == 0, 16-byte-aligned) ----
 
-inline bool topk_is_mma(int f16, int D, const void* q, const void* r) {
-  return f16 && D % 8 == 0 && aligned16(q) && aligned16(r);
+enum Dtype { kF32 = 0, kF16 = 1, kBF16 = 2 };  // ops/topk.py `_DTYPE_CODE`
+
+inline bool topk_is_mma(int dtype, int D, const void* q, const void* r) {
+  return (dtype == kF16 || dtype == kBF16) && D % 8 == 0 && aligned16(q) && aligned16(r);
 }
 
 constexpr int kScorePitch = kMmaBN + 8;  // f32 scores; float2 stores free of bank conflicts
@@ -189,13 +193,13 @@ constexpr size_t mma_smem_bytes() {
 // SELECT false is a probe variant: the products alone (each thread sums its
 // accumulators so that nothing is dead code), no staging and no selection;
 // it writes nothing unless a sum is exactly -1.
-template <int E, bool SELECT>
+template <typename T, int E, bool SELECT>
 __global__ void __launch_bounds__(kMmaThreads, 2)
-    extract_topk_mma_kernel(const __half* __restrict__ q, const __half* __restrict__ r,
+    extract_topk_mma_kernel(const T* __restrict__ q, const T* __restrict__ r,
                             float* __restrict__ out_s, int* __restrict__ out_i, int Nq, int Nr,
                             int D, int num_valid, int tile_r) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __half* ring = reinterpret_cast<__half*>(smem_raw);
+  T* ring = reinterpret_cast<T*>(smem_raw);
   float(*sc)[kScorePitch] = reinterpret_cast<float(*)[kScorePitch]>(smem_raw);
   float* lv = reinterpret_cast<float*>(smem_raw + kMmaStageBytes);  // [E][threads]
   int* lc = reinterpret_cast<int*>(lv + E * kMmaThreads);          // [E][threads]
@@ -301,17 +305,17 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   }
 }
 
-template <int E, bool SELECT = true>
+template <typename T, int E, bool SELECT = true>
 cudaError_t launch_mma(const void* q, const void* r, float* s, int* idx, int Nq, int Nr, int D,
                        int num_valid, int tile_r, int nb, cudaStream_t stream) {
-  const auto kernel = extract_topk_mma_kernel<E, SELECT>;
+  const auto kernel = extract_topk_mma_kernel<T, E, SELECT>;
   constexpr size_t smem = mma_smem_bytes<E>();
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Nq + kMmaBM - 1) / kMmaBM, nb);
-  kernel<<<grid, kMmaThreads, smem, stream>>>(static_cast<const __half*>(q),
-                                              static_cast<const __half*>(r), s, idx, Nq, Nr, D,
+  kernel<<<grid, kMmaThreads, smem, stream>>>(static_cast<const T*>(q),
+                                              static_cast<const T*>(r), s, idx, Nq, Nr, D,
                                               num_valid, tile_r);
   return cudaGetLastError();
 }
@@ -347,18 +351,18 @@ cudaError_t dispatch_e(int e, const void* q, const void* r, float* s, int* idx, 
   }
 }
 
-inline cudaError_t dispatch_mma(int e, const void* q, const void* r, float* s, int* idx, int Nq,
-                                int Nr, int D, int num_valid, int tile_r, int nb,
-                                cudaStream_t stream) {
+template <typename T>
+cudaError_t dispatch_mma(int e, const void* q, const void* r, float* s, int* idx, int Nq, int Nr,
+                         int D, int num_valid, int tile_r, int nb, cudaStream_t stream) {
   switch (e) {
-    case 1: return launch_mma<1>(q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, stream);
-    case 2: return launch_mma<2>(q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, stream);
-    case 3: return launch_mma<3>(q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, stream);
-    case 4: return launch_mma<4>(q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, stream);
-    case 5: return launch_mma<5>(q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, stream);
-    case 6: return launch_mma<6>(q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, stream);
-    case 7: return launch_mma<7>(q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, stream);
-    case 8: return launch_mma<8>(q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, stream);
+    case 1: return launch_mma<T, 1>(q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, stream);
+    case 2: return launch_mma<T, 2>(q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, stream);
+    case 3: return launch_mma<T, 3>(q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, stream);
+    case 4: return launch_mma<T, 4>(q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, stream);
+    case 5: return launch_mma<T, 5>(q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, stream);
+    case 6: return launch_mma<T, 6>(q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, stream);
+    case 7: return launch_mma<T, 7>(q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, stream);
+    case 8: return launch_mma<T, 8>(q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -366,22 +370,29 @@ inline cudaError_t dispatch_mma(int e, const void* q, const void* r, float* s, i
 }  // namespace topk
 }  // namespace vsc22
 
-// q: [Nq, D], r: [Nr, D], both f32 (f16 == 0) or both f16 (f16 == 1),
+// q: [Nq, D], r: [Nr, D], both of `dtype` (0 f32, 1 f16, 2 bf16),
 // contiguous; D >= 1; 1 <= e <= 8; tile_r >= e; 0 <= num_valid <= Nr;
 // nb = ceil(Nr / tile_r) <= 65535. s: f32 [nb, e, Nq], idx: i32 [nb, e, Nq].
 // mma == 1 takes the tensor-core kernel, which needs `topk_is_mma` (else
-// the call fails with cudaErrorInvalidValue); mma == 0 the FFMA kernel.
+// the call fails with cudaErrorInvalidValue); mma == 0 the FFMA kernel,
+// which takes f32 and f16 only.
 extern "C" int vsc22_extract_topk(const void* q, const void* r, float* s, int* idx, int Nq,
                                   int Nr, int D, int num_valid, int tile_r, int e, int nb,
-                                  int f16, int mma, void* stream) {
+                                  int dtype, int mma, void* stream) {
   using namespace vsc22::topk;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mma) {
-    if (!topk_is_mma(f16, D, q, r)) return (int)cudaErrorInvalidValue;
-    return (int)dispatch_mma(e, q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, st);
+    if (!topk_is_mma(dtype, D, q, r)) return (int)cudaErrorInvalidValue;
+    if (dtype == kBF16)
+      return (int)dispatch_mma<__nv_bfloat16>(e, q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb,
+                                              st);
+    return (int)dispatch_mma<__half>(e, q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, st);
   }
-  if (f16) return (int)dispatch_e<__half>(e, q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, st);
-  return (int)dispatch_e<float>(e, q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, st);
+  if (dtype == kF16)
+    return (int)dispatch_e<__half>(e, q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, st);
+  if (dtype == kF32)
+    return (int)dispatch_e<float>(e, q, r, s, idx, Nq, Nr, D, num_valid, tile_r, nb, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Probe only (scripts/torch_topk_probe.py): the tensor-core kernel's
@@ -392,7 +403,7 @@ extern "C" int vsc22_extract_topk_products(const void* q, const void* r, float* 
                                            int Nr, int D, int num_valid, int tile_r, int nb,
                                            void* stream) {
   using namespace vsc22::topk;
-  if (!topk_is_mma(1, D, q, r)) return (int)cudaErrorInvalidValue;
-  return (int)launch_mma<1, false>(q, r, s, nullptr, Nq, Nr, D, num_valid, tile_r, nb,
-                                   static_cast<cudaStream_t>(stream));
+  if (!topk_is_mma(kF16, D, q, r)) return (int)cudaErrorInvalidValue;
+  return (int)launch_mma<__half, 1, false>(q, r, s, nullptr, Nq, Nr, D, num_valid, tile_r, nb,
+                                           static_cast<cudaStream_t>(stream));
 }

@@ -185,6 +185,8 @@ def _frames_on(frames, device) -> torch.Tensor:
     `device`."""
     if isinstance(frames, torch.Tensor):
         return frames.to(device)
+    if isinstance(frames, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(frames)).to(device)
     if frames and isinstance(frames[0], torch.Tensor):
         return torch.stack(list(frames)).to(device)
     return torch.from_numpy(np.stack([np.asarray(f) for f in frames])).to(device)
@@ -538,16 +540,33 @@ def clean_boxes(
     return res
 
 
+def video_maps(img_list: Sequence, device="cuda", precomputed_maps=None,
+               use_device_maps: bool = False, device_frames=None) -> Tuple[Array, Array]:
+    """One video's (variance, edge) maps as the JAX entry points pick them:
+    `precomputed_maps` as given; else the device maps of `device_frames`
+    (a [N, H, W, 3] uint8 copy of the frames already on the device); else
+    the device maps of the frames with `use_device_maps`; else the exact
+    host maps (`variance_and_edges_host`)."""
+    if precomputed_maps is not None:
+        return precomputed_maps
+    if device_frames is not None:
+        return variance_and_edges_device(device_frames, device_frames.device)
+    maps_fn = variance_and_edges_device if use_device_maps else variance_and_edges_host
+    return maps_fn(img_list, device)
+
+
 def image_process_boxes(
-    img_list: Sequence, precomputed_maps: Tuple[Array, Array]
+    img_list: Sequence, precomputed_maps: Optional[Tuple[Array, Array]] = None,
+    use_device_maps: bool = False, device_frames=None, device="cuda",
 ) -> Tuple[bool, List[Box]]:
     """(changed?, crop boxes in original coordinates) from the maps of the
-    video (`fsd.image_process_boxes` with `precomputed_maps`). The maps are
-    computed beforehand, outside any fallback handler, so a device error
-    propagates instead of being read as "no edit"."""
+    video (`fsd.image_process_boxes`; the maps as `video_maps` picks them).
+    Callers with a fallback handler compute the maps beforehand, outside
+    it, so a device error propagates instead of being read as "no edit"."""
     n = len(img_list)
     h, w = (int(d) for d in img_list[0].shape[:2])
-    img_var, avg_canny = precomputed_maps
+    img_var, avg_canny = video_maps(img_list, device, precomputed_maps, use_device_maps,
+                                    device_frames)
     boxes = clean_boxes(img_var, avg_canny, n, (0, h, 0, w))
     changed = len(boxes) > 1 or boxes[0] != (0, h, 0, w)
     return changed, boxes
@@ -588,21 +607,18 @@ def clean_imgs(imgs: List, img_var: Array, avg_canny: Array) -> List[List]:
 
 def image_process(
     img_list: Sequence, device="cuda", precomputed_maps: Optional[Tuple[Array, Array]] = None,
-    use_device_maps: bool = False,
+    use_device_maps: bool = False, device_frames=None,
 ) -> Tuple[bool, List]:
     """FSD over one video's frames (`fsd.image_process`): (processed?,
     frames), where `frames` is the concatenation of every scene crop's
     frame stream when borders or splits were found, and the input frames
     otherwise. The frames may be numpy arrays or tensors (crops are views
-    of them). The maps (`variance_and_edges_host`, the exact path, or with
-    `use_device_maps` `variance_and_edges_device`, on `device`) are
+    of them). The maps (`video_maps`: the exact host path, or with
+    `use_device_maps` or `device_frames` `variance_and_edges_device`) are
     computed first, outside the fallback, so a device error propagates; a
     failure in the cut decisions keeps the raw frames (the reference
     robustness contract)."""
-    maps = precomputed_maps
-    if maps is None:
-        maps_fn = variance_and_edges_device if use_device_maps else variance_and_edges_host
-        maps = maps_fn(img_list, device)
+    maps = video_maps(img_list, device, precomputed_maps, use_device_maps, device_frames)
     try:
         changed, boxes = image_process_boxes(img_list, maps)
         if changed:

@@ -436,14 +436,14 @@ def layer_norm(x, ln: LayerNorm, eps: float, dtype):
     return y.to(dtype)
 
 
-def gem_pool(x, p: float = 3.0, dim: int = 1, eps: float = 1e-6):
-    """Generalized-mean pool over `dim`: (mean(clamp(x, eps)^p))^(1/p), f32."""
+def gem_pool(x, p: float = 3.0, axis: int = 1, eps: float = 1e-6):
+    """Generalized-mean pool over `axis`: (mean(clamp(x, eps)^p))^(1/p), f32."""
     x = x.float().clamp(min=eps)
-    return (x**p).mean(dim=dim) ** (1.0 / p)
+    return (x**p).mean(dim=axis) ** (1.0 / p)
 
 
-def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
-    return x / torch.linalg.vector_norm(x, dim=dim, keepdim=True).clamp(min=eps)
+def l2_normalize(x, axis: int = -1, eps: float = 1e-12):
+    return x / torch.linalg.vector_norm(x, dim=axis, keepdim=True).clamp(min=eps)
 
 
 class GeMPool(nn.Module):
@@ -456,7 +456,7 @@ class GeMPool(nn.Module):
         self.proj = Linear(in_dim, proj_dim, dtype, device)
 
     def forward(self, tokens):  # [B, L, C]
-        return gem_pool(self.proj(tokens), self.pool_param, dim=1)
+        return gem_pool(self.proj(tokens), self.pool_param, axis=1)
 
 
 class PatchEmbed(nn.Module):

@@ -49,7 +49,7 @@ class MaeDescriptor(nn.Module):
             raise ValueError("training with dropout or drop-path needs a DropRng")
         tokens = self.backbone(images, rng if train else None)
         y = self.fc(tokens[:, 1:])  # CLS excluded
-        return self.output_proj(gem_pool(y, self.pool_param, dim=1))
+        return self.output_proj(gem_pool(y, self.pool_param, axis=1))
 
 
 def masking_noise(generator: torch.Generator, b: int, l: int, device=None) -> torch.Tensor:

@@ -228,7 +228,7 @@ class SwinTransformerV1(nn.Module):
             if s < len(self.merges):
                 x = self.merges[s](x)
         x = layer_norm(x, self.norm, _LN_EPS, dt)
-        return self.output_proj(gem_pool(x, cfg.pool_param, dim=1))
+        return self.output_proj(gem_pool(x, cfg.pool_param, axis=1))
 
 
 def swin_v1_tiny_224(dtype=torch.float32, device="cuda") -> SwinTransformerV1:

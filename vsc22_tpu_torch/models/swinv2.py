@@ -394,7 +394,7 @@ class SwinTransformerV2(nn.Module):
             if s < len(self.merges):
                 x = self.merges[s](x)
         x = layer_norm(x, self.norm, _LN_EPS, dt)
-        return self.output_proj(gem_pool(x, cfg.pool_param, dim=1))
+        return self.output_proj(gem_pool(x, cfg.pool_param, axis=1))
 
 
 def swinv2_base_256_descriptor(dtype=torch.bfloat16, device="cuda",
@@ -405,8 +405,14 @@ def swinv2_base_256_descriptor(dtype=torch.bfloat16, device="cuda",
     return SwinTransformerV2(SWINV2_BASE_256, dtype, resolve(device), fused_block, remat)
 
 
-def swinv2_tiny_test_descriptor(dtype=torch.float32, device=None,
-                                remat: bool = False) -> SwinTransformerV2:
+def swinv2_tiny_test_descriptor(dtype=torch.float32, device=None, remat: bool = False,
+                                output_dim=None, img_size=None,
+                                window_size=None) -> SwinTransformerV2:
     """Small config for tests and CPU runs (on the CPU by default: it
-    exists for tests)."""
-    return SwinTransformerV2(SWINV2_TINY_TEST, dtype, device, remat=remat)
+    exists for tests). `output_dim`, `img_size` and `window_size` override
+    the test config, as the JAX builder's do (registry configs pass them
+    through: the learning demo trains a 32-d model at 64^2, window 8)."""
+    over = {key: int(v) for key, v in (("output_dim", output_dim), ("img_size", img_size),
+                                       ("window_size", window_size)) if v is not None}
+    cfg = dataclasses.replace(SWINV2_TINY_TEST, **over)
+    return SwinTransformerV2(cfg, dtype, device, remat=remat)

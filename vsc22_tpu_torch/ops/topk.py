@@ -11,11 +11,13 @@ and `bound[q]`, the max over blocks of the e-th score: it bounds every
 entry the extraction did not surface, which is the certificate
 `retrieval.search.SimilaritySearcher.row_topk` rescans on.
 
-Operands are taken as the searcher holds them, f16 or f32, and multiplied
-in f32 (TF32 off): the JAX kernel's bf16 hi/lo split is not needed. The
-kernel has two product loops, chosen by the static rule of `topk_route`:
-f16 tensor cores for f16 operands with D % 8 == 0 and 16-byte-aligned
-bases, the f32 FFMA tile otherwise.
+Operands are taken as the searcher holds them, f16, bf16 (the searcher's
+`compute_dtype`) or f32, and multiplied in f32 (TF32 off): the JAX
+kernel's bf16 hi/lo split is not needed. The kernel has two product loops,
+chosen by the static rule of `topk_route`: tensor cores for f16 or bf16
+operands with D % 8 == 0 and 16-byte-aligned bases, the f32 FFMA tile for
+f32 and for f16 off that rule. bf16 has the tensor-core loop only: a bf16
+call off the rule raises.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from vsc22_tpu_torch.ops.vjp import refuse_grad
 NEG_INF = float(np.finfo(np.float32).min)
 MAX_E = 8  # the kernel's template range
 MAX_BLOCKS = 65535  # grid y
-_F16 = {torch.float32: 0, torch.float16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}  # csrc `Dtype`
 _ARGTYPES = [build.PTR] * 4 + [build.INT] * 9 + [build.PTR]
 # The plain version computes this many scores at a time.
 _CHUNK_ELEMS = 1 << 27
@@ -50,19 +52,22 @@ def no_tf32():
 
 
 def topk_route(dtype: torch.dtype, d: int, *operands: torch.Tensor) -> str:
-    """The product loop B5 takes: "mma" (f16 tensor cores) for float16
-    with D % 8 == 0 and 16-byte-aligned operands, "ffma" (the f32 CUDA-core
-    tile) otherwise. The wrapper passes it to the kernel, which refuses
-    "mma" off the rule (`topk_is_mma` in `csrc/extract_topk.cu`)."""
+    """The product loop B5 takes: "mma" (tensor cores) for float16 or
+    bfloat16 with D % 8 == 0 and 16-byte-aligned operands, "ffma" (the f32
+    CUDA-core tile) otherwise. The wrapper passes it to the kernel, which
+    refuses "mma" off the rule (`topk_is_mma` in `csrc/extract_topk.cu`)
+    and bfloat16 on "ffma"."""
     aligned = all(t.data_ptr() % 16 == 0 for t in operands)
-    return "mma" if dtype == torch.float16 and d % 8 == 0 and aligned else "ffma"
+    half = dtype in (torch.float16, torch.bfloat16)
+    return "mma" if half and d % 8 == 0 and aligned else "ffma"
 
 
 def _check(queries, refs, num_valid, e, tile_r):
     if queries.ndim != 2 or refs.ndim != 2 or queries.shape[1] != refs.shape[1]:
         raise ValueError(f"shapes {tuple(queries.shape)} and {tuple(refs.shape)} do not pair")
-    if queries.dtype != refs.dtype or queries.dtype not in _F16:
-        raise TypeError(f"operands {queries.dtype}, {refs.dtype}: both float16 or both float32")
+    if queries.dtype != refs.dtype or queries.dtype not in _DTYPE_CODE:
+        raise TypeError(f"operands {queries.dtype}, {refs.dtype}: both float16, bfloat16 or "
+                        "float32")
     if refs.shape[0] == 0 or refs.shape[1] == 0:
         raise ValueError("extract_topk needs at least one ref row and one dimension")
     if not 0 <= num_valid <= refs.shape[0]:
@@ -152,16 +157,22 @@ def extract_topk(queries, refs, num_valid: int, *, e: int, tile_r: int, k: int):
     i = torch.empty((nb, e, nq), dtype=torch.int32, device=device)
     if nq > 0:
         route = topk_route(q.dtype, d, q, r)
+        if q.dtype == torch.bfloat16 and route != "mma":
+            raise ValueError(f"bfloat16 operands take the tensor-core loop only, which needs "
+                             f"D % 8 == 0 (D {d}) and 16-byte-aligned operands")
         build.call(
             "extract_topk", "vsc22_extract_topk", _ARGTYPES,
             q.data_ptr(), r.data_ptr(), s.data_ptr(), i.data_ptr(), nq, nr, d, int(num_valid),
-            tile_r, e, nb, _F16[q.dtype], int(route == "mma"), build.stream_ptr(device),
+            tile_r, e, nb, _DTYPE_CODE[q.dtype], int(route == "mma"), build.stream_ptr(device),
         )
         extract_topk.launches += 1
         extract_topk.route_launches[route] += 1
+        extract_topk.dtype_launches[q.dtype] += 1
     return merge_blocks(s, i, k)
 
 
 extract_topk.launches = 0
 # Launches by product loop, for runs that check which loop a path took.
 extract_topk.route_launches = {"mma": 0, "ffma": 0}
+# Launches by operand type, for runs that check the bf16 route ran.
+extract_topk.dtype_launches = dict.fromkeys(_DTYPE_CODE, 0)

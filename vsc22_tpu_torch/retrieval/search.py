@@ -36,8 +36,17 @@ kernel off under a mesh and runs the XLA form of the same extraction
 there; both give the same exact top-k, so the port keeps its hand kernel
 on the sharded path.
 
-The port is exact only: the JAX options `use_approx` (`lax.approx_max_k`)
-and `compute_dtype` (bf16 products) are not ported.
+`compute_dtype=torch.bfloat16` (the JAX option) rounds the corpus and the
+queries to bf16 on the device and takes the exact top-k of the f32 products
+of the rounded operands: B5 on its bf16 tensor-core route where its rule
+holds (a bf16 call off the route raises), the plain scans elsewhere, with
+the certificate and the rescan as in f32. `use_approx=True` is taken and
+served by the exact path, which meets that mode's recall contract: the JAX
+mode runs `lax.approx_max_k` per tile, which off the TPU lowers to an exact
+reduction (`tests/test_search.py::test_use_approx_is_optin_and_high_recall`
+asks recall >= 0.98 against exact). The JAX knobs that only tune its own
+scan (`ref_tile`, `query_tile`, `extract_e`, `use_fused_extract`) give the
+same exact results at every value and are not taken.
 """
 
 from __future__ import annotations
@@ -136,13 +145,19 @@ class SimilaritySearcher:
     this rank's rows along `mesh_axis`."""
 
     def __init__(self, refs: np.ndarray, device="cuda", transfer_dtype=np.float32, mesh=None,
-                 mesh_axis: str = "data"):
+                 mesh_axis: str = "data", compute_dtype=None, use_approx: bool = False):
         self.device = resolve(device)
         self.num_refs = int(refs.shape[0])
         self.dim = int(refs.shape[1])
         self.transfer_dtype = np.dtype(transfer_dtype)
         if self.transfer_dtype not in (np.float16, np.float32):
             raise TypeError(f"transfer_dtype {self.transfer_dtype}: float16 or float32")
+        if compute_dtype not in (None, torch.bfloat16):
+            raise TypeError(f"compute_dtype {compute_dtype}: None or torch.bfloat16")
+        # The products' operands, as the JAX searcher casts them at use.
+        self.compute_dtype = compute_dtype
+        # Served by the exact path (module docstring).
+        self.use_approx = use_approx
         self.mesh, self.mesh_axis = mesh, mesh_axis
         # transfer_dtype=np.float16 halves the corpus on the device; the
         # products are still f32 of the shipped values.
@@ -158,8 +173,7 @@ class SimilaritySearcher:
             rows = np.zeros((self.shard_rows, self.dim), self.transfer_dtype)
             rows[: self.local_valid] = refs[self.base : self.base + self.local_valid]
         self.ref_tile = self._pick_tile(self.shard_rows, REF_TILE)
-        self.refs = torch.from_numpy(
-            np.ascontiguousarray(rows, dtype=self.transfer_dtype)).to(self.device)
+        self.refs = self._to_device(rows)
 
     @staticmethod
     def _pick_tile(rows: int, want: int) -> int:
@@ -181,8 +195,9 @@ class SimilaritySearcher:
         return nb * B5_E >= 8 * k_pad
 
     def _to_device(self, rows: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(
-            np.ascontiguousarray(rows, dtype=self.transfer_dtype)).to(self.device)
+        """Rows shipped in the transfer type, then cast to the compute type."""
+        t = torch.from_numpy(np.ascontiguousarray(rows, dtype=self.transfer_dtype)).to(self.device)
+        return t if self.compute_dtype is None else t.to(self.compute_dtype)
 
     # ------------------------------------------------------------------
     def row_topk(self, queries: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -13,7 +13,12 @@ order of operations) updates the online masters, the target masters move
 as `optax.incremental_update(online, target, 1 - ema_decay)`, and both are
 written back into their networks, each rounded to its parameter's dtype.
 The target runs under `torch.no_grad()`. The backbone runs as called
-without `train` (JAX's `apply_backbone(params, images)` is `model.apply`).
+without `train` (JAX's `apply_backbone(params, images)` is `model.apply`),
+so a BatchNorm member normalises with its running statistics. Those are
+leaves of JAX's online dict (its `batch_stats`), which the JAX step
+differentiates and hands to the optimizer and the EMA like any weight: so
+here each BatchNorm's running mean and variance are trained tensors of
+the step too (`trained_tensors`), after the parameters.
 """
 
 from __future__ import annotations
@@ -25,8 +30,8 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
-from vsc22_tpu_torch.models.layers import LayerNorm, Linear, layer_norm
-from vsc22_tpu_torch.train.contrastive import AdamState, AdamW, load_masters
+from vsc22_tpu_torch.models.layers import BatchNorm, LayerNorm, Linear, layer_norm
+from vsc22_tpu_torch.train.contrastive import AdamState, AdamW
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,8 +118,24 @@ def byol_loss(online: ByolNet, target: ByolNet, view_a, view_b):
     return 0.5 * (regression_loss(pa, tb) + regression_loss(pb, ta))
 
 
+def trained_tensors(net: nn.Module) -> Dict[str, torch.Tensor]:
+    """The tensors the step trains, by name: every parameter, then each
+    BatchNorm's running mean and variance (JAX's `batch_stats` leaves)."""
+    out = dict(net.named_parameters())
+    for name, m in net.named_modules():
+        if isinstance(m, BatchNorm):
+            out[f"{name}.mean"], out[f"{name}.var"] = m.mean, m.var
+    return out
+
+
 def _masters(net: nn.Module) -> Dict[str, torch.Tensor]:
-    return {name: p.detach().float().clone() for name, p in net.named_parameters()}
+    return {name: t.detach().float().clone() for name, t in trained_tensors(net).items()}
+
+
+@torch.no_grad()
+def _write(net: nn.Module, masters: Dict[str, torch.Tensor]) -> None:
+    for name, t in trained_tensors(net).items():
+        t.copy_(masters[name])
 
 
 def init_byol(backbone: nn.Module, heads: ByolHeads,
@@ -138,7 +159,9 @@ def make_byol_step(online: ByolNet, target: ByolNet, tx: AdamW,
     target masters <- (1 - decay) * online + decay * target
     (`optax.incremental_update` with step size 1 - decay), both written
     back into their networks."""
-    params = [p for _, p in online.named_parameters()]
+    params = list(trained_tensors(online).values())
+    for t in params:
+        t.requires_grad_(True)  # the BatchNorm buffers: gradients, as in JAX
     step_size = 1.0 - cfg.ema_decay
 
     def step(state: ByolState, view_a, view_b):
@@ -150,8 +173,8 @@ def make_byol_step(online: ByolNet, target: ByolNet, tx: AdamW,
             old = list(state.target.values())
             torch._foreach_mul_(old, 1.0 - step_size)
             torch._foreach_add_(old, torch._foreach_mul(new, step_size))
-        load_masters(online, state.online)
-        load_masters(target, state.target)
+        _write(online, state.online)
+        _write(target, state.target)
         state.step += 1
         return state, loss.detach()
 

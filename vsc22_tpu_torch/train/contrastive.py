@@ -44,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from vsc22_tpu_torch.models.layers import DropRng, l2_normalize
+from vsc22_tpu_torch.models.layers import BatchNorm, DropRng, l2_normalize
 from vsc22_tpu_torch.parallel.mesh import param_shardings
 
 NEG_LARGE = -10000.0
@@ -359,6 +359,24 @@ def _global_norm(mesh, g: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(mesh.all_gather(local, "data")))
 
 
+def refuse_batch_norm(model) -> None:
+    """Raise for a model that holds a `BatchNorm`: the step runs the model
+    in train mode, where a BatchNorm normalises with the batch's statistics
+    and updates its running ones. The JAX step refuses such a member (it
+    applies the model with no mutable `batch_stats` collection, so flax
+    raises `ModifyScopeVariableError` at its first trace), and this
+    package's checkpoints keep no running statistics."""
+    names = [n or type(model).__name__ for n, m in model.named_modules()
+             if isinstance(m, BatchNorm)]
+    if names:
+        raise ValueError(
+            f"the contrastive train step cannot train {type(model).__name__}: it holds "
+            f"{len(names)} BatchNorm layers ({', '.join(names[:3])}"
+            f"{', ...' if len(names) > 3 else ''}), whose running "
+            "statistics a train-mode step would update; the JAX step refuses such a "
+            "member too (its batch_stats collection is immutable there)")
+
+
 def make_train_step(model, tx: AdamW, cfg: ContrastiveConfig, mesh=None):
     """The train step `step(state, batch, generator) -> (state, metrics)`,
     batch = {"img_a": [B, H, W, 3], "img_b": [B, H, W, 3]} on the model's
@@ -367,7 +385,9 @@ def make_train_step(model, tx: AdamW, cfg: ContrastiveConfig, mesh=None):
     `torch.Generator`) seeds the step's dropout and DropPath masks
     (`layers.DropRng`, drawn on the model's device), the same for both FGM
     passes. With `cfg.remat` the whole model runs under
-    `torch.utils.checkpoint`."""
+    `torch.utils.checkpoint`. Raises for a model with a BatchNorm
+    (`refuse_batch_norm`) before any step runs."""
+    refuse_batch_norm(model)
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
 

@@ -68,6 +68,9 @@ NAMES_BY_DESIGN = {
     ("retrieval/search.py", "SimilaritySearcher._get_fused_refs"):
         "split_bf16 operands for the Mosaic top-k, which has no f32 tier; B5 multiplies "
         "f16/f32 itself",
+    ("utils/observability.py", "annotate"):
+        "a bare named trace region; the port's regions are `span`s, which the profiler's "
+        "trace and the process recorder both carry",
 }
 
 

@@ -271,8 +271,8 @@ def test_stage_timer_and_logging_match_jax(tmp_path, capsys):
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
     with pobs.device_trace(str(tmp_path)):
-        with pobs.annotate("tiny_region"):
+        with pobs.span("tiny_region"):
             torch.ones(4).sum()
     with open(tmp_path / "trace.json") as f:
         trace = json.load(f)
-    assert any(e.get("name") == "tiny_region" for e in trace["traceEvents"])
+    assert any(e.get("name") == "vsc22::span/tiny_region" for e in trace["traceEvents"])

@@ -7,7 +7,8 @@ a tiny ViT exported and reloaded gives the eager port's descriptors bit for
 bit and the JAX `model.apply`'s within EXPORT_TOL; a `.params.npz` written
 by the JAX package's `export_model` rebinds the port's program; a call at
 another shape raises `ValueError`. Then each op's fake implementation on
-`meta` tensors against its plain version's shape and dtype, a program
+`meta` tensors against its plain version's shape and dtype (K3's output is
+f32 whatever its operands' dtype), a program
 exported on fake CUDA tensors, which take the card's path through the
 wrappers, holding one op node per K1 and K2 launch, and `load_exported`
 reading a saved op node in an interpreter that has not registered it.
@@ -28,7 +29,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from vsc22_tpu.models import vit as jvit
 from vsc22_tpu.utils import export as jexport
 from vsc22_tpu_torch.models import vit
-from vsc22_tpu_torch.ops import attn, attn_proj, mlp, swin_block, vit_block, window_attn
+from vsc22_tpu_torch.ops import attn, attn_proj, mlp, sim, swin_block, vit_block, window_attn
 from vsc22_tpu_torch.ops.library import OPS as REGISTERED
 from vsc22_tpu_torch.ops.library import register_ops
 from vsc22_tpu_torch.utils import jax_params
@@ -148,15 +149,17 @@ def op_cases(dt):
         ("vit_block", vit_block.vit_block,
          (x3, *ln(), qkv_w, qkv_b, proj_w, proj_b, *ln(), fc1_w, fc1_b, fc2_w, fc2_b, h,
           "quick_gelu", 1e-6)),
+        ("row_max", sim.row_max_gemm, (_t(g, (m, c), dt), _t(g, (2 * m, c), dt))),
     ]
 
 
 OPS = [name for name, _, _ in op_cases(torch.float32)]
+OUT_DTYPES = {"row_max": torch.float32}  # else the first operand's dtype
 
 
 def test_every_forward_kernel_is_a_registered_op():
-    """K1, B9, K2, B7, B1, B6, B8 and B10 are ops of one namespace; K3 and
-    B5, which no model forward reaches, are not."""
+    """K1, B9, K2, B7, B1, B6, B8 and B10, and K3 (score-norm's, for the
+    trace), are ops of one namespace; B5, the search's kernel, is not."""
     register_ops()
     assert sorted(REGISTERED) == sorted(f"vsc22::{n}" for n in OPS)
 
@@ -169,7 +172,7 @@ def test_fake_gives_the_plain_versions_shape_and_dtype(name, dtype):
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
     fake = getattr(torch.ops.vsc22, name)(*meta)
     assert fake.device.type == "meta"
-    assert fake.shape == plain.shape and fake.dtype == plain.dtype == dtype
+    assert fake.shape == plain.shape and fake.dtype == plain.dtype == OUT_DTYPES.get(name, dtype)
 
 
 @pytest.mark.parametrize("name", OPS)

@@ -96,7 +96,8 @@ def runs():
     got_sn = query_score_normalize(got, noise, video_scores=ppipe.video_scores,
                                    score_threshold=0.0, beta=1.2, nk=1, device="cpu")
     return dict(
-        names=names, videos=videos, want=want, got=got, want_sn=want_sn, got_sn=got_sn,
+        names=names, videos=videos, noise=noise, want=want, got=got, want_sn=want_sn,
+        got_sn=got_sn,
         jpipe=jpipe, ppipe=ppipe, phases=phases, stages=stages,
         want_ctx=jpipe._prepare(names, videos), got_ctx=ppipe._prepare(names, videos),
     )
@@ -143,9 +144,10 @@ def test_names_and_timestamps_identical(runs):
 
 def test_fsd_boxes_and_frame_counts_identical(runs):
     """The port's `_prepare` context is JAX's: crop boxes per video, frame
-    counts, the repeated timestamps, the edited videos."""
+    counts, the repeated timestamps, the edited videos; and the port's own
+    key, exactly: the batch's number, which its spans carry."""
     want, got = runs["want_ctx"], runs["got_ctx"]
-    assert set(got) == set(want)
+    assert set(got) == set(want) | {"batch"}
     assert got["names"] == want["names"] and got["edited_idx"] == want["edited_idx"]
     assert got["frame_counts"] == want["frame_counts"]
     assert boxes_of(got) == boxes_of(want)
@@ -172,9 +174,12 @@ def test_stage_names_are_jax(runs):
     """The timer sees JAX's stage names with JAX's counts, except
     `x{size}_dispatch`: JAX runs the three SwinV2 members as one scanned
     program, so it counts that stage once per batch, and the port, whose
-    members run in turn, once per member."""
+    members run in turn, once per member. The port's only stage of its
+    own is `gate_wait`, once per batch the worker prepared."""
     want, got = runs["stages"]["jax"], runs["stages"]["port"]
-    assert set(got) == set(want)
+    assert set(got) - set(want) == {"gate_wait"} and set(want) <= set(got)
+    assert got["gate_wait"] == 1  # 8 videos in batches of 4
+    got = {k: v for k, v in got.items() if k != "gate_wait"}
     members = {}
     for e in runs["ppipe"].extractors:
         members[f"x{e.size}_dispatch"] = members.get(f"x{e.size}_dispatch", 0) + 1
@@ -387,3 +392,125 @@ def test_exact_fsd_maps_setting_cuts_as_jax():
     assert sum(len(b) > 1 for b in want) >= 3  # stacks were split
     assert sum(len(b) == 1 and b[0] != (0, v.shape[1], 0, v.shape[2])
                for b, v in zip(want, videos)) >= 2  # borders were removed
+
+
+# --- spans and counters (`utils/observability`) -----------------------------------
+
+
+@pytest.fixture(scope="module")
+def traced(runs):
+    """The fixture's 8 videos through `process_many` (batches of 4) and
+    score-norm again, on a pipeline built from the fixture's parts with no
+    timer (its weight matrices already on the device), under a CPU
+    profiler that traces every thread: the recorder, the profiler's span
+    events, and what the pipeline itself saw (each `_prepare_finish`
+    context, each video cut on fetched maps)."""
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    from vsc22_tpu_torch.utils import observability as obs
+
+    base = runs["ppipe"]
+    pipe = pbq.BatchedQueryPipeline(base.extractors, pca=base.pca, ved=base.ved,
+                                    use_fsd=True, score_threshold=0.0, out_dim=8, device="cpu")
+    pipe._weight_cache.update(base._weight_cache)
+    contexts, cut = [], []
+    finish, real_cut = pipe._prepare_finish, pipe._cut
+
+    def finish_seen(disp):
+        ctx = finish(disp)
+        contexts.append(ctx)
+        return ctx
+
+    pipe._prepare_finish = finish_seen
+    pipe._cut = lambda boxes, i, frames, maps: cut.append(i) or real_cut(boxes, i, frames, maps)
+    obs.reset()
+    with profile(activities=[ProfilerActivity.CPU],
+                 experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
+        feats = pipe.process_many(runs["names"], runs["videos"], batch=4)
+        query_score_normalize(feats, runs["noise"], video_scores=pipe.video_scores,
+                              score_threshold=0.0, beta=1.2, nk=1, device="cpu")
+    rec = obs.recorded()
+    obs.reset()
+    span_events = [e for e in prof.profiler.kineto_results.events()
+                   if e.name().startswith(obs.SPAN_PREFIX)]
+    return dict(rec=rec, events=span_events, contexts=contexts, cut=cut, feats=feats,
+                main=threading.get_ident(), max_frames=base.ved.max_frames)
+
+
+def kineto_event(traced, span):
+    """The profiler's event of a recorded span: its name, starting within 1 ms."""
+    (e,) = [e for e in traced["events"]
+            if e.name() == "vsc22::span/" + span["name"]
+            and abs(e.start_ns() - span["start_ns"]) < 1_000_000]
+    return e
+
+
+def test_worker_spans_land_on_the_workers_thread(traced):
+    """Every stage of a batch carries its number. The second batch's `ved`,
+    `fsd` and `fsd_screen` ran on the worker: recorded on its thread, and
+    in the profiler's events on a thread of their own, not the caller's,
+    where the first batch's ran and where `gate_wait` waited for them."""
+    spans = traced["rec"]["spans"]
+    batches = sorted({s["ids"]["batch"] for s in spans if "batch" in s["ids"]})
+    assert len(batches) == 2
+    first, second = batches
+    main = traced["main"]
+    (wait,) = [s for s in spans if s["name"] == "gate_wait"]
+    assert wait["ids"] == {"batch": second} and wait["thread"] == main
+    main_tid = kineto_event(traced, wait).start_thread_id()
+    worker_tids = set()
+    for name in ("ved", "fsd", "fsd_screen"):
+        (a,) = [s for s in spans if s["name"] == name and s["ids"]["batch"] == first]
+        (b,) = [s for s in spans if s["name"] == name and s["ids"]["batch"] == second]
+        assert a["thread"] == main != b["thread"]
+        assert kineto_event(traced, a).start_thread_id() == main_tid
+        worker_tids.add(kineto_event(traced, b).start_thread_id())
+    assert len(worker_tids) == 1 and main_tid not in worker_tids
+    (fsd,) = [s for s in spans if s["name"] == "fsd" and s["ids"]["batch"] == second]
+    (screen,) = [s for s in spans if s["name"] == "fsd_screen" and s["ids"]["batch"] == second]
+    assert screen["parent"] == fsd["id"]
+    for b in batches:
+        names = {s["name"] for s in spans if s["ids"].get("batch") == b}
+        assert {"ved_dispatch", "fsd_maps_dispatch", "ved", "fsd", "fsd_screen",
+                "preprocess_64", "preprocess_32", "x64_dispatch", "x32_dispatch",
+                "extract_fetch", "dedup_pca"} <= names
+
+
+def test_score_norm_spans_nest(traced):
+    """`score_norm` holds `score_norm.prepare` then `score_norm.bias`, and
+    its self time is its duration less theirs."""
+    spans = traced["rec"]["spans"]
+    (outer,) = [s for s in spans if s["name"] == "score_norm"]
+    inner = [s for s in spans if s["parent"] == outer["id"]]
+    assert [s["name"] for s in inner] == ["score_norm.prepare", "score_norm.bias"]
+    assert set(outer["ids"]) == {"call"}
+    held = sum(s["end_ns"] - s["start_ns"] for s in inner)
+    assert outer["self_ns"] == outer["end_ns"] - outer["start_ns"] - held >= 0
+    for s in [outer] + inner:
+        kineto_event(traced, s)
+
+
+def test_counters_match_the_pipelines_own_account(traced, runs):
+    """`h2d_bytes` is the frames, the VED's scatter indices, each shape
+    group's sampled edge frames, the flagged videos' map indices and
+    score-norm's two operands; `videos_gated_in` and `fsd_flagged` are what
+    the pipeline's contexts and its cuts show."""
+    from vsc22_tpu_torch.data.fsd import sample_edge_frames
+
+    counters = traced["rec"]["counters"]
+    gated_in = sum(len(ctx["edited_idx"]) for ctx in traced["contexts"])
+    flagged = len(traced["cut"])
+    assert counters["videos_gated_in"] == gated_in == len(runs["names"])
+    assert counters["fsd_flagged"] == flagged >= 1
+    frames = sum(np.asarray(v, np.uint8).nbytes for v in runs["videos"])
+    ved_rows = 8 * sum(min(len(v), traced["max_frames"]) for v in runs["videos"])
+    map_rows = 8 * 2 * flagged
+    videos = runs["videos"]
+    groups = [{v.shape for v in videos[lo : lo + 4]} for lo in range(0, len(videos), 4)]
+    edge_rows = 8 * sum(len(sample_edge_frames(s[0])) for g in groups for s in g)
+    width = runs["noise"][0].feature.shape[1] - 1  # the noise's low-variance dim deleted
+    queries = 4 * width * sum(len(f.feature) for f in traced["feats"])
+    noise = 4 * width * sum(len(f.feature) for f in runs["noise"])
+    assert counters["h2d_bytes"] == (frames + ved_rows + edge_rows + map_rows + queries
+                                     + noise)

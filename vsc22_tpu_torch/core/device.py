@@ -13,6 +13,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vsc22_tpu_torch.utils.observability import count
+
 
 def resolve(device="cuda") -> torch.device:
     """`device` as a torch.device; raise if it is a CUDA device and there is none."""
@@ -30,8 +32,12 @@ def upload(array, device: torch.device, keep: Optional[list] = None) -> torch.Te
     copied from a pinned staging buffer with `non_blocking=True`. `keep`,
     where given, receives that buffer, for a caller that holds it until
     the copy is known to be done (the caching host allocator also holds
-    it until then). On the CPU the result shares the array's memory."""
-    host = torch.from_numpy(np.ascontiguousarray(array))
+    it until then). On the CPU the result shares the array's memory. The
+    array's bytes go to the `h2d_bytes` counter (`utils/observability`), on
+    either device."""
+    array = np.ascontiguousarray(array)
+    count("h2d_bytes", array.nbytes)
+    host = torch.from_numpy(array)
     if device.type != "cuda":
         return host.to(device)
     host = host.pin_memory()

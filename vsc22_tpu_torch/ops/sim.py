@@ -6,7 +6,9 @@ wrapper ships them) and the products are accumulated in f32, without ever
 materialising the [Nq, Nr] similarity matrix. The kernel runs on the f16
 tensor-core tile of `csrc/gemm_nt.cuh`, over the grid of `row_max_grid`;
 its first pass rounds both operands to f16 into scratch copies whose D is
-padded with zeros to `padded_width(D)`.
+padded with zeros to `padded_width(D)`. The launch is the registered op
+`vsc22::row_max` (`ops/library.py`), so a profiler's trace holds its shapes
+and its device time.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from vsc22_tpu_torch.kernels import build
+from vsc22_tpu_torch.ops.library import kernel_op
 from vsc22_tpu_torch.ops.vjp import refuse_grad
 
 _ARGTYPES = [build.PTR] * 4 + [build.INT] * 5 + [build.PTR]
@@ -61,11 +64,15 @@ def row_max_gemm(queries, refs):
     device = build.require_cuda(queries)
     if refs.device != device:
         raise ValueError(f"refs on {refs.device}, queries on {device}")
-    nq, (nr, d) = queries.shape[0], refs.shape
+    if queries.shape[0] == 0:
+        return torch.empty(0, dtype=torch.float32, device=device)
+    return _row_max_op(queries.float().contiguous(), refs.float().contiguous())
+
+
+def _row_max_cuda(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    device = q.device
+    nq, (nr, d) = q.shape[0], r.shape
     out = torch.empty(nq, dtype=torch.float32, device=device)
-    if nq == 0:
-        return out
-    q, r = queries.float().contiguous(), refs.float().contiguous()
     dp = padded_width(d)
     # the f16 copies of both operands, in one allocation: at the query
     # pass's shape each allocation costs the host as much as a launch
@@ -80,3 +87,7 @@ def row_max_gemm(queries, refs):
 
 
 row_max_gemm.launches = 0
+_row_max_op = kernel_op(
+    "row_max", _row_max_cuda,
+    fake=lambda q, r: q.new_empty((q.shape[0],), dtype=torch.float32),
+)

@@ -42,8 +42,8 @@ turn. A CUDA-graph counterpart would be a performance change of its own.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
+import itertools
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -70,13 +70,7 @@ from vsc22_tpu_torch.pipelines.query_extract import (
     _l2,
     near_duplicate_keep_indices,
 )
-
-
-class _NoTimer:
-    """The timer of a pipeline that was given none."""
-
-    def stage(self, name):
-        return contextlib.nullcontext()
+from vsc22_tpu_torch.utils.observability import NullTimer, count
 
 
 @dataclasses.dataclass
@@ -92,7 +86,7 @@ class BatchedExtractor:
 
     def __post_init__(self):
         if self.timer is None:
-            self.timer = _NoTimer()
+            self.timer = NullTimer()
 
     def preprocess(self, frames_u8: torch.Tensor) -> torch.Tensor:
         """[N, H, W, 3] uint8 -> [N, S, S, 3] in the model's dtype, on the
@@ -100,10 +94,11 @@ class BatchedExtractor:
         return resize_normalize(frames_u8, self.size, self.preset, out_dtype=self.model.dtype)
 
     @torch.inference_mode()
-    def extract_dispatch(self, batches: Sequence[torch.Tensor]) -> torch.Tensor:
+    def extract_dispatch(self, batches: Sequence[torch.Tensor], **ids) -> torch.Tensor:
         """Preprocessed per-stream tensors [n_i, S, S, 3] -> the device's
-        [sum n_i, D] f32, with no host sync (the last chunk unpadded)."""
-        with self.timer.stage(f"x{self.size}_dispatch"):
+        [sum n_i, D] f32, with no host sync (the last chunk unpadded).
+        `ids` go to the stage's span."""
+        with self.timer.stage(f"x{self.size}_dispatch", **ids):
             flat = torch.cat(list(batches)) if len(batches) > 1 else batches[0]
             return _chunked(self.model, flat, self.chunk).float()
 
@@ -167,8 +162,18 @@ class BatchedQueryPipeline:
     `device`: the card unless the caller says otherwise. `timer`, a
     `utils.observability.StageTimer`, receives the JAX pipeline's stage
     names (`ved_dispatch`, `fsd_maps_dispatch`, `ved`, `fsd`, `fsd_screen`,
-    `preprocess_{size}`, `x{size}_dispatch`, `extract_fetch`, `dedup_pca`);
-    it is handed to every extractor."""
+    `preprocess_{size}`, `x{size}_dispatch`, `extract_fetch`, `dedup_pca`)
+    and the port's `gate_wait` (`process_many` waiting on the worker's
+    half); it is handed to every extractor. Without one, the stages are
+    bare `utils.observability.span`s. Each batch is numbered, and every
+    stage of a batch carries `batch=<number>`, on either thread.
+
+    Counters (`utils.observability.count`, while a profiler or
+    `recording()` records): `h2d_bytes` in `core.device.upload`,
+    `videos_gated_in` (videos at or over the score threshold) and
+    `fsd_flagged` (videos whose maps are fetched and cut: those the
+    profile screen could not clear, or, unscreened, every one cut on its
+    exact maps) in `_fsd_boxes`."""
 
     def __init__(
         self,
@@ -194,10 +199,11 @@ class BatchedQueryPipeline:
         self.device = resolve(device)
         self.rnd_idx = 0
         self.video_scores: Dict[str, float] = {}
-        self.timer = _NoTimer() if timer is None else timer
+        self.timer = NullTimer() if timer is None else timer
         for ext in self.extractors:
             ext.timer = self.timer
         self._weight_cache: Dict[Tuple[int, int, int, int], torch.Tensor] = {}
+        self._batch_ids = itertools.count()
 
     def _weights(self, in_size: int, out_size: int, start: int, stop: int) -> torch.Tensor:
         """The device's cubic crop-resize matrix, built and uploaded once per key."""
@@ -264,11 +270,13 @@ class BatchedQueryPipeline:
             for i in range(len(spans)):
                 fut = None
                 if i + 1 < len(spans):
-                    fut = pool.submit(finish_on_worker, dispatch(spans[i + 1]))
-                fetched = self._extract_fetch(pending)
+                    disp = dispatch(spans[i + 1])
+                    fut = pool.submit(finish_on_worker, disp)
+                fetched = self._extract_fetch(pending, batch=ctx["batch"])
                 next_ctx = next_pending = None
                 if fut is not None:
-                    next_ctx = fut.result()
+                    with self.timer.stage("gate_wait", batch=disp["batch"]):
+                        next_ctx = fut.result()
                     next_pending = self._extract_dispatch_phase(next_ctx)
                 out.extend(self._finalize(ctx, pending, fetched))
                 ctx, pending = next_ctx, next_pending
@@ -288,13 +296,14 @@ class BatchedQueryPipeline:
         buffers of the upload stay in the context until the gating fetch."""
         if timestamps is None:
             timestamps = [list(range(len(v))) for v in videos_u8]
+        batch = next(self._batch_ids)
         pinned: List[torch.Tensor] = []
         if device_videos is None:
             device_videos = [upload(np.asarray(v, np.uint8), self.device, pinned)
                              for v in videos_u8]
 
         probs_dev = None
-        with self.timer.stage("ved_dispatch"):
+        with self.timer.stage("ved_dispatch", batch=batch):
             if self.ved is not None:
                 probs_dev = self.ved.scores_async(device_videos)
         handles = []
@@ -302,14 +311,14 @@ class BatchedQueryPipeline:
             by_shape: Dict[Tuple, List[int]] = {}
             for i, vid in enumerate(device_videos):
                 by_shape.setdefault(tuple(vid.shape), []).append(i)
-            with self.timer.stage("fsd_maps_dispatch"):
+            with self.timer.stage("fsd_maps_dispatch", batch=batch):
                 for shape, idxs in by_shape.items():
                     stack = torch.stack([device_videos[i] for i in idxs])
                     maps16, pack, dims = fsd.batch_maps_profiles_dispatch(stack)
                     handles.append((shape, idxs, maps16, pack, dims))
         return dict(names=names, videos_u8=videos_u8, timestamps=timestamps,
                     device_videos=device_videos, probs_dev=probs_dev, handles=handles,
-                    pinned=pinned)
+                    pinned=pinned, batch=batch)
 
     @torch.inference_mode()
     def _prepare_finish(self, disp):
@@ -320,9 +329,10 @@ class BatchedQueryPipeline:
         device_videos = disp["device_videos"]
         probs_dev = disp["probs_dev"]
         handles = disp["handles"]
+        batch = disp["batch"]
 
         packs: List[np.ndarray] = []
-        with self.timer.stage("ved"):
+        with self.timer.stage("ved", batch=batch):
             parts = [] if probs_dev is None else [probs_dev.float()]
             parts += [pack.reshape(-1) for _, _, _, pack, _ in handles]
             flat = torch.cat(parts).cpu().numpy() if parts else None
@@ -339,8 +349,8 @@ class BatchedQueryPipeline:
         for name, s in zip(names, scores):
             self.video_scores[name] = s
 
-        with self.timer.stage("fsd"):
-            boxes = self._fsd_boxes(videos_u8, device_videos, scores, handles, packs)
+        with self.timer.stage("fsd", batch=batch):
+            boxes = self._fsd_boxes(videos_u8, device_videos, scores, handles, packs, batch)
         proc: List[Optional[List[Tuple[int, fsd.Box]]]] = []
         frame_counts: List[int] = []
         full_ts: List[np.ndarray] = []
@@ -356,27 +366,30 @@ class BatchedQueryPipeline:
             frame_counts.append(int(device_videos[i].shape[0]) * len(boxes[i]))
             full_ts.append(np.array(list(ts) * len(boxes[i])))
         return dict(names=names, scores=scores, proc=proc, frame_counts=frame_counts,
-                    full_ts=full_ts, edited_idx=edited_idx, device_videos=device_videos)
+                    full_ts=full_ts, edited_idx=edited_idx, device_videos=device_videos,
+                    batch=batch)
 
-    def _fsd_boxes(self, videos_u8, device_videos, scores, handles, packs):
+    def _fsd_boxes(self, videos_u8, device_videos, scores, handles, packs, batch):
         """Crop boxes per video; None for a video under the score threshold."""
         boxes: List[Optional[List[fsd.Box]]] = []
         for i, vid in enumerate(device_videos):
             gated = scores[i] < self.score_threshold
             boxes.append(None if gated else [(0, int(vid.shape[1]), 0, int(vid.shape[2]))])
+        gated_in = [i for i, b in enumerate(boxes) if b is not None]
+        count("videos_gated_in", len(gated_in))
         if not self.use_fsd:
             return boxes
         if not self.use_device_fsd_maps:
             # The exact maps of every ungated video (`batch_query.py:556-566`
             # of the JAX package with use_device_maps=False): no screen.
-            for i, vid in enumerate(device_videos):
-                if boxes[i] is not None:
-                    self._cut(boxes, i, videos_u8[i],
-                              fsd.variance_and_edges_host(vid, self.device))
+            count("fsd_flagged", len(gated_in))
+            for i in gated_in:
+                self._cut(boxes, i, videos_u8[i],
+                          fsd.variance_and_edges_host(device_videos[i], self.device))
             return boxes
         batch_maps: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         if handles:
-            with self.timer.stage("fsd_screen"):
+            with self.timer.stage("fsd_screen", batch=batch):
                 for (shape, idxs, maps16, _, dims), pack in zip(handles, packs):
                     n_f, h, w = shape[0], shape[1], shape[2]
                     profs = fsd.unpack_profiles(pack, *dims)
@@ -390,6 +403,7 @@ class BatchedQueryPipeline:
                             boxes0 = None
                         if boxes0 is None:  # the screen only ever clears "no edit"
                             flagged.append(j)
+                    count("fsd_flagged", len(flagged))
                     if not flagged:
                         continue
                     sel = upload(np.array(flagged + [len(idxs) + j for j in flagged]),
@@ -414,7 +428,7 @@ class BatchedQueryPipeline:
 
     def _extract_finish(self, ctx) -> List[VideoFeature]:
         pending = self._extract_dispatch_phase(ctx)
-        return self._finalize(ctx, pending, self._extract_fetch(pending))
+        return self._finalize(ctx, pending, self._extract_fetch(pending, batch=ctx["batch"]))
 
     @torch.inference_mode()
     def _extract_dispatch_phase(self, ctx):
@@ -424,6 +438,7 @@ class BatchedQueryPipeline:
         original frames; extractors sharing (size, preset, dtype) share
         that pass."""
         device_videos = ctx["device_videos"]
+        batch = ctx["batch"]
         streams = [s for i in ctx["edited_idx"] for s in ctx["proc"][i]]
         pending = []
         if not streams:
@@ -432,7 +447,7 @@ class BatchedQueryPipeline:
         for ext in self.extractors:
             key = (ext.size, ext.preset, ext.model.dtype)
             if key not in pre_cache:
-                with self.timer.stage(f"preprocess_{ext.size}"):
+                with self.timer.stage(f"preprocess_{ext.size}", batch=batch):
                     pre_cache[key] = [
                         crop_resize_normalize(
                             device_videos[i],
@@ -445,16 +460,16 @@ class BatchedQueryPipeline:
                         )
                         for i, box in streams
                     ]
-            pending.append((ext, ext.extract_dispatch(pre_cache[key])))
+            pending.append((ext, ext.extract_dispatch(pre_cache[key], batch=batch)))
         return pending
 
     @torch.inference_mode()
-    def _extract_fetch(self, pending) -> Optional[np.ndarray]:
+    def _extract_fetch(self, pending, batch=None) -> Optional[np.ndarray]:
         """Every extractor's output in one flat concat and one fetch (the
         members' widths may differ; `_finalize` slices them back out)."""
         if not pending:
             return None
-        with self.timer.stage("extract_fetch"):
+        with self.timer.stage("extract_fetch", batch=batch):
             return torch.cat([dev_out.reshape(-1) for _, dev_out in pending]).cpu().numpy()
 
     def _finalize(self, ctx, pending, fetched_flat) -> List[VideoFeature]:
@@ -473,7 +488,7 @@ class BatchedQueryPipeline:
 
         out: List[VideoFeature] = []
         cursor = 0
-        with self.timer.stage("dedup_pca"):
+        with self.timer.stage("dedup_pca", batch=ctx["batch"]):
             for i, name in enumerate(ctx["names"]):
                 if ctx["proc"][i] is None:
                     self.rnd_idx += 1

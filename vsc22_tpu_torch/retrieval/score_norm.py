@@ -9,12 +9,18 @@ runs kernel K3 (`ops/sim.py`) on `device`; nk > 1 one batched `row_topk`
 of the searcher (`retrieval/search.py`) over every frame. With a `mesh`
 (`parallel/mesh.Mesh`) the noise corpus is row-sharded over its data axis
 and the searcher serves nk 1 too (K3 is off that path, as in JAX).
+
+`query_score_normalize` is the span `score_norm` (`utils/observability`,
+`call=<number>`), holding `score_norm.prepare` (the queries and the noise
+corpus prepared on the host) and `score_norm.bias` (`_noise_bias`); K3's
+two operand copies go to the `h2d_bytes` counter.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
@@ -25,6 +31,9 @@ from vsc22_tpu_torch.core.device import resolve
 from vsc22_tpu_torch.core.types import VideoFeature
 from vsc22_tpu_torch.ops.sim import row_max_gemm
 from vsc22_tpu_torch.retrieval.search import SimilaritySearcher
+from vsc22_tpu_torch.utils.observability import count, span
+
+_calls = itertools.count()  # numbers each query_score_normalize call's span
 
 
 def transform_features(features: List[VideoFeature], transform) -> List[VideoFeature]:
@@ -101,6 +110,14 @@ def _cached_searcher(noise: np.ndarray, device) -> SimilaritySearcher:
     return searcher
 
 
+def _to_device(array: np.ndarray, device) -> torch.Tensor:
+    """`array` on `device` by a plain pageable copy, its bytes counted as
+    `h2d_bytes`."""
+    array = np.ascontiguousarray(array)
+    count("h2d_bytes", array.nbytes)
+    return torch.from_numpy(array).to(device)
+
+
 def _noise_bias(
     queries: List[VideoFeature],
     score_norm_refs: List[VideoFeature],
@@ -119,10 +136,7 @@ def _noise_bias(
         sims, _ = SimilaritySearcher(noise, device=device, mesh=mesh).row_topk(all_q, nk)
         return -beta * sims.mean(axis=1, keepdims=True)
     if nk == 1:
-        sims = row_max_gemm(
-            torch.from_numpy(np.ascontiguousarray(all_q)).to(device),
-            torch.from_numpy(np.ascontiguousarray(noise)).to(device),
-        )
+        sims = row_max_gemm(_to_device(all_q, device), _to_device(noise, device))
         return -beta * sims.cpu().numpy()[:, None]
     sims, _ = _cached_searcher(noise, device).row_topk(all_q, nk)
     return -beta * sims.mean(axis=1, keepdims=True)
@@ -186,19 +200,22 @@ def query_score_normalize(
     `mesh` where given."""
     device = resolve(device)
     dim = low_var_dim if score_norm_refs is not None and replace_dim else None
-    queries = _prepare(queries, dim, l2_normalize)
-    score_norm_refs = _prepare(score_norm_refs, dim, l2_normalize)
-    bias = _noise_bias(queries, score_norm_refs, beta, nk, device, mesh)
-    if video_scores is not None:
-        gated = np.repeat(
-            np.fromiter(
-                (video_scores[q.video_id] < score_threshold for q in queries),
-                bool, count=len(queries),
-            ),
-            [len(q.feature) for q in queries],
-        )
-        bias = np.where(gated[:, None], -100.0, bias).astype(bias.dtype)
-    return _prepare(queries, None, False, append=bias)
+    with span("score_norm", call=next(_calls)):
+        with span("score_norm.prepare"):
+            queries = _prepare(queries, dim, l2_normalize)
+            score_norm_refs = _prepare(score_norm_refs, dim, l2_normalize)
+        with span("score_norm.bias"):
+            bias = _noise_bias(queries, score_norm_refs, beta, nk, device, mesh)
+        if video_scores is not None:
+            gated = np.repeat(
+                np.fromiter(
+                    (video_scores[q.video_id] < score_threshold for q in queries),
+                    bool, count=len(queries),
+                ),
+                [len(q.feature) for q in queries],
+            )
+            bias = np.where(gated[:, None], -100.0, bias).astype(bias.dtype)
+        return _prepare(queries, None, False, append=bias)
 
 
 def ref_score_normalize(
